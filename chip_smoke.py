@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``dccrg_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card (an H100):
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and continued):
+
+1. build    — compile every ``dccrg_tpu_torch/csrc/*.cu`` with nvcc, in
+              parallel, and print the command, seconds and ptxas report;
+2. kernels  — each kernel against its plain PyTorch twin on the card, at the
+              main path's shapes, bitwise (``torch.equal``; -0 == +0);
+3. headline — Grid 128x128x64 periodic -> Advection(float32) ->
+              initialize_state -> max_time_step -> run(5000): must go
+              through the whole-run kernel only; mass conserved; 200 steps
+              checked against the twin and against the float64 step body;
+              cell-updates/s (median of 3 timed runs);
+4. large    — 512x512x128, run(200) + step: blocked step kernel only;
+5. plane    — 128x128x63 (no z-block divides 63): step on one slab and
+              run(50) on three slabs, plane step kernel only;
+6. timing   — each kernel beside its twin and its least possible time.
+
+Launch counters are set to 0 just before each of phases 3-5 drives its path
+and read just after.  Output ends with the card's name and power limit, one
+JSON line of per-kernel numbers, and the result line
+``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+#: H100 SXM peaks (NVIDIA data sheet): device memory bytes/s, f32 flop/s
+#: outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+#: f32 operations a cell update needs: the whole-run kernel, with the face
+#: weights hoisted, 4 face products + 5 sums + the final multiply-add; a
+#: one-step kernel adds 4 faces x (sum, half, dt, area, mask) = 20
+RUN_FLOPS_PER_CELL = 11
+STEP_FLOPS_PER_CELL = 31
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, cuda_build
+    from dccrg_tpu_torch.ops import dense_advection as K
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"{name}, power limit not read (nvidia-smi exit {smi.returncode})"
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, card: {card}")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def uniform_grid(shape, n_devices=1):
+        nx, ny, nz = shape
+        return (
+            Grid()
+            .set_initial_length((nx, ny, nz))
+            .set_neighborhood_length(0)
+            .set_periodic(True, True, True)
+            .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                          level_0_cell_length=(1.0 / nx, 1.0 / ny, 1.0 / nz))
+            .initialize(n_devices=n_devices)
+        )
+
+    def event_ms(fn, reps):
+        """Mean device time of ``fn`` over ``reps`` calls (CUDA events).
+        The timed calls queue behind a device-side sleep as long as their
+        host-side issue (measured on a warm-up call), so the host's launch
+        overhead does not open gaps between them — unless a call issues more
+        kernels than the launch queue holds, as the twins' long runs do."""
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        issue_s = min(1.5 * reps * (time.perf_counter() - t), 2.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(issue_s * 2e9))     # cycles at <= 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    # ------------------------------------------------------------ 1. build
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    log(f"[build] {len(built)} librar{'y' if len(built) == 1 else 'ies'} in "
+        f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
+    for lib, info in built.items():
+        log(f"[build] {lib}: {info['seconds']:.2f} s: {info['cmd']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build]   {line.strip()}")
+
+    # ------------------------------------------------ 2. kernels vs twins
+    rng = np.random.default_rng(1234)
+
+    def inputs(D, nzl, ny, nx):
+        shape = (D, nzl, ny, nx)
+        rho = rng.uniform(0.1, 1.0, shape)
+        vx, vy = rng.normal(0.0, 0.5, shape), rng.normal(0.0, 0.5, shape)
+        z = (np.arange(D * nzl) + 0.5) / (D * nzl)
+        vz = 0.3 * np.sin(2 * np.pi * z).reshape(D, nzl, 1, 1) \
+            + rng.normal(0.0, 0.05, shape)
+        t = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+        l0 = np.array([1.0 / nx, 1.0 / ny, 1.0 / (D * nzl)])
+        area = tuple(float(a) for a in np.array(
+            [l0[1] * l0[2], l0[0] * l0[2], l0[0] * l0[1]]).astype(np.float32))
+        mzu = np.ones((D, nzl))
+        mzu[-1, -1] = 0.0          # non-periodic z: exercise a masked face
+        mzd = np.roll(mzu.reshape(-1), 1).reshape(D, nzl)
+        return dict(rho=t(rho), vx=t(vx), vy=t(vy), vz=t(vz),
+                    mx=t(np.ones(nx)), my=t(np.ones(ny)), mzu=t(mzu), mzd=t(mzd),
+                    area=area, inv_vol=float(np.float32(1.0 / l0.prod())),
+                    dt=float(np.float32(0.2 / max(nx, ny, D * nzl))))
+
+    def edges(a):
+        return torch.roll(a[:, -1:], 1, 0), torch.roll(a[:, :1], -1, 0)
+
+    def blocked_args(x):
+        r_lo, r_hi = edges(x["rho"])
+        v_lo, v_hi = edges(x["vz"])
+        return (x["rho"], r_lo, r_hi, x["vx"], x["vy"], x["vz"], v_lo, v_hi,
+                x["mx"], x["my"], x["mzu"], x["mzd"], x["dt"])
+
+    def plane_args(x):
+        ext = lambda a: torch.cat([edges(a)[0], a, edges(a)[1]], dim=1)
+        return (ext(x["rho"]), x["vx"], x["vy"], ext(x["vz"]), x["mx"],
+                x["my"], x["mzu"], x["mzd"], x["dt"])
+
+    def fused_args(x, steps):
+        return (x["rho"][0], x["vx"][0], x["vy"][0], x["vz"][0], x["mx"],
+                x["my"], x["mzu"][0], x["mzd"][0], x["dt"], steps)
+
+    twin_err = {}
+
+    def hold(label, kernel, plain, args, kw):
+        before = dict(K.LAUNCHES)
+        got = kernel(*args, **kw)
+        sync()
+        check(K.LAUNCHES != before, f"{label}: the kernel's launch count did not rise")
+        want = plain(*args, **kw)
+        sync()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want),
+              f"{label}: kernel != twin (max abs err {err:.3e})")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        log(f"[kernels] {label}: bitwise equal to its twin (max abs err {err})")
+        return err
+
+    x_b1 = inputs(1, 64, 128, 128)
+    kw1 = dict(area=x_b1["area"], inv_vol=x_b1["inv_vol"])
+    twin_err["fused_run"] = hold("B1 fused_run 128x128x64, 50 steps", K.fused_run,
+                                 K.fused_run_plain, fused_args(x_b1, 50), kw1)
+    hold("B1 fused_run 128x128x64, 7 steps (odd)", K.fused_run,
+         K.fused_run_plain, fused_args(x_b1, 7), kw1)
+    x_b2 = inputs(1, 128, 512, 512)
+    kw2 = dict(block=K.pick_step_block(128, 512, 512), area=x_b2["area"],
+               inv_vol=x_b2["inv_vol"])
+    check(kw2["block"] == 4, f"512x512x128 block is {kw2['block']}, expected 4")
+    twin_err["flux_update_blocked"] = hold(
+        "B2 flux_update_blocked 512x512x128 B=4", K.flux_update_blocked,
+        K.flux_update_blocked_plain, blocked_args(x_b2), kw2)
+    x_b2d = inputs(4, 8, 128, 128)
+    hold("B2 flux_update_blocked 128x128x32 on 4 slabs B=8", K.flux_update_blocked,
+         K.flux_update_blocked_plain, blocked_args(x_b2d),
+         dict(block=8, area=x_b2d["area"], inv_vol=x_b2d["inv_vol"]))
+    x_b3 = inputs(1, 63, 128, 128)
+    kw3 = dict(area=x_b3["area"], inv_vol=x_b3["inv_vol"])
+    twin_err["flux_update"] = hold("B3 flux_update 128x128x63", K.flux_update,
+                                   K.flux_update_plain, plane_args(x_b3), kw3)
+    x_b3d = inputs(3, 21, 128, 128)
+    hold("B3 flux_update 128x128x63 on 3 slabs", K.flux_update,
+         K.flux_update_plain, plane_args(x_b3d),
+         dict(area=x_b3d["area"], inv_vol=x_b3d["inv_vol"]))
+
+    # ------------------------------------------------- 3-5. the main path
+    launches = {}
+
+    def drive(label, fn, expect):
+        """Run ``fn`` with every count at 0; the counts after must be
+        exactly ``expect`` and no twin may have run."""
+        K.reset_counts()
+        out = fn()
+        sync()
+        got, plain = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+        check(got == {**{k: 0 for k in got}, **expect},
+              f"{label}: launches {got}, expected {expect}")
+        check(not any(plain.values()), f"{label}: a plain twin ran: {plain}")
+        for k, v in expect.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"[{label}] launches {got}")
+        return out
+
+    def finite_mass(label, adv, state, out, rel):
+        rho = out["density"]
+        check(tuple(rho.shape) == tuple(state["density"].shape), f"{label}: shape")
+        check(bool(torch.isfinite(rho).all()), f"{label}: non-finite density")
+        m0, m1 = adv.total_mass(state), adv.total_mass(out)
+        drift = abs(m1 - m0) / m0
+        check(drift <= rel, f"{label}: mass drift {drift:.3e} > {rel:.1e}")
+        log(f"[{label}] mass {m0!r} -> {m1!r} (relative drift {drift!r})")
+
+    def rate(label, fn, n_cells, steps, reps=3):
+        times = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t)
+        secs = statistics.median(times)
+        log(f"[{label}] {n_cells * steps / secs!r} cell-updates/s "
+            f"(median of {reps} runs of {steps} steps, {secs!r} s; runs "
+            f"{[round(t, 6) for t in times]}) on {card}")
+        return n_cells * steps / secs
+
+    # 3. headline: the bench's 128x128x64, 5000 steps
+    t = time.perf_counter()
+    g = uniform_grid((128, 128, 64))
+    adv = Advection(g, dtype=np.float32)
+    check(adv.fused and adv.dense_kind == ("blocked_direct", 16),
+          f"headline dispatch {adv.dense_kind}, fused={adv.fused}")
+    state = adv.initialize_state()
+    dt = 0.4 * adv.max_time_step(state)
+    log(f"[headline] grid + model + state in {time.perf_counter() - t:.2f} s, dt {dt!r}")
+    out = drive("headline", lambda: adv.run(state, 5000, dt), {"fused_run": 1})
+    finite_mass("headline", adv, state, out, 1e-5)
+    short = adv.run(state, 200, dt)
+    twin = K.fused_run_plain(
+        state["density"][0], state["vx"][0], state["vy"][0], state["vz"][0],
+        adv._mx, adv._my, adv._mz_up[0], adv._mz_dn[0], adv._scalar(dt), 200,
+        area=adv._area, inv_vol=adv._inv_vol)
+    check(torch.equal(short["density"][0], twin), "headline: 200 steps != twin")
+    adv64 = Advection(g, dtype=np.float64)
+    s64 = {k: v.double() for k, v in state.items()}
+    ref64 = adv64.run(s64, 200, adv._scalar(dt))["density"]
+    rel64 = float((short["density"].double() - ref64).abs().max() / ref64.abs().max())
+    check(rel64 < 1e-4, f"headline: f32 vs f64 step body, rel err {rel64:.3e}")
+    log(f"[headline] 200 steps: bitwise equal to the twin; vs the f64 step "
+        f"body max err / max density {rel64!r}")
+    rate("headline", lambda: adv.run(state, 5000, dt), 128 * 128 * 64, 5000)
+
+    # 4. large: 512x512x128, the per-step blocked kernel
+    t = time.perf_counter()
+    g = uniform_grid((512, 512, 128))
+    adv = Advection(g, dtype=np.float32)
+    check(not adv.fused and adv.dense_kind == ("blocked_direct", 4),
+          f"large dispatch {adv.dense_kind}, fused={adv.fused}")
+    state = adv.initialize_state()
+    dt = 0.4 * adv.max_time_step(state)
+    log(f"[large] grid + model + state in {time.perf_counter() - t:.2f} s")
+    out = drive("large", lambda: adv.step(adv.run(state, 200, dt), dt),
+                {"flux_update_blocked": 201})
+    finite_mass("large", adv, state, out, 1e-5)
+    rate("large", lambda: adv.run(state, 200, dt), 512 * 512 * 128, 200)
+    del g, adv, state, out
+
+    # 5. plane: 63 z planes, which no z-block size divides
+    g1 = uniform_grid((128, 128, 63))
+    adv1 = Advection(g1, dtype=np.float32)
+    g3 = uniform_grid((128, 128, 63), n_devices=3)
+    adv3 = Advection(g3, dtype=np.float32)
+    check(adv1.dense_kind == adv3.dense_kind == ("plane",) and not adv3.fused,
+          f"plane dispatch {adv1.dense_kind} / {adv3.dense_kind}")
+    s1, s3 = adv1.initialize_state(), adv3.initialize_state()
+    dt = 0.4 * adv1.max_time_step(s1)
+    out1, out3 = drive("plane", lambda: (adv1.step(s1, dt), adv3.run(s3, 50, dt)),
+                       {"flux_update": 51})
+    finite_mass("plane", adv3, s3, out3, 1e-5)
+    cells = g1.get_cells()
+    one = adv1.get_cell_data(out1, "density", cells)
+    three = adv3.get_cell_data(adv3.step(s3, dt), "density", cells)
+    check(np.array_equal(one, three), "plane: one slab != three slabs")
+    rate("plane", lambda: adv3.run(s3, 50, dt), 128 * 128 * 63, 50)
+
+    # --------------------------------------------------------- 6. timing
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    rows = []
+    n1 = 64 * 128 * 128
+    a1 = fused_args(x_b1, 5000)
+    ms = statistics.median(event_ms(lambda: K.fused_run(*a1, **kw1), 1) for _ in range(3))
+    plain_ms = event_ms(lambda: K.fused_run_plain(*a1, **kw1), 1)
+    b = bound(5 * n1 * 4, RUN_FLOPS_PER_CELL * n1 * 5000)
+    rows.append(dict(name="fused_run", shape="128x128x64, 5000 steps",
+                     source="dccrg_tpu_torch/csrc/dense_advection.cu",
+                     replaces="dccrg_tpu/ops/dense_advection.py:325", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    n2 = 128 * 512 * 512
+    a2 = blocked_args(x_b2)
+    ms = event_ms(lambda: K.flux_update_blocked(*a2, **kw2), 20)
+    plain_ms = event_ms(lambda: K.flux_update_blocked_plain(*a2, **kw2), 3)
+    b = bound(5 * n2 * 4 + 4 * 512 * 512 * 4, STEP_FLOPS_PER_CELL * n2)
+    rows.append(dict(name="flux_update_blocked", shape="512x512x128, B=4, one step",
+                     source="dccrg_tpu_torch/csrc/dense_advection.cu",
+                     replaces="dccrg_tpu/ops/dense_advection.py:200", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    n3 = 63 * 128 * 128
+    a3 = plane_args(x_b3)
+    ms = event_ms(lambda: K.flux_update(*a3, **kw3), 50)
+    plain_ms = event_ms(lambda: K.flux_update_plain(*a3, **kw3), 10)
+    b = bound((3 * n3 + 2 * (63 + 2) * 128 * 128) * 4, STEP_FLOPS_PER_CELL * n3)
+    rows.append(dict(name="flux_update", shape="128x128x63, one step",
+                     source="dccrg_tpu_torch/csrc/dense_advection.cu",
+                     replaces="dccrg_tpu/ops/dense_advection.py:86", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    kernels = []
+    for r in rows:
+        (b_ms, b_by) = r["bound"]
+        log(f"[timing] {r['name']} at {r['shape']}: kernel {r['ms']!r} ms, twin "
+            f"{r['plain_ms']!r} ms, bound {b_ms!r} ms ({b_by}), "
+            f"kernel/bound {r['ms'] / b_ms!r}, launches on the main path "
+            f"{launches[r['name']]} on {card}")
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "max_abs_err": twin_err[r["name"]], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,79 @@
+"""Dense fast path for uniform (refinement-level-0) grids.
+
+When every leaf is at level 0 and the partition is z-slab aligned, each
+device's cells form a dense ``[nz_local, ny, nx]`` block (cell ids are
+x-fastest / z-slowest, ``dccrg_mapping.hpp:180-207``), stencils become
+shifted slices, and the halo exchange collapses to two plane transfers up
+and down the slab ring.
+
+In this package all D slabs live in one ``[D, nz_local, ny, nx]`` tensor on
+one device, so the ring's plane transfers are rolls of the top and bottom
+planes over the leading (device) axis.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = ["DenseInfo", "detect_dense", "HaloExtend"]
+
+
+@dataclass(frozen=True)
+class DenseInfo:
+    nx: int
+    ny: int
+    nz: int
+    nz_local: int          # z planes per device
+    n_devices: int
+    periodic: tuple
+
+
+def detect_dense(mapping, topology, leaves, n_devices: int) -> DenseInfo | None:
+    """A grid is dense-eligible iff every leaf is level 0 and ownership is
+    the id-order slab partition with D | nz."""
+    nx, ny, nz = mapping.length
+    if len(leaves) != nx * ny * nz:
+        return None  # something is refined
+    if nz % n_devices != 0:
+        return None
+    per = len(leaves) // n_devices
+    expected = np.repeat(np.arange(n_devices, dtype=np.int32), per)
+    if not np.array_equal(leaves.owner, expected):
+        return None
+    # leaves must be exactly the level-0 cells 1..n in order
+    if leaves.cells[0] != 1 or leaves.cells[-1] != nx * ny * nz:
+        return None
+    return DenseInfo(
+        nx=nx,
+        ny=ny,
+        nz=nz,
+        nz_local=nz // n_devices,
+        n_devices=n_devices,
+        periodic=topology.periodic,
+    )
+
+
+class HaloExtend:
+    """Per-device z halo of a ``[D, nzl, ...]`` slab stack: device d
+    receives the top plane of device d-1 below its block and the bottom
+    plane of device d+1 above it (the ring's two plane transfers; for one
+    device the ring degenerates to the local wrap)."""
+
+    def __init__(self, info):
+        """``info``: a DenseInfo, or a plain device count."""
+        self.info = info
+        self.n_devices = info if isinstance(info, int) else info.n_devices
+
+    def __call__(self, blk: torch.Tensor) -> torch.Tensor:
+        """blk: ``[D, nzl, ...]``. Returns ``[D, nzl+2, ...]``."""
+        recv_below, recv_above = self.planes(blk)
+        return torch.cat([recv_below, blk, recv_above], dim=1)
+
+    def planes(self, blk: torch.Tensor):
+        """The two received halo planes ``(below, above)``, each
+        ``[D, 1, ...]``, without materializing the extended block."""
+        top = blk[:, -1:]                    # plane sent upward
+        bot = blk[:, :1]                     # plane sent downward
+        return torch.roll(top, 1, 0), torch.roll(bot, -1, 0)

@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+and it never drops to the CPU unless asked."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "dccrg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "dccrg_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+_PROBE = """
+import sys
+import numpy as np
+import dccrg_tpu_torch as P
+g = (P.Grid().set_initial_length((8, 8, 8)).set_neighborhood_length(0)
+     .set_periodic(True, True, True)
+     .set_geometry(P.CartesianGeometry, start=(0, 0, 0),
+                   level_0_cell_length=(1 / 8, 1 / 8, 1 / 8))
+     .initialize(device="cpu"))
+for dtype in (np.float32, np.float64):
+    a = P.Advection(g, dtype=dtype)
+    s = a.initialize_state()
+    dt = 0.4 * a.max_time_step(s)
+    for _ in range(3):
+        s = a.step(s, dt)
+    assert np.isfinite(a.total_mass(s))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")))
+"""
+
+
+def test_import_and_run_leave_no_jax_modules():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_cuda_grid_does_not_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import dccrg_tpu_torch as P
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g = P.Grid().set_initial_length((8, 8, 8)).initialize(device="cuda")
+        P.Advection(g, dtype="float32").initialize_state()
