@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. build    — compile every ``dccrg_tpu_torch/csrc/*.cu`` with nvcc, in
               parallel, and print the command, seconds and ptxas report;
 2. kernels  — each kernel against its plain PyTorch twin on the card, at the
-              main path's shapes, bitwise (``torch.equal``; -0 == +0);
+              main path's shapes, bitwise (``torch.equal``; -0 == +0): the
+              dense kernels on seeded fields, the flat AMR kernels on the
+              refined grids of phases 6-7 (96^3 and 64^3 voxels);
 3. headline — Grid 128x128x64 periodic -> Advection(float32) ->
               initialize_state -> max_time_step -> run(5000): must go
               through the whole-run kernel only; mass conserved; 200 steps
@@ -19,9 +21,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 4. large    — 512x512x128, run(200) + step: blocked step kernel only;
 5. plane    — 128x128x63 (no z-block divides 63): step on one slab and
               run(50) on three slabs, plane step kernel only;
-6. timing   — each kernel beside its twin and its least possible time.
+6. refined  — the bench's two-level grid (48^3, ball of radius 0.3 around
+              (0.3, 0.5, 0.5) refined once, ~198k leaves) -> run(2000):
+              one flat_amr_run launch; mass conserved; 200 steps against the
+              twin and against the float64 gather step; leaf-updates/s;
+7. refined3 — the bench's three-level grid (16^3, balls of radii 0.6 and
+              0.55 refined in turn) -> run(1000): one flat_ml_run launch;
+              the same checks;
+8. adapt    — on the refined grid: run(50), check_for_adaptation,
+              adapt_grid, run(50) (two flat_amr_run launches), then one
+              step on the gather path (no kernel, no twin) and the gather
+              step's rate over 20 steps;
+9. timing   — each kernel beside its twin and its least possible time.
 
-Launch counters are set to 0 just before each of phases 3-5 drives its path
+Launch counters are set to 0 just before each of phases 3-8 drives its path
 and read just after.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -44,6 +57,23 @@ F32_FLOPS = 67e12
 #: one-step kernel adds 4 faces x (sum, half, dt, area, mask) = 20
 RUN_FLOPS_PER_CELL = 11
 STEP_FLOPS_PER_CELL = 31
+#: f32 operations a voxel a step of the flat two-level kernel in the JAX
+#: body's form (ops/flat_amr.py:345-376): 3 fluxes x 3, 5 delta sums, the
+#: pool mask, 3 pool sums, the origin mask, 3 broadcast sums, 4 for the
+#: update
+FLAT_AMR_FLOPS_PER_VOXEL = 26
+
+
+def flat_ml_flops_per_voxel(cap_active) -> int:
+    """f32 operations a voxel a step of the multi-level kernel in the JAX
+    body's form (ops/flat_amr.py:1054-1084): 14 for delta, 2 masks, per
+    doubling k 3 pool sums and, where it captures, a mask, 3(k+1) broadcast
+    sums and an accumulate, then the final sum."""
+    kmax = max((k for k, a in enumerate(cap_active) if a), default=-1)
+    n = 14 + 2 + 1
+    for k in range(kmax + 1):
+        n += 3 + (2 + 3 * (k + 1) if cap_active[k] else 0)
+    return n
 
 
 def log(msg: str) -> None:
@@ -67,6 +97,7 @@ def main() -> int:
 
     from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, cuda_build
     from dccrg_tpu_torch.ops import dense_advection as K
+    from dccrg_tpu_torch.ops import flat_amr as F
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -93,6 +124,28 @@ def main() -> int:
                           level_0_cell_length=(1.0 / nx, 1.0 / ny, 1.0 / nz))
             .initialize(n_devices=n_devices)
         )
+
+    def refined_grid(n, radii, center, max_ref):
+        """Periodic n^3 grid, each ball of ``radii`` around ``center``
+        refined in turn at the finest level so far (bench.py's
+        measure_refined / _ball_refined_grid)."""
+        g = (
+            Grid()
+            .set_initial_length((n, n, n))
+            .set_neighborhood_length(0)
+            .set_periodic(True, True, True)
+            .set_maximum_refinement_level(max_ref)
+            .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                          level_0_cell_length=(1.0 / n,) * 3)
+            .initialize()
+        )
+        for rad in radii:
+            ids = g.get_cells()
+            r = np.linalg.norm(g.geometry.get_center(ids) - np.asarray(center), axis=1)
+            lv = g.mapping.get_refinement_level(ids)
+            g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
+            g.stop_refining()
+        return g
 
     def event_ms(fn, reps):
         """Mean device time of ``fn`` over ``reps`` calls (CUDA events).
@@ -208,7 +261,57 @@ def main() -> int:
          K.flux_update_plain, plane_args(x_b3d),
          dict(area=x_b3d["area"], inv_vol=x_b3d["inv_vol"]))
 
-    # ------------------------------------------------- 3-5. the main path
+    # the refined grids of phases 6-7, built once: their voxel layouts are
+    # the flat kernels' main-path shapes
+    t = time.perf_counter()
+    g_r = refined_grid(48, (0.3,), (0.3, 0.5, 0.5), 1)
+    adv_r = Advection(g_r, dtype=np.float32, allow_dense=False)
+    check(adv_r._flat_kind == "pallas", f"refined dispatch {adv_r._flat_kind}")
+    check(adv_r._flat_run.shape == (96, 96, 96), f"refined voxels {adv_r._flat_run.shape}")
+    s_r = adv_r.initialize_state()
+    dt_r = 0.4 * adv_r.max_time_step(s_r)
+    log(f"[refined] grid ({len(g_r.get_cells())} leaves) + model + state in "
+        f"{time.perf_counter() - t:.2f} s, dt {dt_r!r}")
+    t = time.perf_counter()
+    g_m = refined_grid(16, (0.6, 0.55), (0.5, 0.5, 0.5), 2)
+    adv_m = Advection(g_m, dtype=np.float32, allow_dense=False)
+    check(adv_m._flat_kind == "ml_pallas", f"refined3 dispatch {adv_m._flat_kind}")
+    check(adv_m._flat_run.shape == (64, 64, 64), f"refined3 voxels {adv_m._flat_run.shape}")
+    s_m = adv_m.initialize_state()
+    dt_m = 0.4 * adv_m.max_time_step(s_m)
+    levels_m = sorted(set(g_m.mapping.get_refinement_level(g_m.get_cells()).tolist()))
+    check(levels_m == [0, 1, 2], f"refined3 levels {levels_m}")
+    log(f"[refined3] grid ({len(g_m.get_cells())} leaves, levels {levels_m}) + model "
+        f"+ state in {time.perf_counter() - t:.2f} s, dt {dt_m!r}")
+
+    def flat_args(adv, state, steps, dt, seed=None):
+        """The flat kernel's main-path arguments; with ``seed``, a seeded
+        random density in place of the initial hump (every voxel nonzero)."""
+        fr = adv._flat_run
+        args = list(fr.inputs(state))
+        if seed is not None:
+            args[0] = torch.tensor(np.random.default_rng(seed).uniform(
+                0.1, 1.0, fr.shape).astype(np.float32), device=dev)
+        return (*args, adv._scalar(dt), steps), fr.kwargs
+
+    for steps in (8, 7):
+        a, kw = flat_args(adv_r, s_r, steps, dt_r)
+        err = hold(f"B5 flat_amr_run 96^3 voxels, {steps} steps", F.flat_amr_run,
+                   F.flat_amr_run_plain, a, kw)
+        twin_err["flat_amr_run"] = max(twin_err.get("flat_amr_run", 0.0), err)
+    a, kw = flat_args(adv_r, s_r, 8, dt_r, seed=5)
+    hold("B5 flat_amr_run 96^3 voxels, 8 steps, random density", F.flat_amr_run,
+         F.flat_amr_run_plain, a, kw)
+    for steps in (8, 7):
+        a, kw = flat_args(adv_m, s_m, steps, dt_m)
+        err = hold(f"B6 flat_ml_run 64^3 voxels, 3 levels, {steps} steps",
+                   F.flat_ml_run, F.flat_ml_run_plain, a, kw)
+        twin_err["flat_ml_run"] = max(twin_err.get("flat_ml_run", 0.0), err)
+    a, kw = flat_args(adv_m, s_m, 8, dt_m, seed=6)
+    hold("B6 flat_ml_run 64^3 voxels, 8 steps, random density", F.flat_ml_run,
+         F.flat_ml_run_plain, a, kw)
+
+    # ------------------------------------------------- 3-8. the main path
     launches = {}
 
     def drive(label, fn, expect):
@@ -235,7 +338,7 @@ def main() -> int:
         check(drift <= rel, f"{label}: mass drift {drift:.3e} > {rel:.1e}")
         log(f"[{label}] mass {m0!r} -> {m1!r} (relative drift {drift!r})")
 
-    def rate(label, fn, n_cells, steps, reps=3):
+    def rate(label, fn, n_cells, steps, reps=3, unit="cell-updates/s"):
         times = []
         for _ in range(reps):
             sync()
@@ -244,7 +347,7 @@ def main() -> int:
             sync()
             times.append(time.perf_counter() - t)
         secs = statistics.median(times)
-        log(f"[{label}] {n_cells * steps / secs!r} cell-updates/s "
+        log(f"[{label}] {n_cells * steps / secs!r} {unit} "
             f"(median of {reps} runs of {steps} steps, {secs!r} s; runs "
             f"{[round(t, 6) for t in times]}) on {card}")
         return n_cells * steps / secs
@@ -308,7 +411,78 @@ def main() -> int:
     check(np.array_equal(one, three), "plane: one slab != three slabs")
     rate("plane", lambda: adv3.run(s3, 50, dt), 128 * 128 * 63, 50)
 
-    # --------------------------------------------------------- 6. timing
+    def flat_checks(label, adv, state, out, dt, steps, tol64):
+        """Mass, 200 steps against the twin (bitwise) and against the
+        float64 gather step (max error over the peak density <= tol64)."""
+        finite_mass(label, adv, state, out, 1e-5)
+        short = adv.run(state, steps, dt)
+        fr = adv._flat_run
+        twin = fr.write_back(state, fr.plain(*fr.inputs(state), adv._scalar(dt),
+                                             steps, **fr.kwargs))
+        check(torch.equal(short["density"], twin["density"]),
+              f"{label}: {steps} steps != twin")
+        adv64 = Advection(adv.grid, dtype=np.float64, allow_dense=False)
+        check(adv64._flat_kind is None, f"{label}: f64 took {adv64._flat_kind}")
+        s64 = {k: v.double() for k, v in state.items()}
+        ref64 = adv64.run(s64, steps, adv._scalar(dt))["density"]
+        local = adv.tables.local_mask
+        diff = (short["density"].double() - ref64)[local].abs().max()
+        rel64 = float(diff / ref64[local].abs().max())
+        check(rel64 <= tol64, f"{label}: f32 flat vs f64 gather, rel err {rel64:.3e}")
+        log(f"[{label}] {steps} steps: bitwise equal to the twin; vs the f64 "
+            f"gather step max err / max density {rel64!r} (limit {tol64})")
+
+    # 6. refined: the bench's two-level grid, 2000 steps through B5
+    n_r = len(g_r.get_cells())
+    out = drive("refined", lambda: adv_r.run(s_r, 2000, dt_r), {"flat_amr_run": 1})
+    flat_checks("refined", adv_r, s_r, out, dt_r, 200, 1e-4)
+    rate("refined", lambda: adv_r.run(s_r, 2000, dt_r), n_r, 2000,
+         unit="leaf-updates/s")
+
+    # 7. refined3: the bench's three-level grid, 1000 steps through B6
+    n_m = len(g_m.get_cells())
+    out = drive("refined3", lambda: adv_m.run(s_m, 1000, dt_m), {"flat_ml_run": 1})
+    flat_checks("refined3", adv_m, s_m, out, dt_m, 200, 1e-4)
+    rate("refined3", lambda: adv_m.run(s_m, 1000, dt_m), n_m, 1000,
+         unit="leaf-updates/s")
+
+    # 8. adapt: one adaptation cycle between two flat runs on the refined
+    # grid, then one gather step
+    m0 = adv_r.total_mass(s_r)
+
+    def adapt_cycle():
+        st = adv_r.run(s_r, 50, dt_r)
+        st = adv_r.check_for_adaptation(st)
+        new_adv, st, new_cells, removed = adv_r.adapt_grid(st)
+        check(new_adv._flat_kind == "pallas",
+              f"adapt: the adapted grid took {new_adv._flat_kind}")
+        return new_adv, new_adv.run(st, 50, dt_r), new_cells, removed
+
+    t = time.perf_counter()
+    adv_a, s_a, new_cells, removed = drive("adapt", adapt_cycle, {"flat_amr_run": 2})
+    n_a = len(g_r.get_cells())
+    check(n_a != n_r and len(new_cells) and len(removed),
+          f"adapt: leaves {n_r} -> {n_a}, {len(new_cells)} new, {len(removed)} removed")
+    check(bool(torch.isfinite(s_a["density"]).all()), "adapt: non-finite density")
+    m1 = adv_a.total_mass(s_a)
+    check(abs(m1 - m0) / m0 <= 1e-5, f"adapt: mass drift {abs(m1 - m0) / m0:.3e}")
+    log(f"[adapt] leaves {n_r} -> {n_a} ({len(new_cells)} new, {len(removed)} "
+        f"removed) in {time.perf_counter() - t:.2f} s; mass {m0!r} -> {m1!r}")
+    stepped = drive("adapt step", lambda: adv_a.step(s_a, dt_r), {})
+    check(bool(torch.isfinite(stepped["density"]).all()), "adapt step: non-finite")
+    m2 = adv_a.total_mass(stepped)
+    check(abs(m2 - m1) / m1 <= 1e-6, f"adapt step: mass drift {abs(m2 - m1) / m1:.3e}")
+    log(f"[adapt step] one gather step on the card, mass {m1!r} -> {m2!r}")
+
+    def gather_steps(n=20):
+        st = s_a
+        for _ in range(n):
+            st = adv_a.step(st, dt_r)
+        return st
+
+    rate("adapt step", gather_steps, n_a, 20, unit="leaf-updates/s (gather step)")
+
+    # --------------------------------------------------------- 9. timing
     def bound(nbytes, flops):
         t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -340,6 +514,29 @@ def main() -> int:
     rows.append(dict(name="flux_update", shape="128x128x63, one step",
                      source="dccrg_tpu_torch/csrc/dense_advection.cu",
                      replaces="dccrg_tpu/ops/dense_advection.py:86", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    n_vox = int(np.prod(adv_r._flat_run.shape))
+    a5, kw5 = flat_args(adv_r, s_r, 2000, dt_r)
+    ms = statistics.median(event_ms(lambda: F.flat_amr_run(*a5, **kw5), 1) for _ in range(3))
+    plain_ms = event_ms(lambda: F.flat_amr_run_plain(*a5, **kw5), 1)
+    # V, six weights and two masks in, V out; 2000 steps
+    b = bound(10 * n_vox * 4, FLAT_AMR_FLOPS_PER_VOXEL * n_vox * 2000)
+    rows.append(dict(name="flat_amr_run", shape="96^3 voxels (refined), 2000 steps",
+                     source="dccrg_tpu_torch/csrc/flat_amr.cu",
+                     replaces="dccrg_tpu/ops/flat_amr.py:299", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    n_vox = int(np.prod(adv_m._flat_run.shape))
+    a6, kw6 = flat_args(adv_m, s_m, 1000, dt_m)
+    ms = statistics.median(event_ms(lambda: F.flat_ml_run(*a6, **kw6), 1) for _ in range(3))
+    plain_ms = event_ms(lambda: F.flat_ml_run_plain(*a6, **kw6), 1)
+    cap_active = kw6["cap_active"]
+    n_caps = 1 + max(k for k, on in enumerate(cap_active) if on)
+    # V, six weights, updf, pool and the capture masks in, V out
+    b = bound((10 + n_caps) * n_vox * 4,
+              flat_ml_flops_per_voxel(cap_active) * n_vox * 1000)
+    rows.append(dict(name="flat_ml_run", shape="64^3 voxels (refined3), 1000 steps",
+                     source="dccrg_tpu_torch/csrc/flat_amr.cu",
+                     replaces="dccrg_tpu/ops/flat_amr.py:1026", ms=ms,
                      plain_ms=plain_ms, bound=b))
     kernels = []
     for r in rows:

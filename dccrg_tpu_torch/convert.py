@@ -1,16 +1,18 @@
 """Dtype helpers and numpy <-> state conversion.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a dense advection state
-(``{field: [D, nz_local, ny, nx]}``) between numpy and this package, so a
-state produced elsewhere — by the JAX package, a file, a test — can be run
-here from identical inputs.
+(``{field: [D, nz_local, ny, nx]}``) between numpy and this package, and
+``rows_state_from_numpy`` a row-layout state (``{field: [D, R, ...]}``) by
+cell id, so a state produced elsewhere — by the JAX package, a file, a
+test — can be run here from identical inputs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["torch_dtype", "numpy_dtype", "state_from_numpy", "state_to_numpy"]
+__all__ = ["torch_dtype", "numpy_dtype", "state_from_numpy", "state_to_numpy",
+           "rows_state_from_numpy"]
 
 
 def numpy_dtype(dtype) -> np.dtype:
@@ -45,3 +47,43 @@ def state_from_numpy(adv, arrays) -> dict:
 def state_to_numpy(state) -> dict:
     """Host numpy copies of every field of a state."""
     return {name: t.detach().cpu().numpy() for name, t in state.items()}
+
+
+def rows_state_from_numpy(grid, arrays, cell_ids) -> dict:
+    """The state of ``grid`` (this package's) holding the values of a
+    row-layout state from another epoch of the same leaf set and owners:
+    ``arrays`` maps fields to numpy ``[D, R', ...]`` arrays laid out by
+    ``cell_ids`` ``[D, R']`` (that epoch's row -> cell id table, 0 on pad
+    rows).  Values go by cell id, never by row: every local and ghost row of
+    ``grid`` gets the value its cell holds on its owner's row; pad rows are
+    0.  The arrays keep their dtype and land on the grid's device."""
+    ep = grid.epoch
+    leaves = ep.leaves
+    cell_ids = np.asarray(cell_ids, dtype=np.uint64)
+    if cell_ids.shape[0] != ep.n_devices:
+        raise ValueError(
+            f"cell_ids cover {cell_ids.shape[0]} devices, the grid {ep.n_devices}")
+    # source row of every leaf on its owning device
+    src_row = np.full(len(leaves), -1, dtype=np.int64)
+    for d in range(ep.n_devices):
+        pos = leaves.position(cell_ids[d])
+        own = (pos >= 0) & (leaves.owner[np.maximum(pos, 0)] == d)
+        src_row[pos[own]] = np.flatnonzero(own)
+    if (src_row < 0).any():
+        raise ValueError("cell_ids do not hold every leaf on its owner")
+    dst = []
+    for d in range(ep.n_devices):
+        rows = np.arange(int(ep.n_local[d] + ep.n_ghost[d]))
+        pos = leaves.position(ep.cell_ids[d, rows])
+        dst.append((rows, leaves.owner[pos], src_row[pos]))
+    state = {}
+    for name, arr in arrays.items():
+        host = np.asarray(arr)
+        if host.shape[:2] != cell_ids.shape:
+            raise ValueError(
+                f"{name}: leading shape {host.shape[:2]} != cell_ids {cell_ids.shape}")
+        out = np.zeros((ep.n_devices, ep.R) + host.shape[2:], dtype=host.dtype)
+        for d, (rows, src_dev, src) in enumerate(dst):
+            out[d, rows] = host[src_dev, src]
+        state[name] = torch.from_numpy(out).to(grid.device)
+    return state

@@ -1,21 +1,35 @@
 """3-D upwind finite-volume advection — the framework's north-star workload
 (reference ``tests/advection``: cell layout ``cell.hpp:36-44``, flux solver
 ``solve.hpp:43-260``, initial condition ``initialize.hpp:36-80``, rotating
-velocity field ``solve.hpp:336-346``).
+velocity field ``solve.hpp:336-346``, adaptation ``adapter.hpp:47-310``).
 
-This slice ports the dense uniform-grid path of the JAX package's
-``models/advection.py``: payloads are ``[D, nz_local, ny, nx]`` z-slab
-tensors, every face flux is a shifted neighbor read, and the z halo is the
-two ring planes of ``parallel/dense.py::HaloExtend``.  Cells accumulate
-their own flux in the fixed slot order z-, y-, x-, x+, y+, z+.
+A port of the JAX package's ``models/advection.py``, with two layouts:
 
-Dispatch (the JAX package's, on the same thresholds): float32 with
+* dense (a uniform slab grid): payloads are ``[D, nz_local, ny, nx]``
+  z-slab tensors, every face flux is a shifted neighbor read, and the z
+  halo is the two ring planes of ``parallel/dense.py::HaloExtend``;
+* general (any refined grid): payloads are ``[D, R]`` rows of the epoch,
+  every cell accumulates its own flux from its face-neighbor entries in
+  fixed slot order (``ordered_sum``), ghost densities are refreshed by the
+  halo exchange every step, and face classification is precomputed on the
+  host per epoch (``build_face_tables``).
+
+Dispatch, with the JAX package's labels.  Dense: float32 with
 ``use_kernels`` goes through the CUDA kernels of ``ops/dense_advection.py``
 — the whole-run kernel for ``run`` on one device when the block fits, the
 blocked step kernel when a z-block size divides ``nz_local``, else the
-plane step kernel.  Float64, or ``use_kernels=False``, runs the plain step
-body (the JAX package's XLA body).  On CPU tensors each kernel wrapper
-computes with its plain twin.
+plane step kernel; float64 or ``use_kernels=False`` runs the plain step
+body.  General: ``run`` on one device in float32 with ``use_kernels``
+takes a whole-run flat kernel of ``ops/flat_amr.py`` — ``"pallas"`` (leaf
+levels {0, 1}, ``flat_amr_run``) or ``"ml_pallas"`` (3 or more levels,
+``flat_ml_run``) — when the grid fits; every other case, and every
+``step``, runs the gather step.  The JAX package's other flat and boxed
+forms (XLA programs, not kernels) are not ported, and it prefers boxed
+passes over the flat kernel past a TPU-measured cost edge; without a boxed
+run this package takes the flat kernel wherever it qualifies.
+
+On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
+that fails to build or launch raises: there is no fallback to another path.
 """
 from __future__ import annotations
 
@@ -32,9 +46,139 @@ from ..ops.dense_advection import (
     fused_run_fits,
     pick_step_block,
 )
+from ..ops.flat_amr import (
+    build_flat_amr_tables,
+    build_flat_ml_tables,
+    compute_flat_ml_weights,
+    compute_flat_weights,
+    flat_amr_run,
+    flat_amr_run_plain,
+    flat_ml_kernel_fits,
+    flat_ml_run,
+    flat_ml_run_plain,
+)
 from ..parallel.dense import HaloExtend
+from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
 
-__all__ = ["Advection"]
+__all__ = ["Advection", "build_face_tables"]
+
+
+def build_face_tables(grid, hood_id, tables, dtype):
+    """Classify each neighbor entry as a face neighbor with a signed
+    direction, reproducing the offset logic of ``solve.hpp:71-123``
+    (overlap in exactly 2 dims + contact in 1), plus the physical factors
+    every finite-volume workload prices faces with.  Returns ``(host,
+    dev)``: numpy tables {face_dir, min_area, cell_axis_len, nbr_axis_len,
+    inv_volume} and the same as tensors on the grid's device (float tables
+    in ``dtype``, axis_idx and the direction's sign added)."""
+    from ..core.neighbors import face_directions
+
+    epoch = grid.epoch
+    hood = epoch.hoods[hood_id]
+    off = hood.nbr_offset.astype(np.int64)             # [D, R, K, 3]
+    nlen = hood.nbr_len.astype(np.int64)               # [D, R, K]
+    clen = epoch.cell_len.astype(np.int64)[..., None]  # [D, R, 1]
+    valid = hood.nbr_valid
+
+    direction = np.where(
+        valid, face_directions(off, clen, nlen), 0
+    ).astype(np.int8)                                # [D, R, K] signed axis or 0
+
+    # physical areas/volumes from the geometry tables
+    length = tables.length.cpu().numpy()             # [D, R, 3]
+    vol = length.prod(axis=-1)                       # [D, R]
+    nb = hood.nbr_rows
+    D, R, K = nb.shape
+    nlen_phys = length[np.arange(D)[:, None, None], nb]  # [D, R, K, 3]
+
+    axis_idx = np.abs(direction).astype(np.int64) - 1    # [D, R, K]
+    ai = np.maximum(axis_idx, 0)
+    other = np.stack([(ai + 1) % 3, (ai + 2) % 3], axis=-1)
+    cell_area = np.take_along_axis(
+        np.broadcast_to(length[:, :, None], nlen_phys.shape), other, axis=-1
+    ).prod(axis=-1)
+    nbr_area = np.take_along_axis(nlen_phys, other, axis=-1).prod(axis=-1)
+    min_area = np.minimum(cell_area, nbr_area)
+    is_face = direction != 0
+    host = {
+        "face_dir": direction,
+        "min_area": np.where(is_face, min_area, 0.0),
+        # axis lengths for face-velocity interpolation
+        "cell_axis_len": np.take_along_axis(
+            np.broadcast_to(length[:, :, None], nlen_phys.shape),
+            ai[..., None], axis=-1,
+        )[..., 0],
+        "nbr_axis_len": np.take_along_axis(
+            nlen_phys, ai[..., None], axis=-1
+        )[..., 0],
+        "inv_volume": np.where(vol > 0, 1.0 / vol, 0.0),
+    }
+    tdt = torch_dtype(dtype)
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=grid.device).to(dt)
+    dev = {name: put(host[name], tdt)
+           for name in ("min_area", "cell_axis_len", "nbr_axis_len", "inv_volume")}
+    dev["face_dir"] = put(direction, torch.int8)
+    dev["axis_idx"] = put(ai, torch.int8)
+    dev["sign"] = put(np.sign(direction), tdt)
+    return host, dev
+
+
+class _FlatRun:
+    """A refined grid's whole run on the flat voxel layout: gather the
+    voxels of each field with ``state[f][0][rows]``, compute the face
+    weights once, advance every step in one kernel launch, and write the
+    leaf rows back with ``where(wb_valid, out.flat[wb_rows], density[0])``.
+
+    ``inputs(state)`` gives the kernel wrapper's arguments before ``dt`` and
+    ``steps`` (so a caller can hand the same ones to the plain twin), and
+    ``write_back(state, V)`` the state a voxel array stands for."""
+
+    def __init__(self, tables, device, rows, wb_rows, wb_valid, masks,
+                 weights, kernel, plain, kwargs):
+        put = lambda a, dt=torch.int64: torch.as_tensor(
+            np.ascontiguousarray(a), device=device).to(dt)
+        self.tables = tables
+        self.shape = tuple(tables["shape"])
+        self.rows = put(rows)
+        self.wb_rows = put(wb_rows)
+        self.wb_valid = put(wb_valid, torch.bool)
+        self.masks = [put(m, torch.float32) if not isinstance(m, list)
+                      else [put(c, torch.float32) for c in m] for m in masks]
+        self.weights = weights
+        self.kernel, self.plain, self.kwargs = kernel, plain, kwargs
+
+    @classmethod
+    def two_level(cls, t, device):
+        leaf = t["leaf_fine"]
+        masks = [leaf.astype(np.float64) / t["vol_f"],
+                 (~leaf).astype(np.float64) / t["vol_c"]]
+        return cls(t, device, t["rows"], t["wb_rows"], t["wb_valid"], masks,
+                   compute_flat_weights, flat_amr_run, flat_amr_run_plain, {})
+
+    @classmethod
+    def multi_level(cls, t, device):
+        masks = [t["updf"][0], t["pool"][0], [c[0] for c in t["cap_origin"]]]
+        return cls(t, device, t["rows"][0], t["wb_rows"][0], t["wb_valid"][0],
+                   masks, compute_flat_ml_weights, flat_ml_run,
+                   flat_ml_run_plain, {"cap_active": list(t["cap_active"])})
+
+    def inputs(self, state):
+        def field(name):
+            return state[name][0][self.rows].reshape(self.shape).to(torch.float32)
+
+        (wpx, wnx), (wpy, wny), (wpz, wnz) = self.weights(
+            self.tables, field("vx"), field("vy"), field("vz"))
+        return (field("density"), wpx, wnx, wpy, wny, wpz, wnz, *self.masks)
+
+    def write_back(self, state, V):
+        rho = torch.where(self.wb_valid, V.reshape(-1)[self.wb_rows],
+                          state["density"][0])
+        return {**state, "density": rho[None].to(state["density"].dtype),
+                "flux": torch.zeros_like(state["flux"])}
+
+    def run(self, state, steps, dt):
+        out = self.kernel(*self.inputs(state), dt, steps, **self.kwargs)
+        return self.write_back(state, out)
 
 
 class Advection:
@@ -49,7 +193,8 @@ class Advection:
         "max_diff": ((), np.float64),
     }
 
-    def __init__(self, grid, hood_id=None, dtype=np.float64, use_kernels=True):
+    def __init__(self, grid, hood_id=None, dtype=np.float64, use_kernels=True,
+                 allow_dense=True):
         self.grid = grid
         self.hood_id = hood_id
         self.dtype = numpy_dtype(dtype)
@@ -57,13 +202,109 @@ class Advection:
         self.use_kernels = bool(use_kernels)
         self.device = grid.device
         self.spec = {k: (s, self.dtype) for k, (s, _) in self.SPEC.items()}
-        self.dense = grid.epoch.dense
-        if self.dense is None:
-            raise NotImplementedError(
-                "Advection on a refined or non-slab grid (the general gather "
-                "path) is not ported yet (ROADMAP.md queue A, item 6)"
-            )
-        self._init_dense()
+        self.dense = grid.epoch.dense if allow_dense else None
+        if self.dense is not None:
+            self._init_dense()
+        else:
+            self._init_general()
+
+    # ------------------------------------------------------- general path
+
+    def _init_general(self):
+        grid = self.grid
+        self.tables = StencilTables(grid, self.hood_id, with_geometry=True)
+        self._exchange = grid.halo(self.hood_id)
+        host, self._dev = build_face_tables(grid, self.hood_id, self.tables,
+                                            self.dtype)
+        self.inv_volume = host["inv_volume"]
+        #: which whole-run kernel ``run`` takes: "pallas" (two levels),
+        #: "ml_pallas" (three or more) or None (the gather step) — the JAX
+        #: package's labels
+        self._flat_kind = None
+        self._flat_run = self._build_flat_run()
+
+    def _build_flat_run(self):
+        """The whole-run flat kernel (a :class:`_FlatRun`) when the grid
+        qualifies (one device, float32, kernels allowed, fits), else None.
+        The JAX package's XLA flat forms for the other cases are not
+        ported (ROADMAP.md A7)."""
+        grid = self.grid
+        if (not self.use_kernels or self.dtype != np.float32
+                or grid.n_devices != 1):
+            return None
+        tml = build_flat_ml_tables(grid)
+        if tml is not None:
+            if not flat_ml_kernel_fits(int(tml["n_vox"]), tml["vl"]):
+                return None
+            self._flat_kind = "ml_pallas"
+            return _FlatRun.multi_level(tml, self.device)
+        t = build_flat_amr_tables(grid)
+        if t is None:
+            return None
+        self._flat_kind = "pallas"
+        return _FlatRun.two_level(t, self.device)
+
+    def _general_step(self, state, dt):
+        """One gather step (the JAX package's ``_build_step`` body): a
+        density-only ghost refresh, the face velocity
+        ``(cl*v_nbr + nl*v_cell)/(cl+nl)`` (solve.hpp:168-175), upwind face
+        fluxes, and the ordered sum over the neighbor slots."""
+        # ghost refresh: density only, like the reference's default
+        # get_mpi_datatype (cell.hpp:46-55)
+        state = {**state, **self._exchange({"density": state["density"]})}
+        rho = state["density"]
+        dev = self._dev
+        nbr = self.tables.nbr_rows
+        rho_n = gather_neighbors(rho, nbr)           # [D, R, K]
+        vx_n = gather_neighbors(state["vx"], nbr)
+        vy_n = gather_neighbors(state["vy"], nbr)
+        vz_n = gather_neighbors(state["vz"], nbr)
+
+        sgn, ai = dev["sign"], dev["axis_idx"]
+        v_cell = torch.where(
+            ai == 0, state["vx"][..., None],
+            torch.where(ai == 1, state["vy"][..., None], state["vz"][..., None]),
+        )
+        v_nbr = torch.where(ai == 0, vx_n, torch.where(ai == 1, vy_n, vz_n))
+        cl, nl = dev["cell_axis_len"], dev["nbr_axis_len"]
+        v_face = (cl * v_nbr + nl * v_cell) / (cl + nl)
+
+        r_c = rho[..., None]
+        upwind_pos = torch.where(v_face >= 0, r_c, rho_n)
+        upwind_neg = torch.where(v_face >= 0, rho_n, r_c)
+        upwind = torch.where(sgn > 0, upwind_pos, upwind_neg)
+        face_flux = upwind * dt * v_face * dev["min_area"]
+        # +dir face: outflow subtracts; -dir face: adds (solve.hpp:227-233)
+        zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
+        contrib = torch.where(dev["face_dir"] != 0, -sgn * face_flux, zero)
+        flux = ordered_sum(contrib, axis=-1) * dev["inv_volume"]
+        new_rho = torch.where(self.tables.local_mask, rho + flux, rho)
+        return {**state, "density": new_rho, "flux": torch.zeros_like(flux)}
+
+    def _general_max_dt(self, state) -> float:
+        # CFL: min over local cells of length/|v| per dim (solve.hpp:284-330)
+        length = self.tables.length
+        steps = torch.stack([
+            length[..., 0] / state["vx"].abs(),
+            length[..., 1] / state["vy"].abs(),
+            length[..., 2] / state["vz"].abs(),
+        ], dim=-1)
+        ok = (torch.isfinite(steps) & (steps > 0)
+              & self.tables.local_mask[..., None])
+        return float(torch.where(ok, steps, torch.inf).min())
+
+    def _general_max_diff(self, state, thr):
+        """Max relative density difference to face neighbors
+        (adapter.hpp:71-110) on the row layout."""
+        state = {**state, **self._exchange({"density": state["density"]})}
+        rho = state["density"]
+        rho_n = gather_neighbors(rho, self.tables.nbr_rows)
+        r_c = rho[..., None]
+        diff = (r_c - rho_n).abs() / (torch.minimum(r_c, rho_n) + thr)
+        zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
+        diff = torch.where(self._dev["face_dir"] != 0, diff, zero)
+        md = diff.amax(dim=-1)
+        return {**state, "max_diff": torch.where(self.tables.local_mask, md, zero)}
 
     # ------------------------------------------------------ dense fast path
 
@@ -151,6 +392,17 @@ class Advection:
         z = lin // (i.nx * i.ny)
         return z // i.nz_local, z % i.nz_local, y, x
 
+    def _dense_to_rows(self, state):
+        """Dense ``[D, nzl, ny, nx]`` state -> the general ``[D, R]`` row
+        layout of the current epoch (per field, on the host)."""
+        grid = self.grid
+        cells = grid.get_cells()
+        row_state = grid.new_state(self.spec)
+        for name in self.spec:
+            vals = self.get_cell_data(state, name, cells)
+            row_state = grid.set_cell_data(row_state, name, cells, vals)
+        return row_state
+
     # ----------------------------------------------------------- user API
 
     def initialize_state(self):
@@ -167,6 +419,15 @@ class Advection:
             np.sqrt((centers[:, 0] - 0.25) ** 2 + (centers[:, 1] - 0.5) ** 2), radius
         ) / radius
         rho = 0.25 * (1 + np.cos(np.pi * r))
+        values = {"density": rho, "vx": vx, "vy": vy, "vz": vz}
+
+        if self.dense is None:
+            state = grid.new_state(self.spec)
+            for name in ("vx", "vy", "vz", "density"):
+                state = grid.set_cell_data(state, name, cells, values[name])
+            # ghosts need velocities once (the reference transfers all data
+            # at init); densities refresh every step
+            return self._exchange(state)
 
         i = self.dense
         shape = (i.n_devices, i.nz_local, i.ny, i.nx)
@@ -174,25 +435,31 @@ class Advection:
         state = {}
         for name in self.spec:
             host = np.zeros(shape, dtype=self.dtype)
-            vals = {"density": rho, "vx": vx, "vy": vy, "vz": vz}.get(name)
+            vals = values.get(name)
             if vals is not None:
                 host[d, zl, y, x] = vals
             state[name] = torch.from_numpy(host).to(self.device)
         return state
 
     def get_cell_data(self, state, field: str, ids):
-        """Host-side per-cell read."""
+        """Host-side per-cell read (dense or row layout)."""
+        if self.dense is None:
+            return self.grid.get_cell_data(state, field, ids)
         d, zl, y, x = self._dense_coords(ids)
         return state[field].cpu().numpy()[d, zl, y, x]
 
     def set_cell_data(self, state, field: str, ids, values):
         """Host-side per-cell write; returns a new state."""
+        if self.dense is None:
+            return self.grid.set_cell_data(state, field, ids, values)
         d, zl, y, x = self._dense_coords(ids)
         host = state[field].cpu().numpy().copy()
         host[d, zl, y, x] = values
         return {**state, field: torch.from_numpy(host).to(self.device)}
 
     def step(self, state, dt):
+        if self.dense is None:
+            return self._general_step(state, self._scalar(dt))
         new_rho = self._step_density(
             state["density"], state["vx"], state["vy"], state["vz"],
             self._scalar(dt),
@@ -200,10 +467,18 @@ class Advection:
         return {**state, "density": new_rho}
 
     def run(self, state, steps: int, dt):
-        """Advance ``steps`` timesteps: one whole-run kernel launch on one
-        device when the block fits, else one step launch per step (the
-        velocity halo planes hoisted out of the loop on the blocked path)."""
+        """Advance ``steps`` timesteps.  Dense: one whole-run kernel launch
+        on one device when the block fits, else one step launch per step
+        (the velocity halo planes hoisted out of the loop on the blocked
+        path).  Refined: one flat whole-run kernel launch when the grid
+        qualifies (``_flat_kind``), else the gather step per step."""
         steps, dt = int(steps), self._scalar(dt)
+        if self.dense is None:
+            if self._flat_run is not None:
+                return self._flat_run.run(state, steps, dt)
+            for _ in range(steps):
+                state = self._general_step(state, dt)
+            return state
         rho, vx, vy, vz = (state[k] for k in ("density", "vx", "vy", "vz"))
         if self.fused:
             new = fused_run(
@@ -224,6 +499,8 @@ class Advection:
     def max_time_step(self, state) -> float:
         """CFL limit: min over cells of cell length / |v| per dimension
         (solve.hpp:284-330)."""
+        if self.dense is None:
+            return self._general_max_dt(state)
         best = float("inf")
         for axis, name in enumerate(("vx", "vy", "vz")):
             v = state[name]
@@ -234,10 +511,12 @@ class Advection:
 
     def compute_max_diff(self, state, diff_threshold: float):
         """AMR refinement indicator (adapter.hpp:71-110): max relative
-        density difference to the 6 face neighbors, open-boundary faces
-        masked out."""
-        rho = state["density"]
+        density difference to the face neighbors, open-boundary faces
+        masked out, on whichever layout the model runs."""
         thr = self._scalar(diff_threshold)
+        if self.dense is None:
+            return self._general_max_diff(state, thr)
+        rho = state["density"]
         D, nzl = self.dense.n_devices, self.dense.nz_local
 
         def rel(a, b):
@@ -256,7 +535,78 @@ class Advection:
             md, rel(rho, rho_e[:, :-2]) * self._mz_dn.reshape(D, nzl, 1, 1))
         return {**state, "max_diff": md}
 
+    # --------------------------------------------------------- AMR driver
+
+    def check_for_adaptation(
+        self,
+        state,
+        diff_increase: float = 0.025,
+        diff_threshold: float = 0.25,
+        unrefine_sensitivity: float = 0.5,
+    ):
+        """The reference's adaptation criterion (adapter.hpp:47-178): refine
+        where the max relative density difference to face neighbors exceeds
+        (level+1)*diff_increase, unrefine where it falls below
+        unrefine_sensitivity times that; queues requests on the grid."""
+        grid = self.grid
+        if grid.mapping.max_refinement_level == 0:
+            return state
+        state = self.compute_max_diff(state, diff_threshold)
+        cells = grid.get_cells()
+        md = self.get_cell_data(state, "max_diff", cells)
+        lvl = grid.mapping.get_refinement_level(cells)
+        refine_diff = (lvl + 1) * diff_increase
+        unrefine_diff = unrefine_sensitivity * refine_diff
+        grid.refine_completely_many(cells[md > refine_diff])
+        hold = (md <= refine_diff) & (md >= unrefine_diff)
+        grid.dont_unrefine_many(cells[hold & (lvl > 0)])
+        grid.unrefine_completely_many(cells[(md < unrefine_diff) & (lvl > 0)])
+        return state
+
+    def adapt_grid(self, state):
+        """Commit queued adaptation and carry the state over: children
+        inherit the parent's density, new parents average their children
+        (adapter.hpp:230-292); velocities are re-derived from the rotation
+        field at the new cell centers (adapter.hpp:300-310).  Returns ``(a
+        new Advection bound to the new grid structure, the remapped state,
+        new cells, removed cells)``.  From a dense grid this is its first
+        refine: the state moves to the row layout first."""
+        grid = self.grid
+        if self.dense is not None:
+            if not (grid.amr.to_refine or grid.amr.to_unrefine):
+                # nothing queued: the grid stays uniform and this model
+                # stays valid
+                new_cells = grid.stop_refining()
+                return self, state, new_cells, grid.get_removed_cells()
+            # the dense layout is about to stop existing: convert to the
+            # row layout remap_state speaks while the old epoch is current
+            state = self._dense_to_rows(state)
+        new_cells = grid.stop_refining()
+        removed = grid.get_removed_cells()
+        state = grid.remap_state(
+            state,
+            policy={
+                "density": {"refine": "inherit", "unrefine": "mean"},
+                "flux": {"refine": "zero", "unrefine": "zero"},
+                "max_diff": {"refine": "zero", "unrefine": "zero"},
+            },
+        )
+        adv = Advection(grid, self.hood_id, self.dtype,
+                        use_kernels=self.use_kernels, allow_dense=False)
+        cells = grid.get_cells()
+        centers = grid.geometry.get_center(cells)
+        state = grid.set_cell_data(state, "vx", cells, -centers[:, 1] + 0.5)
+        state = grid.set_cell_data(state, "vy", cells, centers[:, 0] - 0.5)
+        state = grid.set_cell_data(state, "vz", cells, np.zeros(len(cells)))
+        state = adv._exchange(state)
+        return adv, state, new_cells, removed
+
     def total_mass(self, state) -> float:
+        if self.dense is None:
+            rho = state["density"].cpu().numpy()
+            vol = 1.0 / np.where(self.inv_volume > 0, self.inv_volume, np.inf)
+            local = self.tables.local_mask.cpu().numpy()
+            return float((rho * vol * local).sum())
         return float(
             state["density"].cpu().numpy().astype(np.float64).sum() * self._vol
         )

@@ -15,7 +15,8 @@ wrapper                     replaces
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain twin (``*_plain``) only for CPU tensors.  A twin repeats its kernel's
 arithmetic in the same order, so the two agree bitwise on the card.  Launch
-counts are kept in :data:`LAUNCHES`, twin calls in :data:`PLAIN_CALLS`.
+counts are kept in :data:`LAUNCHES`, twin calls in :data:`PLAIN_CALLS` (the
+package-wide counters of ``ops/__init__.py``, re-exported here).
 
 Float32 only, as in the JAX package; the f64 path is the plain step body
 (:func:`dense_step_arith`) in ``models/advection.py``.
@@ -31,6 +32,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from . import LAUNCHES, PLAIN_CALLS, reset_counts
 
 __all__ = [
     "LAUNCHES",
@@ -48,16 +51,6 @@ __all__ = [
     "flux_update_plain",
 ]
 
-#: kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = {"fused_run": 0, "flux_update_blocked": 0, "flux_update": 0}
-#: plain-twin calls per wrapper
-PLAIN_CALLS = {"fused_run": 0, "flux_update_blocked": 0, "flux_update": 0}
-
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ----------------------------------------------- dispatch thresholds (copied)

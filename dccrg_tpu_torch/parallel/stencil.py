@@ -1,0 +1,97 @@
+"""Device-side stencil support: neighbor gather tables as device tensors.
+
+The reference's iteration facade hands user code cached per-cell neighbor
+pointer lists (``Cells_Item``/``Neighbors_Item``, ``dccrg.hpp:7279-7602``).
+Here, as in the JAX package's ``parallel/stencil.py``, they are dense
+``[D, R, K]`` gather tables — row indices, validity masks, offsets, sizes —
+placed on the grid's device once per (epoch, neighborhood), so a workload
+step is a handful of tensor ops with no host involvement.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["StencilTables", "gather_neighbors", "ordered_sum", "compact_rows"]
+
+
+def compact_rows(mask: np.ndarray, scratch: int,
+                 width: int | None = None) -> np.ndarray:
+    """Per-device padded row lists from a ``[D, R]`` bool mask: returns
+    ``[D, W]`` int32 with each device's True rows first and the scratch row
+    as padding.  ``width`` pads W up to a caller-chosen value."""
+    D, R = mask.shape
+    counts = mask.sum(axis=1)
+    W = max(int(counts.max()) if D else 0, 1)
+    if width is not None:
+        if width < W:
+            raise ValueError(f"width {width} below natural {W}")
+        W = width
+    rows = np.full((D, W), scratch, dtype=np.int32)
+    for d in range(D):
+        rows[d, : counts[d]] = np.flatnonzero(mask[d])
+    return rows
+
+
+class StencilTables:
+    """Device tensors describing one neighborhood's structure.
+
+    Attributes (all on the grid's device, leading axis the device slot):
+      nbr_rows   [D, R, K] int64 — row of each neighbor entry (scratch-padded)
+      nbr_valid  [D, R, K] bool  — entry exists
+      nbr_offset [D, R, K, 3] int32 — neighbor min corner - cell min corner
+                 in index units (reference ``Neighbors_Item.x/y/z``)
+      nbr_len    [D, R, K] int32 — neighbor edge length in index units
+      nbr_slot   [D, R, K] int32 — originating neighborhood-offset index
+      cell_len   [D, R] int32 — cell edge length in index units
+      cell_level [D, R] int8
+      local_mask / inner_mask / outer_mask  [D, R] bool
+    and, ``with_geometry``, ``center`` / ``length`` ``[D, R, 3]`` float64
+    (ghost rows included; pad rows hold center 0 and length 1).
+    """
+
+    def __init__(self, grid, hood_id=None, with_geometry: bool = False):
+        epoch = grid.epoch
+        hood = epoch.hoods[hood_id]
+        put = lambda a, dt=None: torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dt, device=grid.device)
+        # gather indices as int64, the index type torch's advanced indexing
+        # takes without a conversion per step
+        self.nbr_rows = put(hood.nbr_rows, torch.int64)
+        self.nbr_valid = put(hood.nbr_valid)
+        self.nbr_offset = put(hood.nbr_offset)
+        self.nbr_len = put(hood.nbr_len)
+        self.nbr_slot = put(hood.nbr_slot)
+        self.cell_len = put(epoch.cell_len)
+        self.cell_level = put(epoch.cell_level)
+        self.local_mask = put(epoch.local_mask)
+        self.inner_mask = put(hood.inner_mask)
+        self.outer_mask = put(hood.outer_mask)
+        if with_geometry:
+            ids = epoch.cell_ids
+            centers = grid.geometry.get_center(ids)
+            lengths = grid.geometry.get_length(ids)
+            pad = ~epoch.local_mask & (epoch.cell_len == 0)
+            centers[pad] = 0.0
+            lengths[pad] = 1.0
+            self.center = put(centers)
+            self.length = put(lengths)
+
+
+def gather_neighbors(x, nbr_rows):
+    """Gather neighbor rows: x ``[D, R, ...]`` + nbr_rows ``[D, R, K]`` ->
+    ``[D, R, K, ...]``."""
+    D = x.shape[0]
+    dev = torch.arange(D, device=x.device).view(D, 1, 1)
+    return x[dev, nbr_rows]
+
+
+def ordered_sum(x, axis: int = -1):
+    """Sum with a strict left-to-right association chain over ``axis``, so
+    the same per-cell contributions give the same bits whatever the array
+    shape or device count (``torch.sum`` picks its own reduction tree)."""
+    parts = x.unbind(axis)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total

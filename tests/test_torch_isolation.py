@@ -45,6 +45,27 @@ for dtype in (np.float32, np.float64):
     for _ in range(3):
         s = a.step(s, dt)
     assert np.isfinite(a.total_mass(s))
+# adaptive refinement: refine a ball, run the flat path (its twin on the
+# CPU), one adaptation cycle, a gather step and a halo exchange on 3 slots
+for D in (1, 3):
+    g = (P.Grid().set_initial_length((8, 8, 8)).set_neighborhood_length(0)
+         .set_periodic(True, True, True).set_maximum_refinement_level(1)
+         .set_geometry(P.CartesianGeometry, start=(0, 0, 0),
+                       level_0_cell_length=(1 / 8, 1 / 8, 1 / 8))
+         .initialize(n_devices=D, device="cpu"))
+    ids = g.get_cells()
+    g.refine_completely_many(
+        ids[np.linalg.norm(g.geometry.get_center(ids) - 0.45, axis=1) < 0.28])
+    g.stop_refining()
+    a = P.Advection(g, dtype=np.float32)
+    assert a._flat_kind == ("pallas" if D == 1 else None)
+    s = a.initialize_state()
+    s = a.run(s, 3, 0.3 * a.max_time_step(s))
+    s = a.check_for_adaptation(s)
+    a, s, new, removed = a.adapt_grid(s)
+    s = a.step(s, 0.3 * a.max_time_step(s))
+    s = g.update_copies_of_remote_neighbors(s)
+    assert np.isfinite(a.total_mass(s))
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")))
 """
