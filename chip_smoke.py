@@ -7,34 +7,48 @@ Run from the repository root on a machine with one CUDA card (an H100):
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
-1. build    — compile every ``dccrg_tpu_torch/csrc/*.cu`` with nvcc, in
-              parallel, and print the command, seconds and ptxas report;
-2. kernels  — each kernel against its plain PyTorch twin on the card, at the
-              main path's shapes, bitwise (``torch.equal``; -0 == +0): the
-              dense kernels on seeded fields, the flat AMR kernels on the
-              refined grids of phases 6-7 (96^3 and 64^3 voxels);
-3. headline — Grid 128x128x64 periodic -> Advection(float32) ->
-              initialize_state -> max_time_step -> run(5000): must go
-              through the whole-run kernel only; mass conserved; 200 steps
-              checked against the twin and against the float64 step body;
-              cell-updates/s (median of 3 timed runs);
-4. large    — 512x512x128, run(200) + step: blocked step kernel only;
-5. plane    — 128x128x63 (no z-block divides 63): step on one slab and
-              run(50) on three slabs, plane step kernel only;
-6. refined  — the bench's two-level grid (48^3, ball of radius 0.3 around
-              (0.3, 0.5, 0.5) refined once, ~198k leaves) -> run(2000):
-              one flat_amr_run launch; mass conserved; 200 steps against the
-              twin and against the float64 gather step; leaf-updates/s;
-7. refined3 — the bench's three-level grid (16^3, balls of radii 0.6 and
-              0.55 refined in turn) -> run(1000): one flat_ml_run launch;
-              the same checks;
-8. adapt    — on the refined grid: run(50), check_for_adaptation,
-              adapt_grid, run(50) (two flat_amr_run launches), then one
-              step on the gather path (no kernel, no twin) and the gather
-              step's rate over 20 steps;
-9. timing   — each kernel beside its twin and its least possible time.
+1. build      — compile every ``dccrg_tpu_torch/csrc/*.cu`` with nvcc, in
+                parallel, and print the command, seconds and ptxas report;
+2. kernels    — each kernel against its plain PyTorch twin on the card, at
+                the main path's shapes, bitwise (``torch.equal``; -0 == +0):
+                the dense kernels on seeded fields, the flat AMR kernels on
+                the refined grids of phases 6-7 (96^3 and 64^3 voxels), the
+                Game of Life kernel on the 500x500 board (30% alive, open and
+                periodic, 7 and 8 turns), the Vlasov step kernel at 32^3 x
+                512 bins (one periodic slab; two slabs, open z);
+3. headline   — Grid 128x128x64 periodic -> Advection(float32) ->
+                initialize_state -> max_time_step -> run(5000): must go
+                through the whole-run kernel only; mass conserved; 200 steps
+                checked against the twin and against the float64 step body;
+                cell-updates/s (median of 3 timed runs);
+4. large      — 512x512x128, run(200) + step: blocked step kernel only;
+5. plane      — 128x128x63 (no z-block divides 63): step on one slab and
+                run(50) on three slabs, plane step kernel only;
+6. refined    — the bench's two-level grid (48^3, ball of radius 0.3 around
+                (0.3, 0.5, 0.5) refined once, ~198k leaves) -> run(2000):
+                one flat_amr_run launch; mass conserved; 200 steps against
+                the twin and against the float64 gather step; leaf-updates/s;
+7. refined3   — the bench's three-level grid (16^3, balls of radii 0.6 and
+                0.55 refined in turn) -> run(1000): one flat_ml_run launch;
+                the same checks;
+8. adapt      — on the refined grid: run(50), check_for_adaptation,
+                adapt_grid, run(50) (two flat_amr_run launches), then one
+                step on the gather path (no kernel, no twin) and the gather
+                step's rate over 20 steps;
+9. gol        — the bench's Game of Life (500x500x1, neighborhood length 1,
+                open, 30% alive from default_rng(0)) -> run(20000): one
+                gol_run launch; 200 turns against the twin, 50 turns against
+                the general gather path; cell-updates/s;
+10. vlasov    — the bench's Vlasov (32^3 periodic, nv = 8, float32, dt =
+                0.4 x max_time_step) -> run(50): 50 vlasov_step launches;
+                mass conserved; 5 steps against the twin (bitwise) and the
+                float64 plain step; phase-space cell-updates/s;
+11. vlasov_amr — Vlasov (nv = 4, float32) on a refined 16^3 grid: the
+                general gather path (no kernel, no twin), mass conserved;
+                seconds a step;
+12. timing    — each kernel beside its twin and its least possible time.
 
-Launch counters are set to 0 just before each of phases 3-8 drives its path
+Launch counters are set to 0 just before each of phases 3-11 drives its path
 and read just after.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -62,6 +76,14 @@ STEP_FLOPS_PER_CELL = 31
 #: pool mask, 3 pool sums, the origin mask, 3 broadcast sums, 4 for the
 #: update
 FLAT_AMR_FLOPS_PER_VOXEL = 26
+#: operations a cell a turn that the Game of Life needs: 7 adds over the 8
+#: neighbours, the rule's 2 compares and 1 select (new = c == 2 ? a :
+#: c == 3); the open edges' masks do nothing on interior cells
+GOL_OPS_PER_CELL = 10
+#: f32 operations a phase-space cell a step of the Vlasov split step: three
+#: splits of 2 flux products, a difference, the scaled product and the
+#: subtraction (the edge planes' two xy splits counted apart)
+VLASOV_FLOPS_PER_CELL = 15
 
 
 def flat_ml_flops_per_voxel(cap_active) -> int:
@@ -95,9 +117,12 @@ def main() -> int:
 
     import numpy as np
 
-    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, cuda_build
+    from dccrg_tpu_torch import (Advection, CartesianGeometry, GameOfLife, Grid,
+                                 Vlasov, cuda_build)
     from dccrg_tpu_torch.ops import dense_advection as K
     from dccrg_tpu_torch.ops import flat_amr as F
+    from dccrg_tpu_torch.ops import gol_kernel as G
+    from dccrg_tpu_torch.ops import vlasov_kernel as V
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -222,16 +247,21 @@ def main() -> int:
     twin_err = {}
 
     def hold(label, kernel, plain, args, kw):
+        """Kernel against twin on the same inputs: every output (a tensor
+        or a tuple of them) bitwise equal.  Returns the max abs error."""
         before = dict(K.LAUNCHES)
         got = kernel(*args, **kw)
         sync()
         check(K.LAUNCHES != before, f"{label}: the kernel's launch count did not rise")
         want = plain(*args, **kw)
         sync()
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want),
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"{label}: kernel != twin (max abs err {err:.3e})")
-        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"{label}: non-finite output")
         log(f"[kernels] {label}: bitwise equal to its twin (max abs err {err})")
         return err
 
@@ -311,7 +341,41 @@ def main() -> int:
     hold("B6 flat_ml_run 64^3 voxels, 8 steps, random density", F.flat_ml_run,
          F.flat_ml_run_plain, a, kw)
 
-    # ------------------------------------------------- 3-8. the main path
+    # B4 on the bench's board: 500x500, 30% alive
+    board = torch.tensor((np.random.default_rng(7).random((500, 500)) < 0.3)
+                         .astype(np.float32), device=dev)
+    for px in (False, True):
+        for turns in (7, 8):
+            err = hold(f"B4 gol_run 500x500, {'periodic' if px else 'open'}, "
+                       f"{turns} turns", G.gol_run, G.gol_run_plain,
+                       (board, turns, px, px), {})
+            twin_err["gol_run"] = max(twin_err.get("gol_run", 0.0), err)
+
+    # B7 at the bench's phase space: 32^3 cells x 8^3 bins, block 4
+    def vlasov_args(D, periodic, seed):
+        r = np.random.default_rng(seed)
+        f = torch.tensor(r.uniform(0.0, 1.0, (D, 32 // D, 32, 32, 512))
+                         .astype(np.float32), device=dev)
+        v = torch.tensor(r.uniform(-1.0, 1.0, (3, 512)).astype(np.float32),
+                         device=dev)
+        lo = torch.roll(f[:, -1:], 1, 0).contiguous()
+        hi = torch.roll(f[:, :1], -1, 0).contiguous()
+        if not periodic[2]:
+            lo[0] = 0.0
+            hi[-1] = 0.0
+        kw = dict(block=4, inv_dx=np.full(3, 32.0), periodic=periodic)
+        return (f, lo, hi, v[0].contiguous(), v[1].contiguous(),
+                v[2].contiguous(), float(np.float32(0.4 / 32))), kw
+
+    check(V.pick_vlasov_block(32, 32, 32, 512) == 4, "32^3 x 512 block is not 4")
+    for D, per in ((1, (True, True, True)), (2, (True, True, False))):
+        a7, kw7 = vlasov_args(D, per, 11 + D)
+        err = hold(f"B7 vlasov_step 32^3 x 512 bins on {D} slab(s), "
+                   f"{'periodic' if per[2] else 'open z'}", V.vlasov_step,
+                   V.vlasov_step_blocked_plain, a7, kw7)
+        twin_err["vlasov_step"] = max(twin_err.get("vlasov_step", 0.0), err)
+
+    # ------------------------------------------------ 3-11. the main path
     launches = {}
 
     def drive(label, fn, expect):
@@ -482,7 +546,96 @@ def main() -> int:
 
     rate("adapt step", gather_steps, n_a, 20, unit="leaf-updates/s (gather step)")
 
-    # --------------------------------------------------------- 9. timing
+    # 9. gol: the bench's Game of Life, 20000 turns through B4
+    t = time.perf_counter()
+    g_gol = Grid().set_initial_length((500, 500, 1)).set_neighborhood_length(1).initialize()
+    cells = g_gol.get_cells()
+    alive0 = cells[np.random.default_rng(0).random(len(cells)) < 0.3]
+    gol = GameOfLife(g_gol)
+    check(gol.fused, f"gol: no whole-run kernel (dense2d {gol.dense2d})")
+    s_gol = gol.new_state(alive_cells=alive0)
+    log(f"[gol] grid + model + state in {time.perf_counter() - t:.2f} s, "
+        f"{len(alive0)} of {len(cells)} alive")
+    out = drive("gol", lambda: gol.run(s_gol, 20000), {"gol_run": 1})
+    per = 500 * 500
+    got = out["is_alive"].to(torch.int32)
+    check(tuple(got.shape) == tuple(s_gol["is_alive"].shape), "gol: shape")
+    check(bool(((got == 0) | (got == 1)).all()), "gol: a cell is neither 0 nor 1")
+    n_alive = int(got[0, :per].sum())
+    check(0 < n_alive < per, f"gol: {n_alive} cells alive after 20000 turns")
+    short = gol.run(s_gol, 200)
+    a0 = (s_gol["is_alive"][0, :per].to(torch.int32) != 0).to(torch.float32)
+    t_a, t_c = G.gol_run_plain(a0.reshape(500, 500), 200, False, False)
+    check(torch.equal(short["is_alive"][0, :per].to(torch.int32),
+                      t_a.reshape(-1).to(torch.int32))
+          and torch.equal(short["live_neighbor_count"][0, :per].to(torch.int32),
+                          t_c.reshape(-1).to(torch.int32)),
+          "gol: 200 turns != twin")
+    slow = GameOfLife(g_gol, allow_dense=False)
+    fast50, slow50 = gol.run(s_gol, 50), slow.run(s_gol, 50)
+    same = (set(gol.alive_cells(fast50).tolist()) == set(slow.alive_cells(slow50).tolist())
+            and np.array_equal(
+                g_gol.get_cell_data(fast50, "live_neighbor_count", cells),
+                g_gol.get_cell_data(slow50, "live_neighbor_count", cells)))
+    check(same, "gol: 50 turns != the general gather path")
+    log(f"[gol] {n_alive} alive after 20000 turns; 200 turns equal to the twin, "
+        f"50 turns equal to the general gather path (alive set and counts)")
+    rate("gol", lambda: gol.run(s_gol, 20000), per, 20000)
+    del slow, fast50, slow50
+
+    # 10. vlasov: the bench's 32^3 x 8^3 phase space, 50 steps through B7
+    t = time.perf_counter()
+    g_v = uniform_grid((32, 32, 32))
+    vl = Vlasov(g_v, nv=8, dtype=np.float32)
+    check(vl._fused_block == 4, f"vlasov: fused block {vl._fused_block}")
+    s_v = vl.initialize_state()
+    dt_v = float(np.float32(0.4 * vl.max_time_step()))
+    log(f"[vlasov] grid + model + state in {time.perf_counter() - t:.2f} s, dt {dt_v!r}")
+    out = drive("vlasov", lambda: vl.run(s_v, 50, dt_v), {"vlasov_step": 50})
+    check(tuple(out["f"].shape) == (1, 32, 32, 32, 512), "vlasov: shape")
+    check(bool(torch.isfinite(out["f"]).all()), "vlasov: non-finite f")
+    m0, m1 = vl.total_mass(s_v), vl.total_mass(out)
+    check(abs(m1 - m0) / m0 <= 1e-5, f"vlasov: mass drift {abs(m1 - m0) / m0:.3e}")
+    short = vl.run(s_v, 5, dt_v)
+    f = s_v["f"]
+    for _ in range(5):
+        lo, hi = vl._edges(f)
+        f = V.vlasov_step_blocked_plain(
+            f, lo, hi, vl._vx, vl._vy, vl._vz, dt_v, block=vl._fused_block,
+            inv_dx=vl._inv_dx, periodic=vl._periodic)
+    check(torch.equal(short["f"], f), "vlasov: 5 steps != twin")
+    vl64 = Vlasov(g_v, nv=8, dtype=np.float64)
+    ref64 = vl64.run({"f": s_v["f"].double()}, 5, dt_v)["f"]
+    rel64 = float((short["f"].double() - ref64).abs().max() / ref64.abs().max())
+    check(rel64 < 1e-5, f"vlasov: f32 vs f64 plain step, rel err {rel64:.3e}")
+    log(f"[vlasov] mass {m0!r} -> {m1!r} (relative drift {abs(m1 - m0) / m0!r}); "
+        f"5 steps bitwise equal to the twin; vs the f64 plain step max err / "
+        f"max f {rel64!r}")
+    n_phase = 32 ** 3 * 512
+    rate("vlasov", lambda: vl.run(s_v, 50, dt_v), n_phase, 50,
+         unit="phase-space cell-updates/s")
+    del vl64, ref64, short, f, out
+
+    # 11. vlasov_amr: Vlasov on a refined grid, the general gather path
+    t = time.perf_counter()
+    g_va = refined_grid(16, (0.3,), (0.5, 0.5, 0.5), 1)
+    va = Vlasov(g_va, nv=4, dtype=np.float32)
+    check(va.info is None, "vlasov_amr: the refined grid took the dense path")
+    s_va = va.initialize_state()
+    dt_va = 0.4 * va.max_time_step()
+    n_va = len(g_va.get_cells())
+    log(f"[vlasov_amr] grid ({n_va} leaves) + model + state in "
+        f"{time.perf_counter() - t:.2f} s")
+    out = drive("vlasov_amr", lambda: va.run(s_va, 10, dt_va), {})
+    check(bool(torch.isfinite(out["f"]).all()), "vlasov_amr: non-finite f")
+    m0, m1 = va.total_mass(s_va), va.total_mass(out)
+    check(abs(m1 - m0) / m0 <= 1e-5, f"vlasov_amr: mass drift {abs(m1 - m0) / m0:.3e}")
+    log(f"[vlasov_amr] 10 gather steps on the card, mass {m0!r} -> {m1!r}")
+    r = rate("vlasov_amr", lambda: va.run(s_va, 10, dt_va), n_va, 10,
+             unit="leaf-updates/s (gather step, 64 bins a leaf)")
+    log(f"[vlasov_amr] {n_va / r * 1e3!r} ms a step")
+
+    # --------------------------------------------------------- 12. timing
     def bound(nbytes, flops):
         t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -537,6 +690,28 @@ def main() -> int:
     rows.append(dict(name="flat_ml_run", shape="64^3 voxels (refined3), 1000 steps",
                      source="dccrg_tpu_torch/csrc/flat_amr.cu",
                      replaces="dccrg_tpu/ops/flat_amr.py:1026", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    n_g = 500 * 500
+    a4 = (board, 20000, False, False)
+    ms = statistics.median(event_ms(lambda: G.gol_run(*a4), 1) for _ in range(3))
+    plain_ms = event_ms(lambda: G.gol_run_plain(*a4), 1)
+    # the board in, the board and the counts out; 20000 turns
+    b = bound(3 * n_g * 4, GOL_OPS_PER_CELL * n_g * 20000)
+    rows.append(dict(name="gol_run", shape="500x500, 20000 turns",
+                     source="dccrg_tpu_torch/csrc/gol.cu",
+                     replaces="dccrg_tpu/ops/gol_kernel.py:36", ms=ms,
+                     plain_ms=plain_ms, bound=b))
+    a7, kw7 = vlasov_args(1, (True, True, True), 21)
+    n7, plane7 = 32 * 32 * 32 * 512, 32 * 32 * 512
+    ms = event_ms(lambda: V.vlasov_step(*a7, **kw7), 20)
+    plain_ms = event_ms(lambda: V.vlasov_step_blocked_plain(*a7, **kw7), 3)
+    # f in and out, the two edge planes and the bin velocities in; the
+    # edge planes' xy splits are 10 operations a cell
+    b = bound((2 * n7 + 2 * plane7 + 3 * 512) * 4,
+              VLASOV_FLOPS_PER_CELL * n7 + 2 * 10 * plane7)
+    rows.append(dict(name="vlasov_step", shape="32^3 x 512 bins, block 4, one step",
+                     source="dccrg_tpu_torch/csrc/vlasov.cu",
+                     replaces="dccrg_tpu/ops/vlasov_kernel.py:52", ms=ms,
                      plain_ms=plain_ms, bound=b))
     kernels = []
     for r in rows:

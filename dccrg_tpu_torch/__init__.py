@@ -13,6 +13,7 @@ device unless the caller passes ``device="cpu"``.
 """
 from .geometry import CartesianGeometry, NoGeometry
 from .grid import CellSpec, Grid
-from .models import Advection
+from .models import Advection, GameOfLife, Vlasov
 
-__all__ = ["Advection", "CartesianGeometry", "CellSpec", "Grid", "NoGeometry"]
+__all__ = ["Advection", "CartesianGeometry", "CellSpec", "GameOfLife", "Grid",
+           "NoGeometry", "Vlasov"]

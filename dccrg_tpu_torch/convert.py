@@ -1,10 +1,12 @@
 """Dtype helpers and numpy <-> state conversion.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a dense advection state
-(``{field: [D, nz_local, ny, nx]}``) between numpy and this package, and
-``rows_state_from_numpy`` a row-layout state (``{field: [D, R, ...]}``) by
-cell id, so a state produced elsewhere — by the JAX package, a file, a
-test — can be run here from identical inputs.
+(``{field: [D, nz_local, ny, nx]}``) between numpy and this package,
+``vlasov_state_from_numpy`` a dense Vlasov state (``{"f": [D, nz_local, ny,
+nx, B]}``), and ``rows_state_from_numpy`` a row-layout state (``{field:
+[D, R, ...]}``, e.g. a Game of Life or general-path Vlasov state) by cell
+id, so a state produced elsewhere — by the JAX package, a file, a test —
+can be run here from identical inputs.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["torch_dtype", "numpy_dtype", "state_from_numpy", "state_to_numpy",
-           "rows_state_from_numpy"]
+           "vlasov_state_from_numpy", "rows_state_from_numpy"]
 
 
 def numpy_dtype(dtype) -> np.dtype:
@@ -42,6 +44,20 @@ def state_from_numpy(adv, arrays) -> dict:
             raise ValueError(f"{name}: expected shape {shape}, got {host.shape}")
         state[name] = torch.from_numpy(host).to(adv.grid.device)
     return state
+
+
+def vlasov_state_from_numpy(vl, f) -> dict:
+    """A state for the dense ``Vlasov`` model ``vl`` from the numpy phase
+    space ``f [D, nz_local, ny, nx, B]``, cast to the model's dtype and
+    placed on its grid's device."""
+    info = vl.info
+    if info is None:
+        raise ValueError("the model runs the general layout: use rows_state_from_numpy")
+    shape = (info.n_devices, info.nz_local, info.ny, info.nx, vl.B)
+    host = np.array(f, dtype=vl.dtype, order="C")  # a writable copy
+    if host.shape != shape:
+        raise ValueError(f"f: expected shape {shape}, got {host.shape}")
+    return {"f": torch.from_numpy(host).to(vl.device)}
 
 
 def state_to_numpy(state) -> dict:

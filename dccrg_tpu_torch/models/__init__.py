@@ -1,3 +1,5 @@
 from .advection import Advection
+from .game_of_life import GameOfLife
+from .vlasov import Vlasov
 
-__all__ = ["Advection"]
+__all__ = ["Advection", "GameOfLife", "Vlasov"]

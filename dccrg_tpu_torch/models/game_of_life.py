@@ -1,0 +1,180 @@
+"""Conway's game of life on the grid — the framework's "hello world",
+matching the reference's ``examples/simple_game_of_life.cpp`` /
+``examples/game_of_life.cpp``: full-vertex neighborhood, count live
+neighbors of every local cell after a ghost update, then apply the 2/3
+rule.
+
+A port of the JAX package's ``models/game_of_life.py``, with two layouts:
+
+* general (any grid, refined too): ``[D, R]`` rows of the epoch; a step is
+  a ghost refresh, a neighbor gather over the stencil tables and a masked
+  count feeding the rule;
+* dense 2-D (an (N, N, 1) uniform grid with the length-1 neighborhood in
+  y-slab ownership, ``parallel/dense.py::detect_dense2d``): the y-slab view
+  is a reshape of the row layout.  ``run`` on one device takes the
+  whole-run kernel of ``ops/gol_kernel.py`` (one launch for any number of
+  turns) when the board fits ``gol_run_fits`` (the JAX package's rule);
+  on more devices, or a larger board, it is the JAX package's dense
+  loop — the kernel twin's count and rule on each device's band of rows,
+  the halo two boundary rows a device — in plain torch, as the JAX package
+  runs it in XLA.
+
+The payload is uint32, as in the JAX package.  torch implements few
+operations for uint32 (no ``>`` or ``+`` on the CPU), so counts and the
+rule compute in int32 (the gather step) or float32 (the dense view, as in
+the kernel) and the results are stored as uint32.
+
+The JAX package's split-phase ``overlap`` step, its exchange-amortized
+``_wide_spec`` and its cohort ``batch_step_spec`` are not ported: they
+raise ``NotImplementedError`` naming their queue items.  There is no
+fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..grid import _not_in_slice
+from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
+from ..parallel.dense import HaloExtend, detect_dense2d
+from ..parallel.stencil import StencilTables, gather_neighbors
+
+__all__ = ["GameOfLife"]
+
+_U32 = torch.uint32
+
+
+def _life_rule(count, alive):
+    """The 2/3 rule (examples/simple_game_of_life.cpp:95-106) on int32."""
+    one, zero = torch.ones_like(alive), torch.zeros_like(alive)
+    return torch.where(count == 3, one, torch.where(count != 2, zero, alive))
+
+
+class GameOfLife:
+    #: the payload declaration — the reference's ``game_of_life_cell`` with
+    #: its ``get_mpi_datatype`` seam (examples/simple_game_of_life.cpp:20-32)
+    SPEC = {
+        "is_alive": ((), np.uint32),
+        "live_neighbor_count": ((), np.uint32),
+    }
+
+    def __init__(self, grid, hood_id=None, overlap: bool = False,
+                 allow_dense: bool = True, use_kernels: bool = True):
+        if overlap:
+            _not_in_slice("GameOfLife's split-phase overlap step", "12")
+        self.grid = grid
+        self.hood_id = hood_id
+        self.use_kernels = bool(use_kernels)
+        self._exchange = grid.halo(hood_id)
+        self.tables = StencilTables(grid, hood_id)
+        self.dense2d = detect_dense2d(grid, hood_id) if allow_dense else None
+        #: whether ``run`` takes the whole-run kernel (``gol_run``)
+        self.fused = False
+        if self.dense2d is not None:
+            self._init_dense()
+
+    def new_state(self, alive_cells=()):
+        state = self.grid.new_state(self.SPEC)
+        if len(alive_cells):
+            state = self.grid.set_cell_data(
+                state, "is_alive", np.asarray(alive_cells, dtype=np.uint64),
+                np.ones(len(alive_cells), dtype=np.uint32))
+        return state
+
+    # ------------------------------------------------------- general path
+
+    def step(self, state):
+        """One turn on the row layout: ghost refresh, neighbor gather,
+        count over the valid entries, rule on the local rows."""
+        state = self._exchange(state)
+        alive = state["is_alive"].to(torch.int32)
+        nbr_alive = gather_neighbors(alive, self.tables.nbr_rows)   # [D, R, K]
+        count = (self.tables.nbr_valid & (nbr_alive != 0)).sum(
+            dim=-1, dtype=torch.int32)
+        local = self.tables.local_mask
+        return {
+            "is_alive": torch.where(local, _life_rule(count, alive), alive).to(_U32),
+            "live_neighbor_count": torch.where(
+                local, count, torch.zeros_like(count)).to(_U32),
+        }
+
+    # ------------------------------------------------------ dense 2-D path
+
+    def _init_dense(self):
+        info = self.dense2d
+        D, nyl, nx = info["D"], info["nyl"], info["nx"]
+        px, py = info["periodic"]
+        self.fused = (self.use_kernels and D == 1 and gol_run_fits(nyl, nx))
+        self._ring = HaloExtend(D)
+        dev = self.grid.device
+        self._vx = _validity(nx, px, dev)
+        # boundary-row validity on open y: device 0's below-row and device
+        # D-1's above-row come from the ring wrap and must be dropped
+        ok_below = torch.ones((D, 1, 1), dtype=torch.float32, device=dev)
+        ok_above = torch.ones((D, 1, 1), dtype=torch.float32, device=dev)
+        if not py:
+            ok_below[0] = 0
+            ok_above[-1] = 0
+        self._ok_below, self._ok_above = ok_below, ok_above
+
+    def _dense_board(self, rows):
+        """The float32 0/1 y-slab view ``[D, nyl, nx]`` of the row layout."""
+        info = self.dense2d
+        per = info["nyl"] * info["nx"]
+        return (rows[:, :per].to(torch.int32) != 0).to(torch.float32).reshape(
+            info["D"], info["nyl"], info["nx"])
+
+    def _dense_state(self, rows, a, cnt):
+        """The row layout of the board ``a`` and the counts ``cnt``."""
+        D, per = a.shape[0], a[0].numel()
+        out_a = rows.clone()
+        out_a[:, :per] = a.reshape(D, per).to(_U32)
+        out_c = torch.zeros_like(rows)
+        out_c[:, :per] = cnt.reshape(D, per).to(_U32)
+        return {"is_alive": out_a, "live_neighbor_count": out_c}
+
+    def _fused_run(self, state, turns):
+        rows = state["is_alive"]
+        out, cnt = gol_run(self._dense_board(rows)[0], turns, *self.dense2d["periodic"])
+        return self._dense_state(rows, out[None], cnt[None])
+
+    def _dense_run(self, state, turns):
+        """The JAX package's dense loop (``game_of_life.py:347-378``) over
+        ``[D, nyl, nx]``: each device's band of rows, its halo the two
+        boundary rows of its ring neighbors; the count and the rule are the
+        kernel twin's."""
+        rows = state["is_alive"]
+        a = self._dense_board(rows)
+        cnt = torch.zeros_like(a)
+        for _ in range(turns):
+            below, above = self._ring.planes(a)
+            up = torch.cat([a[:, 1:], above * self._ok_above], dim=1)
+            dn = torch.cat([below * self._ok_below, a[:, :-1]], dim=1)
+            a, cnt = gol_turn(up, a, dn, *self._vx)
+        return self._dense_state(rows, a, cnt)
+
+    # ----------------------------------------------------------- user API
+
+    def run(self, state, turns: int):
+        """Advance ``turns`` turns.  On the dense 2-D layout the whole run
+        is one kernel launch (one device, the board fits) or the dense loop;
+        otherwise the general step, turn by turn."""
+        turns = int(turns)
+        if self.dense2d is not None and turns > 0:
+            if self.fused:
+                return self._fused_run(state, turns)
+            return self._dense_run(state, turns)
+        for _ in range(turns):
+            state = self.step(state)
+        return state
+
+    def alive_cells(self, state) -> np.ndarray:
+        cells = self.grid.get_cells()
+        alive = self.grid.get_cell_data(state, "is_alive", cells)
+        return cells[alive > 0]
+
+    def _wide_spec(self):
+        _not_in_slice("GameOfLife's exchange-amortized wide step", "12")
+
+    def batch_step_spec(self):
+        _not_in_slice("GameOfLife's cohort batch step", "15")

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["DenseInfo", "detect_dense", "HaloExtend"]
+__all__ = ["DenseInfo", "detect_dense", "detect_dense2d", "HaloExtend"]
 
 
 @dataclass(frozen=True)
@@ -55,10 +55,53 @@ def detect_dense(mapping, topology, leaves, n_devices: int) -> DenseInfo | None:
     )
 
 
+def detect_dense2d(grid, hood_id):
+    """Dense ``[D, ny_local, nx]`` y-slab layout for uniform 2-D grids —
+    the 2-D sibling of :func:`detect_dense` (the reference's hello-world
+    shape, ``simple_game_of_life.cpp``: an (N, N, 1) grid with the full
+    length-1 vertex neighborhood).
+
+    Under the id-order block partition the dense view is a pure reshape
+    of the row layout (ids are x-fastest, rows ascend in id order), so no
+    gather tables are needed; the halo is two boundary rows per device.
+    Returns None unless: default hood of length 1, nz == 1 with
+    non-periodic z (a periodic z of extent 1 would make every cell its
+    own neighbor), all leaves level 0, and ownership the exact y-slab
+    block striping."""
+    if hood_id is not None:
+        return None
+    epoch = grid.epoch
+    mapping = epoch.mapping
+    nx, ny, nz = (int(v) for v in mapping.length)
+    if nz != 1 or grid.topology.is_periodic(2):
+        return None
+    leaves = epoch.leaves
+    N = len(leaves)
+    if N != nx * ny or N == 0:
+        return None
+    if int(leaves.cells[0]) != 1 or int(leaves.cells[-1]) != N:
+        return None
+    D = epoch.n_devices
+    if ny % D != 0:
+        return None
+    per = N // D
+    expected = np.repeat(np.arange(D, dtype=leaves.owner.dtype), per)
+    if not np.array_equal(leaves.owner, expected):
+        return None
+    hood = np.asarray(grid.neighborhoods[None])
+    if len(hood) != 26 or np.abs(hood).max() != 1:
+        return None
+    return dict(
+        nx=nx, ny=ny, nyl=ny // D, D=D,
+        periodic=(grid.topology.is_periodic(0), grid.topology.is_periodic(1)),
+    )
+
+
 class HaloExtend:
-    """Per-device z halo of a ``[D, nzl, ...]`` slab stack: device d
-    receives the top plane of device d-1 below its block and the bottom
-    plane of device d+1 above it (the ring's two plane transfers; for one
+    """Per-device leading-axis halo of a ``[D, n_loc, ...]`` slab stack —
+    z planes for the 3-D slab layout, y rows for the 2-D one: device d
+    receives the top slice of device d-1 below its block and the bottom
+    slice of device d+1 above it (the ring's two transfers; for one
     device the ring degenerates to the local wrap)."""
 
     def __init__(self, info):

@@ -24,6 +24,9 @@ from .shapes import bucket_pairs
 
 __all__ = ["HaloExchange"]
 
+_AS_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}
+
 
 class HaloExchange:
     """Exchange schedule for one (epoch, neighborhood).
@@ -102,6 +105,10 @@ class HaloExchange:
         the JAX package's ``ring_start`` / ``ring_finish`` pair does."""
         if not self.ring_ks:
             return x
+        if x.dtype in _AS_SIGNED:
+            # torch has no index_put_ for unsigned integers; the exchange
+            # moves bits, so it runs on a same-width signed view
+            return self.exchange_field(x.view(_AS_SIGNED[x.dtype])).view(x.dtype)
         payloads = [x[src, rows] for src, rows, _ in self._tables]
         out = x.clone()
         for (_, _, recv), p in zip(self._tables, payloads):

@@ -66,6 +66,20 @@ for D in (1, 3):
     s = a.step(s, 0.3 * a.max_time_step(s))
     s = g.update_copies_of_remote_neighbors(s)
     assert np.isfinite(a.total_mass(s))
+    # Vlasov on the refined grid (general path) and GoL on a 2-D board
+    v = P.Vlasov(g, nv=2, dtype=np.float32)
+    assert np.isfinite(v.total_mass(v.run(v.initialize_state(), 2, 0.3 * v.max_time_step())))
+    b = (P.Grid().set_initial_length((8, 8, 1)).set_neighborhood_length(1)
+         .initialize(n_devices=D, device="cpu"))
+    gol = P.GameOfLife(b)
+    assert len(gol.alive_cells(gol.run(gol.new_state([27, 28, 29]), 3))) == 3
+g = (P.Grid().set_initial_length((8, 8, 8)).set_neighborhood_length(0)
+     .set_periodic(True, True, False)
+     .set_geometry(P.CartesianGeometry, start=(0, 0, 0),
+                   level_0_cell_length=(1 / 8, 1 / 8, 1 / 8))
+     .initialize(device="cpu"))
+v = P.Vlasov(g, nv=2, dtype=np.float32)
+assert v._fused_block and np.isfinite(v.total_mass(v.run(v.initialize_state(), 2, 0.01)))
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")))
 """
