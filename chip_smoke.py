@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 the refined grids of phases 6-7 (96^3 and 64^3 voxels), the
                 Game of Life kernel on the 500x500 board (30% alive, open and
                 periodic, 7 and 8 turns), the Vlasov step kernel at 32^3 x
-                512 bins (one periodic slab; two slabs, open z);
+                512 bins (one periodic slab; two slabs, open z), the BiCG
+                whole-solve kernel on the flat tables of phases 12-13 (64^3
+                voxels, two-level and uniform; 60 iterations) and of a
+                9x7x5 grid with an open axis and all three cell roles,
+                solved to a residual target it reaches early;
 3. headline   — Grid 128x128x64 periodic -> Advection(float32) ->
                 initialize_state -> max_time_step -> run(5000): must go
                 through the whole-run kernel only; mass conserved; 200 steps
@@ -46,9 +50,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 11. vlasov_amr — Vlasov (nv = 4, float32) on a refined 16^3 grid: the
                 general gather path (no kernel, no twin), mass conserved;
                 seconds a step;
-12. timing    — each kernel beside its twin and its least possible time.
+12. poisson   — the bench's Poisson (32^3 periodic, ball r<0.25 around the
+                centre refined once: 48,000 leaves, 64^3 voxels; float32,
+                sin(2 pi x) cos(2 pi y) minus its mean) -> one warm-up solve
+                of 2 iterations, then solve(60 iterations, residual target
+                0, no semi-convergence stop): one bicg_solve launch, 60
+                iterations; a solve to residual 8.0, and a 60-iteration
+                solve of a seeded random rhs, against the float32 flat solve
+                without the kernel; cell-iterations/s (median of 3);
+13. poisson_uniform — 64^3 uniform periodic, float32, the same solve
+                through bicg_solve without coarse rows; the rhs is an
+                eigenvector, so the 60-iteration solution is held against
+                the plain flat solve's and the residual must fall 1e4-fold;
+                the same random-rhs check;
+14. poisson3  — the bench's three-level Poisson (16^3, balls r<0.35 then
+                r<0.25: 24,368 leaves on levels 0-2, 64^3 voxels): the
+                multi-level flat operator in torch, no kernel; the flat
+                operator and its transpose against the gather operator in
+                float64 (1e-13); cell-iterations/s;
+15. poisson_rolled — the poisson grid without the flat operator: the rolled
+                static-offset operator, no kernel; against the gather
+                operator in float64 (1e-12 of the peak); cell-iterations/s;
+16. timing    — each kernel beside its twin and its least possible time.
 
-Launch counters are set to 0 just before each of phases 3-11 drives its path
+Launch counters are set to 0 just before each of phases 3-15 drives its path
 and read just after.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -84,6 +109,14 @@ GOL_OPS_PER_CELL = 10
 #: splits of 2 flux products, a difference, the scaled product and the
 #: subtraction (the edge planes' two xy splits counted apart)
 VLASOV_FLOPS_PER_CELL = 15
+#: f32 operations a voxel a BiCG iteration that the masked solve needs: the
+#: matvec and its transpose 13 each (6 products, 5 sums, the diagonal's
+#: product and sum), their solve masks 2, three dots 3 each (product, mask,
+#: sum), the x / r0 / r1 / p0 / p1 updates 2 each, the best-x copy 1;
+#: coarse rows add 4 to each matvec (the coarse-mask product 1, the block's
+#: pool 7/8 and origin product 1/8, the fine product 1, the final sum 1)
+BICG_FLOPS_PER_VOXEL = 48
+BICG_COARSE_FLOPS_PER_VOXEL = 8
 
 
 def flat_ml_flops_per_voxel(cap_active) -> int:
@@ -118,10 +151,11 @@ def main() -> int:
     import numpy as np
 
     from dccrg_tpu_torch import (Advection, CartesianGeometry, GameOfLife, Grid,
-                                 Vlasov, cuda_build)
+                                 Poisson, Vlasov, cuda_build)
     from dccrg_tpu_torch.ops import dense_advection as K
     from dccrg_tpu_torch.ops import flat_amr as F
     from dccrg_tpu_torch.ops import gol_kernel as G
+    from dccrg_tpu_torch.ops import poisson_kernel as B
     from dccrg_tpu_torch.ops import vlasov_kernel as V
 
     dev = torch.device("cuda")
@@ -150,15 +184,15 @@ def main() -> int:
             .initialize(n_devices=n_devices)
         )
 
-    def refined_grid(n, radii, center, max_ref):
-        """Periodic n^3 grid, each ball of ``radii`` around ``center``
-        refined in turn at the finest level so far (bench.py's
-        measure_refined / _ball_refined_grid)."""
+    def refined_grid(n, radii, center, max_ref, periodic=(True, True, True)):
+        """n^3 grid, each ball of ``radii`` around ``center`` refined in turn
+        at the finest level so far (bench.py's measure_refined /
+        _ball_refined_grid)."""
         g = (
             Grid()
             .set_initial_length((n, n, n))
             .set_neighborhood_length(0)
-            .set_periodic(True, True, True)
+            .set_periodic(*periodic)
             .set_maximum_refinement_level(max_ref)
             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
                           level_0_cell_length=(1.0 / n,) * 3)
@@ -374,6 +408,67 @@ def main() -> int:
                    f"{'periodic' if per[2] else 'open z'}", V.vlasov_step,
                    V.vlasov_step_blocked_plain, a7, kw7)
         twin_err["vlasov_step"] = max(twin_err.get("vlasov_step", 0.0), err)
+
+    # B8 on the flat tables of phases 12-13 (built once: they are the
+    # whole-solve kernel's main-path shapes) and of a small grid with odd
+    # extents, an open x axis and all three cell roles
+    def poisson_model(g, **kw):
+        c = g.geometry.get_center(g.get_cells())
+        rhs = np.sin(2 * np.pi * c[:, 0]) * np.cos(2 * np.pi * c[:, 1])
+        rhs -= rhs.mean()
+        p = Poisson(g, dtype=np.float32, **kw)
+        return p, p.initialize_state(rhs)
+
+    t = time.perf_counter()
+    g_p = refined_grid(32, (0.25,), (0.5, 0.5, 0.5), 1)
+    p_p, s_p = poisson_model(g_p)
+    n_p = len(g_p.get_cells())
+    check(n_p == 48000, f"poisson leaves {n_p}, expected 48000")
+    check(p_p._solve_fast is not None and p_p._bicg_has_coarse
+          and p_p._flat_tables["shape"] == (64, 64, 64),
+          f"poisson dispatch: fast {p_p._solve_fast is not None}")
+    log(f"[poisson] grid ({n_p} leaves) + model + state in "
+        f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    g_pu = uniform_grid((64, 64, 64))
+    p_pu, s_pu = poisson_model(g_pu)
+    check(p_pu._solve_fast is not None and not p_pu._bicg_has_coarse,
+          "poisson_uniform dispatch")
+    log(f"[poisson_uniform] grid + model + state in {time.perf_counter() - t:.2f} s")
+    g_odd = (Grid().set_initial_length((9, 7, 5)).set_neighborhood_length(0)
+             .set_periodic(False, True, True)
+             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                           level_0_cell_length=(1 / 9, 1 / 7, 1 / 5))
+             .initialize())
+    cells = g_odd.get_cells()
+    ctr = g_odd.geometry.get_center(cells)
+    odd_skip = cells[np.linalg.norm(ctr - 0.5, axis=1) < 0.2]
+    odd_bnd = cells[(ctr[:, 0] < 1 / 9) & ~np.isin(cells, odd_skip)]
+    odd_solve = cells[~np.isin(cells, odd_skip) & ~np.isin(cells, odd_bnd)]
+    p_odd, s_odd = poisson_model(g_odd, solve_cells=odd_solve, skip_cells=odd_skip)
+    s_odd = g_odd.set_cell_data(s_odd, "solution", odd_bnd,
+                                np.random.default_rng(1).standard_normal(len(odd_bnd)))
+    check(p_odd._solve_fast is not None and not p_odd._bicg_has_coarse,
+          "odd-grid dispatch")
+    inf = float("inf")
+    for label, p, s, scalars in (
+            ("64^3 voxels (poisson), 60 iterations", p_p, s_p, (60, 0.0, inf)),
+            ("64^3 voxels (poisson), to residual 8.0", p_p, s_p, (60, 8.0, 10.0)),
+            ("64^3 voxels (uniform), 60 iterations", p_pu, s_pu, (60, 0.0, inf)),
+            ("9x7x5 open x, three roles, to residual 1e-3", p_odd, s_odd,
+             (200, 1e-3, 10.0))):
+        args = (*p._bicg_inputs(s), *scalars)
+        kw = {"has_coarse": p._bicg_has_coarse}
+        err = hold(f"B8 bicg_solve {label}", B.bicg_solve, B.bicg_solve_plain,
+                   args, kw)
+        twin_err["bicg_solve"] = max(twin_err.get("bicg_solve", 0.0), err)
+        _x, res, it = B.bicg_solve(*args, **kw)
+        log(f"[kernels]   {int(it[0])} iterations, best residual {float(res[0])!r}")
+        if scalars[1] > 0:
+            check(int(it[0]) < scalars[0] and float(res[0]) <= scalars[1],
+                  f"B8 {label}: stopped at {int(it[0])} with {float(res[0])}")
+        else:
+            check(int(it[0]) == 60, f"B8 {label}: {int(it[0])} iterations")
 
     # ------------------------------------------------ 3-11. the main path
     launches = {}
@@ -635,7 +730,135 @@ def main() -> int:
              unit="leaf-updates/s (gather step, 64 bins a leaf)")
     log(f"[vlasov_amr] {n_va / r * 1e3!r} ms a step")
 
-    # --------------------------------------------------------- 12. timing
+    # 12-13. poisson, poisson_uniform: the bench's solves through B8
+    def solve60(p, s):
+        return p.solve(s, max_iterations=60, stop_residual=0.0,
+                       stop_after_residual_increase=inf)
+
+    def poisson_phase(label, g, p, s, n_cells, target):
+        p.solve(s, max_iterations=2, stop_residual=0.0)      # warm-up
+        out, res, it = drive(label, lambda: solve60(p, s), {"bicg_solve": 1})
+        sol = out["solution"]
+        check(it == 60, f"{label}: {it} iterations")
+        check(tuple(sol.shape) == tuple(s["solution"].shape)
+              and bool(torch.isfinite(sol).all()), f"{label}: solution shape/finite")
+        # against the float32 flat solve without the kernel, at
+        # test_fused_bicg_matches_xla_flat's tolerances: a solve to
+        # ``target``, or with None the 60-iteration solve
+        plain = Poisson(g, dtype=np.float32, use_kernels=False)
+        check(plain._solve_fast is None and plain._flat is not None,
+              f"{label}: the plain flat solver")
+        if target is None:
+            (a, res_a, it_a), (b, res_b, it_b) = (out, res, it), solve60(plain, s)
+        else:
+            a, res_a, it_a = p.solve(s, max_iterations=60, stop_residual=target)
+            b, res_b, it_b = plain.solve(s, max_iterations=60, stop_residual=target)
+        ids = g.get_cells()
+        sa = g.get_cell_data(a, "solution", ids)
+        sb = g.get_cell_data(b, "solution", ids)
+        check((target is None or (res_a <= target and res_b <= target))
+              and abs(it_a - it_b) <= 1,
+              f"{label}: to {target}: kernel {it_a} it, res {res_a}; plain "
+              f"{it_b} it, res {res_b}")
+        if it_a == it_b and target is not None:
+            check(abs(res_a - res_b) <= 1e-5 * res_b, f"{label}: residuals {res_a} {res_b}")
+            check(np.allclose(sa, sb, rtol=1e-5, atol=1e-7),
+                  f"{label}: solution max diff {np.abs(sa - sb).max()}")
+        else:
+            check(np.allclose(sa, sb, rtol=1e-3, atol=1e-6),
+                  f"{label}: solution max diff {np.abs(sa - sb).max()}")
+        log(f"[{label}] 60 iterations, best residual {res!r}; "
+            f"{'60 iterations' if target is None else f'to residual {target}'}"
+            f": kernel {it_a} iterations ({res_a!r}), plain flat {it_b} "
+            f"({res_b!r}), solution max diff {np.abs(sa - sb).max()!r} "
+            f"(peak {np.abs(sb).max()!r})")
+        # the timed length on a seeded random rhs, which neither stalls nor
+        # ends at rounding level: the kernel against the plain flat solve,
+        # whose torch sums associate otherwise, at the same tolerances
+        s_rand = p.initialize_state(np.random.default_rng(5).standard_normal(len(ids)))
+        (a, res_a, it_a), (b, res_b, it_b) = solve60(p, s_rand), solve60(plain, s_rand)
+        sa = g.get_cell_data(a, "solution", ids)
+        sb = g.get_cell_data(b, "solution", ids)
+        log(f"[{label}] random rhs, 60 iterations: kernel residual {res_a!r}, "
+            f"plain flat {res_b!r} (relative difference "
+            f"{abs(res_a - res_b) / res_b!r}), solution max diff "
+            f"{np.abs(sa - sb).max()!r} (peak {np.abs(sb).max()!r}), "
+            f"{np.count_nonzero(~np.isclose(sa, sb, rtol=1e-5, atol=1e-7))} "
+            f"of {len(ids)} cells outside rtol 1e-5 / atol 1e-7")
+        check(it_a == it_b == 60 and abs(res_a - res_b) <= 1e-5 * res_b,
+              f"{label}: random rhs: kernel {it_a} it, res {res_a}; plain "
+              f"{it_b} it, res {res_b}")
+        check(np.allclose(sa, sb, rtol=1e-5, atol=1e-7),
+              f"{label}: random rhs: solution max diff {np.abs(sa - sb).max()}")
+        rate(label, lambda: solve60(p, s), n_cells, 60, unit="cell-iterations/s")
+        return res
+
+    # the bench's rhs stalls on the refined grid (BiCG semi-converges: the
+    # residual falls from 109 to 7.55 in 4 iterations, then rises); 8.0 is a
+    # target both solves reach
+    poisson_phase("poisson", g_p, p_p, s_p, n_p, 8.0)
+    # the bench's rhs is an eigenvector of the uniform operator: one
+    # iteration reaches rounding level, where the two solves' residuals are
+    # noise, so the check is the 60-iteration solutions and the residual drop
+    _o, res0, _i = p_pu.solve(s_pu, max_iterations=0)
+    res_u = poisson_phase("poisson_uniform", g_pu, p_pu, s_pu, 64 ** 3, None)
+    check(res_u <= 1e-4 * res0, f"poisson_uniform: residual {res0} -> {res_u}")
+
+    def operator_check(label, g, fast_apply, tol):
+        """``fast_apply(i, x)`` (0 = A, 1 = Aᵀ) against the gather operator
+        on a seeded random vector, float64; max error over the peak."""
+        ref = Poisson(g, dtype=np.float64, allow_flat=False, allow_rolled=False)
+        ids = g.get_cells()
+        v = np.random.default_rng(1).standard_normal(len(ids))
+        x = g.set_cell_data(g.new_state(ref.spec), "solution", ids, v)["solution"]
+        worst = 0.0
+        for i in range(2):
+            want = g.get_cell_data({"x": ref._apply(x, ref._mult_table(i))[0]}, "x", ids)
+            got = g.get_cell_data({"x": fast_apply(i, x)}, "x", ids)
+            err = float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+            check(err <= tol, f"{label}: operator {i} vs gather, {err:.3e} > {tol}")
+            worst = max(worst, err)
+        log(f"[{label}] A and Aᵀ against the gather operator (float64): max "
+            f"error / max(1, peak) {worst!r} (limit {tol})")
+
+    # 14. poisson3: the three-level grid on the multi-level flat operator
+    t = time.perf_counter()
+    g_p3 = refined_grid(16, (0.35, 0.25), (0.5, 0.5, 0.5), 2)
+    p_p3, s_p3 = poisson_model(g_p3)
+    n_p3 = len(g_p3.get_cells())
+    levels3 = sorted(set(g_p3.mapping.get_refinement_level(g_p3.get_cells()).tolist()))
+    check(n_p3 == 24368 and levels3 == [0, 1, 2], f"poisson3 leaves {n_p3}, levels {levels3}")
+    check(p_p3._flat is not None and p_p3._flat_tables["vl"] == 2
+          and p_p3._solve_fast is None, "poisson3 dispatch")
+    log(f"[poisson3] grid ({n_p3} leaves, levels {levels3}) + model + state in "
+        f"{time.perf_counter() - t:.2f} s")
+    f64 = Poisson(g_p3, dtype=np.float64)
+    fwd, rev, vox, wb, _m = f64._flat
+    operator_check("poisson3", g_p3, lambda i, x: wb((fwd, rev)[i](vox(x))), 1e-13)
+    p_p3.solve(s_p3, max_iterations=2, stop_residual=0.0)
+    out, res, it = drive("poisson3", lambda: solve60(p_p3, s_p3), {})
+    check(it == 60 and bool(torch.isfinite(out["solution"]).all()),
+          f"poisson3: {it} iterations")
+    log(f"[poisson3] 60 iterations, best residual {res!r}")
+    rate("poisson3", lambda: solve60(p_p3, s_p3), n_p3, 60, unit="cell-iterations/s")
+    del f64
+
+    # 15. poisson_rolled: the poisson grid on the rolled operator
+    p_ro, s_ro = poisson_model(g_p, allow_flat=False)
+    check(p_ro._rolled is not None and p_ro._flat is None and p_ro._solve_fast is None,
+          "poisson_rolled dispatch")
+    r64 = Poisson(g_p, dtype=np.float64, allow_flat=False)
+    check(r64._rolled is not None, "poisson_rolled: no f64 rolled operator")
+    operator_check("poisson_rolled", g_p, lambda i, x: r64._rolled[i](x), 1e-12)
+    p_ro.solve(s_ro, max_iterations=2, stop_residual=0.0)
+    out, res, it = drive("poisson_rolled", lambda: solve60(p_ro, s_ro), {})
+    check(it == 60 and bool(torch.isfinite(out["solution"]).all()),
+          f"poisson_rolled: {it} iterations")
+    log(f"[poisson_rolled] 60 iterations, best residual {res!r}")
+    rate("poisson_rolled", lambda: solve60(p_ro, s_ro), n_p, 60, unit="cell-iterations/s")
+    del r64
+
+    # --------------------------------------------------------- 16. timing
     def bound(nbytes, flops):
         t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -713,6 +936,21 @@ def main() -> int:
                      source="dccrg_tpu_torch/csrc/vlasov.cu",
                      replaces="dccrg_tpu/ops/vlasov_kernel.py:52", ms=ms,
                      plain_ms=plain_ms, bound=b))
+    # B8: 14 voxel arrays in, the solution out; 60 iterations
+    for p, s, shape in ((p_p, s_p, "64^3 voxels (poisson), 60 iterations"),
+                        (p_pu, s_pu, "64^3 voxels (poisson_uniform), 60 iterations")):
+        a8 = (*p._bicg_inputs(s), 60, 0.0, inf)
+        kw8 = {"has_coarse": p._bicg_has_coarse}
+        n_vox = a8[0].numel()
+        ms = statistics.median(event_ms(lambda: B.bicg_solve(*a8, **kw8), 1)
+                               for _ in range(3))
+        plain_ms = event_ms(lambda: B.bicg_solve_plain(*a8, **kw8), 1)
+        ops = BICG_FLOPS_PER_VOXEL + (BICG_COARSE_FLOPS_PER_VOXEL if kw8["has_coarse"] else 0)
+        b = bound(15 * n_vox * 4, ops * n_vox * 60)
+        rows.append(dict(name="bicg_solve", shape=shape,
+                         source="dccrg_tpu_torch/csrc/poisson.cu",
+                         replaces="dccrg_tpu/ops/poisson_kernel.py:52", ms=ms,
+                         plain_ms=plain_ms, bound=b))
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -720,6 +958,8 @@ def main() -> int:
             f"{r['plain_ms']!r} ms, bound {b_ms!r} ms ({b_by}), "
             f"kernel/bound {r['ms'] / b_ms!r}, launches on the main path "
             f"{launches[r['name']]} on {card}")
+        if any(k["name"] == r["name"] for k in kernels):
+            continue  # one entry a kernel: its first-listed main-path shape
         kernels.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],

@@ -11,9 +11,9 @@ kernel on a ported path replaced by a hand-written CUDA kernel
 It never imports ``jax`` or ``dccrg_tpu``.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """
-from .geometry import CartesianGeometry, NoGeometry
+from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .grid import CellSpec, Grid
-from .models import Advection, GameOfLife, Vlasov
+from .models import Advection, GameOfLife, Poisson, Vlasov
 
 __all__ = ["Advection", "CartesianGeometry", "CellSpec", "GameOfLife", "Grid",
-           "NoGeometry", "Vlasov"]
+           "NoGeometry", "Poisson", "StretchedCartesianGeometry", "Vlasov"]

@@ -1,3 +1,4 @@
 from .cartesian import CartesianGeometry, NoGeometry
+from .stretched import StretchedCartesianGeometry
 
-__all__ = ["CartesianGeometry", "NoGeometry"]
+__all__ = ["CartesianGeometry", "NoGeometry", "StretchedCartesianGeometry"]

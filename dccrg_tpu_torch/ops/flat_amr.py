@@ -79,12 +79,14 @@ def flat_ml_kernel_fits(n_voxels: int, vl: int) -> bool:
 
 # ------------------------------------------------------------ host layout
 
-def flat_voxel_layout(grid, max_voxels=None, allow_multi_device=False,
-                      max_vl=1):
+def flat_voxel_layout(grid, allow_uniform=False, max_voxels=None,
+                      allow_multi_device=False, max_vl=1):
     """The shared flat voxel layout, or None if the grid does not qualify
-    (Cartesian, some refinement, leaf levels ⊆ [0, max_vl]; single device unless
-    ``allow_multi_device`` and the ownership equals the voxel z-slab
-    partition with coarse blocks never straddling slabs).
+    (Cartesian, leaf levels ⊆ [0, max_vl], some refinement unless
+    ``allow_uniform`` — the flat Poisson operator takes uniform grids, the
+    flat advection runs do not; single device unless ``allow_multi_device``
+    and the ownership equals the voxel z-slab partition with coarse blocks
+    never straddling slabs).
 
     Returns a dict:
       shape        (nzv, nyv, nxv) voxel grid at max-leaf-level resolution
@@ -116,7 +118,7 @@ def flat_voxel_layout(grid, max_voxels=None, allow_multi_device=False,
         return None
     lvl = mapping.get_refinement_level(leaves.cells).astype(np.int64)
     vl = int(lvl.max())
-    if vl > max_vl or vl == 0:
+    if vl > max_vl or (vl == 0 and not allow_uniform):
         return None
     L = mapping.max_refinement_level
     nxv, nyv, nzv = (int(v) << vl for v in mapping.length)

@@ -80,6 +80,23 @@ g = (P.Grid().set_initial_length((8, 8, 8)).set_neighborhood_length(0)
      .initialize(device="cpu"))
 v = P.Vlasov(g, nv=2, dtype=np.float32)
 assert v._fused_block and np.isfinite(v.total_mass(v.run(v.initialize_state(), 2, 0.01)))
+# Poisson on a refined grid: the f64 flat solve and the f32 whole-solve
+# path (its twin on the CPU)
+g = (P.Grid().set_initial_length((6, 6, 6)).set_neighborhood_length(0)
+     .set_periodic(True, True, True).set_maximum_refinement_level(1)
+     .set_geometry(P.CartesianGeometry, start=(0, 0, 0),
+                   level_0_cell_length=(1 / 6, 1 / 6, 1 / 6))
+     .initialize(device="cpu"))
+ids = g.get_cells()
+g.refine_completely_many(
+    ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5, axis=1) < 0.3])
+g.stop_refining()
+x = g.geometry.get_center(g.get_cells())[:, 0]
+for dtype in (np.float64, np.float32):
+    p = P.Poisson(g, dtype=dtype)
+    assert (p._solve_fast is not None) == (dtype == np.float32)
+    s, res, it = p.solve(p.initialize_state(np.sin(2 * np.pi * x)), max_iterations=20)
+    assert np.isfinite(res) and it > 0
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")))
 """
