@@ -13,6 +13,11 @@ optimisation whose oracle is that full build, and it is not ported yet.
 A patched epoch may give a leaf another row than a full build does, so
 states are compared across the packages by cell id, never by row.
 
+Ghost refresh is blocking (``update_copies_of_remote_neighbors``) or
+split-phase (``start_remote_neighbor_copy_updates`` /
+``wait_remote_neighbor_copy_updates``), under an optional per-cell payload
+policy (``set_cell_datatype``); see ``parallel/halo.py``.
+
 Load balancing, user neighborhoods and checkpoint I/O raise
 ``NotImplementedError`` until their slices land.
 """
@@ -127,6 +132,7 @@ class Grid:
         self.geometry = factory(self.mapping, self.topology)
         self.neighborhoods = {None: default_neighborhood(self._hood_length)}
         self._ring_hints = {}
+        self._cell_datatype = None
         self.amr = AmrQueues()
         # load-balance weights and pins: commit_adaptation hands them from
         # refined cells to their children; empty until balance_load lands
@@ -256,22 +262,62 @@ class Grid:
 
     # ---------------------------------------------------------------- halo
 
-    def halo(self, hood_id=None, cell_datatype=None) -> HaloExchange:
-        """The exchange schedule of a neighborhood, cached per epoch.  Only
-        full payloads are ported: a ``cell_datatype`` policy raises."""
+    def set_cell_datatype(self, cell_datatype) -> "Grid":
+        """Per-cell dynamic payload policy — the reference's
+        ``get_mpi_datatype(cell_id, sender, receiver, receiving,
+        neighborhood_id)`` seam (``dccrg_get_cell_datatype.hpp:48-125``).
+        ``cell_datatype(field, cell_ids, sender, receiver, hood_id) -> bool
+        mask`` selects which of a pair's cells transfer ``field``; unselected
+        ghost copies keep their previous values.  Evaluated once per epoch
+        and again after every rebuild.  ``None`` clears the policy."""
         self._assert_initialized()
-        if cell_datatype is not None:
-            _not_in_slice("The cell_datatype halo policy", "12")
-        if hood_id not in self._halo_cache:
-            self._halo_cache[hood_id] = HaloExchange(
+        self._cell_datatype = cell_datatype
+        self._halo_cache = {}
+        return self
+
+    def halo(self, hood_id=None, cell_datatype=...) -> HaloExchange:
+        """The exchange schedule of a neighborhood (cached per epoch).
+        ``cell_datatype`` overrides the grid-level policy for this schedule
+        (``...`` = inherit, None = full payloads)."""
+        self._assert_initialized()
+        installed = self._cell_datatype
+        policy = installed if cell_datatype is ... else cell_datatype
+
+        def build():
+            return HaloExchange(
                 self.epoch, self.epoch.hoods[hood_id], self.device,
-                hood_id=hood_id, ring_hints=self._ring_hints,
+                cell_datatype=policy, hood_id=hood_id,
+                ring_hints=self._ring_hints,
             )
-        return self._halo_cache[hood_id]
+
+        # only the installed policy and the no-policy schedule are cached: an
+        # ad-hoc override (often a fresh closure a call) gets a fresh,
+        # caller-owned schedule instead of growing the cache
+        if policy is not None and policy is not installed:
+            return build()
+        key = (hood_id, policy)
+        if key not in self._halo_cache:
+            self._halo_cache[key] = build()
+        return self._halo_cache[key]
 
     def update_copies_of_remote_neighbors(self, state, hood_id=None):
         """Blocking ghost refresh (reference ``dccrg.hpp:966-1000``)."""
         return self.halo(hood_id)(state)
+
+    def start_remote_neighbor_copy_updates(self, state, hood_id=None):
+        """Split-phase start (reference ``dccrg.hpp:5010-5105``): gather the
+        ghost payloads (on CUDA, on a side stream) and return a
+        ``HaloHandle``; the state is untouched, so work on inner cells can
+        be queued before ``wait_remote_neighbor_copy_updates(state,
+        handle)`` merges the payloads."""
+        return self.halo(hood_id).start(state)
+
+    def wait_remote_neighbor_copy_updates(self, state, handle=None, hood_id=None):
+        """Split-phase wait: merge the ``start`` handle's payloads into the
+        ghost rows.  Without a handle this is a blocking ghost refresh."""
+        if handle is None:
+            return self.halo(hood_id)(state)
+        return self.halo(hood_id).finish(state, handle)
 
     # ------------------------------------------------------------------ AMR
 

@@ -28,6 +28,11 @@ forms (XLA programs, not kernels) are not ported, and it prefers boxed
 passes over the flat kernel past a TPU-measured cost edge; without a boxed
 run this package takes the flat kernel wherever it qualifies.
 
+``overlap=True`` pins the general path (no dense path, no flat run) and
+makes ``step`` / ``run`` the split-phase step: start the density halo
+(kernel B9 on a side stream on CUDA), update the inner rows, which read no
+ghost, wait, then update the outer rows — bitwise equal to the gather step.
+
 On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
 that fails to build or launch raises: there is no fallback to another path.
 """
@@ -58,9 +63,9 @@ from ..ops.flat_amr import (
     flat_ml_run_plain,
 )
 from ..parallel.dense import HaloExtend
-from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
+from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum, split_rows
 
-__all__ = ["Advection", "build_face_tables"]
+__all__ = ["Advection", "build_face_tables", "build_split_tables"]
 
 
 def build_face_tables(grid, hood_id, tables, dtype):
@@ -121,6 +126,64 @@ def build_face_tables(grid, hood_id, tables, dtype):
     dev["axis_idx"] = put(ai, torch.int8)
     dev["sign"] = put(np.sign(direction), tdt)
     return host, dev
+
+
+def build_split_tables(grid, hood_id, host_face, dtype, extra=None):
+    """The inner and outer row sets of a split-phase step (the JAX
+    package's ``build_split_tables``, shared by Advection and Vlasov): the
+    rows of :func:`split_rows`, with the neighbor rows and the face tables
+    of :func:`build_face_tables` (``host_face``, its host dict) restricted
+    to them.  ``extra`` maps names to further host tables ``[..., D, R]``,
+    restricted the same way and shipped in ``dtype``.  Returns ``(inner,
+    outer)`` dicts of device tensors; pad lanes are scratch rows whose face
+    entries are all masked (``face_dir == 0``), so they contribute
+    nothing."""
+    hood = grid.epoch.hoods[hood_id]
+    ar = np.arange(grid.n_devices)[:, None]
+    tdt = torch_dtype(dtype)
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=grid.device).to(dt)
+    sides = []
+    for rows in split_rows(grid, hood_id):
+        fd = host_face["face_dir"][ar, rows]
+        sub = {
+            "rows": put(rows, torch.int64),
+            "nbr_rows": put(hood.nbr_rows[ar, rows], torch.int64),
+            "face_dir": put(fd, torch.int8),
+            "axis_idx": put(np.maximum(np.abs(fd.astype(np.int64)) - 1, 0), torch.int8),
+            "sign": put(np.sign(fd), tdt),
+        }
+        for name in ("min_area", "cell_axis_len", "nbr_axis_len", "inv_volume"):
+            sub[name] = put(host_face[name][ar, rows], tdt)
+        for name, arr in (extra or {}).items():
+            sub[name] = put(arr[..., ar, rows], tdt)
+        sides.append(sub)
+    return sides[0], sides[1]
+
+
+def _face_update(t, rho_c, rho_n, v_c, v_n, dt):
+    """``rho_c`` plus its upwind face fluxes summed in slot order (the JAX
+    package's step body): the face velocity ``(cl*v_nbr + nl*v_cell)/(cl +
+    nl)`` (solve.hpp:168-175), the upwind density, outflow on a +dir face
+    subtracted and on a -dir face added (solve.hpp:227-233).  ``t`` holds
+    the face tables of the cells ``rho_c`` (all rows, or one split side),
+    ``rho_n`` / ``v_n`` their neighbors' density and (vx, vy, vz), ``v_c``
+    the cells' own velocity."""
+    sgn, ai = t["sign"], t["axis_idx"]
+    v_cell = torch.where(
+        ai == 0, v_c[0][..., None],
+        torch.where(ai == 1, v_c[1][..., None], v_c[2][..., None]),
+    )
+    v_nbr = torch.where(ai == 0, v_n[0], torch.where(ai == 1, v_n[1], v_n[2]))
+    cl, nl = t["cell_axis_len"], t["nbr_axis_len"]
+    v_face = (cl * v_nbr + nl * v_cell) / (cl + nl)
+    r_c = rho_c[..., None]
+    upwind_pos = torch.where(v_face >= 0, r_c, rho_n)
+    upwind_neg = torch.where(v_face >= 0, rho_n, r_c)
+    upwind = torch.where(sgn > 0, upwind_pos, upwind_neg)
+    face_flux = upwind * dt * v_face * t["min_area"]
+    zero = torch.zeros((), dtype=rho_c.dtype, device=rho_c.device)
+    contrib = torch.where(t["face_dir"] != 0, -sgn * face_flux, zero)
+    return rho_c + ordered_sum(contrib, axis=-1) * t["inv_volume"]
 
 
 class _FlatRun:
@@ -194,7 +257,7 @@ class Advection:
     }
 
     def __init__(self, grid, hood_id=None, dtype=np.float64, use_kernels=True,
-                 allow_dense=True):
+                 allow_dense=True, overlap=False):
         self.grid = grid
         self.hood_id = hood_id
         self.dtype = numpy_dtype(dtype)
@@ -202,7 +265,10 @@ class Advection:
         self.use_kernels = bool(use_kernels)
         self.device = grid.device
         self.spec = {k: (s, self.dtype) for k, (s, _) in self.SPEC.items()}
-        self.dense = grid.epoch.dense if allow_dense else None
+        #: split-phase stepping: ``step`` / ``run`` take the split step of the
+        #: general path, which this pins (no dense path, no flat run)
+        self.overlap = bool(overlap)
+        self.dense = grid.epoch.dense if allow_dense and not self.overlap else None
         if self.dense is not None:
             self._init_dense()
         else:
@@ -221,7 +287,13 @@ class Advection:
         #: "ml_pallas" (three or more) or None (the gather step) — the JAX
         #: package's labels
         self._flat_kind = None
-        self._flat_run = self._build_flat_run()
+        self._flat_run = None
+        if self.overlap:
+            self._inner, self._outer = build_split_tables(
+                grid, self.hood_id, host, self.dtype)
+            self._ar = torch.arange(grid.n_devices, device=self.device)[:, None]
+        else:
+            self._flat_run = self._build_flat_run()
 
     def _build_flat_run(self):
         """The whole-run flat kernel (a :class:`_FlatRun`) when the grid
@@ -246,40 +318,45 @@ class Advection:
 
     def _general_step(self, state, dt):
         """One gather step (the JAX package's ``_build_step`` body): a
-        density-only ghost refresh, the face velocity
-        ``(cl*v_nbr + nl*v_cell)/(cl+nl)`` (solve.hpp:168-175), upwind face
-        fluxes, and the ordered sum over the neighbor slots."""
+        density-only ghost refresh, then :func:`_face_update` on the local
+        rows."""
         # ghost refresh: density only, like the reference's default
         # get_mpi_datatype (cell.hpp:46-55)
         state = {**state, **self._exchange({"density": state["density"]})}
         rho = state["density"]
-        dev = self._dev
         nbr = self.tables.nbr_rows
-        rho_n = gather_neighbors(rho, nbr)           # [D, R, K]
-        vx_n = gather_neighbors(state["vx"], nbr)
-        vy_n = gather_neighbors(state["vy"], nbr)
-        vz_n = gather_neighbors(state["vz"], nbr)
+        v = tuple(state[k] for k in ("vx", "vy", "vz"))
+        new = _face_update(self._dev, rho, gather_neighbors(rho, nbr), v,
+                           tuple(gather_neighbors(x, nbr) for x in v), dt)
+        new_rho = torch.where(self.tables.local_mask, new, rho)
+        return {**state, "density": new_rho, "flux": torch.zeros_like(new_rho)}
 
-        sgn, ai = dev["sign"], dev["axis_idx"]
-        v_cell = torch.where(
-            ai == 0, state["vx"][..., None],
-            torch.where(ai == 1, state["vy"][..., None], state["vz"][..., None]),
-        )
-        v_nbr = torch.where(ai == 0, vx_n, torch.where(ai == 1, vy_n, vz_n))
-        cl, nl = dev["cell_axis_len"], dev["nbr_axis_len"]
-        v_face = (cl * v_nbr + nl * v_cell) / (cl + nl)
+    def _side_update(self, rho, state, t, dt):
+        """:func:`_face_update` of one split side's compacted rows."""
+        rows, nbr = t["rows"], t["nbr_rows"]
+        v = tuple(state[k] for k in ("vx", "vy", "vz"))
+        return _face_update(t, rho[self._ar, rows], gather_neighbors(rho, nbr),
+                            tuple(x[self._ar, rows] for x in v),
+                            tuple(gather_neighbors(x, nbr) for x in v), dt)
 
-        r_c = rho[..., None]
-        upwind_pos = torch.where(v_face >= 0, r_c, rho_n)
-        upwind_neg = torch.where(v_face >= 0, rho_n, r_c)
-        upwind = torch.where(sgn > 0, upwind_pos, upwind_neg)
-        face_flux = upwind * dt * v_face * dev["min_area"]
-        # +dir face: outflow subtracts; -dir face: adds (solve.hpp:227-233)
-        zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-        contrib = torch.where(dev["face_dir"] != 0, -sgn * face_flux, zero)
-        flux = ordered_sum(contrib, axis=-1) * dev["inv_volume"]
-        new_rho = torch.where(self.tables.local_mask, rho + flux, rho)
-        return {**state, "density": new_rho, "flux": torch.zeros_like(flux)}
+    def _split_step(self, state, dt):
+        """The split-phase step (the JAX package's ``_build_split_step``):
+        start the density halo, update the inner rows (no remote neighbor,
+        so they read no payload), merge the ghosts (the wait), update the
+        outer rows, then keep the merged values off the local rows
+        (``where(local, out, rho2)`` also cleans the scratch row the pad
+        lanes wrote).  Bitwise equal to :meth:`_general_step`: the same
+        per-cell operations in the same order."""
+        ex, field = self._exchange, {"density": state["density"]}
+        handle = ex.start(field)
+        new_i = self._side_update(state["density"], state, self._inner, dt)
+        rho2 = ex.finish(field, handle)["density"]
+        new_o = self._side_update(rho2, state, self._outer, dt)
+        out = rho2.clone()
+        out[self._ar, self._inner["rows"]] = new_i
+        out[self._ar, self._outer["rows"]] = new_o
+        out = torch.where(self.tables.local_mask, out, rho2)
+        return {**state, "density": out, "flux": torch.zeros_like(out)}
 
     def _general_max_dt(self, state) -> float:
         # CFL: min over local cells of length/|v| per dim (solve.hpp:284-330)
@@ -459,6 +536,8 @@ class Advection:
 
     def step(self, state, dt):
         if self.dense is None:
+            if self.overlap:
+                return self._split_step(state, self._scalar(dt))
             return self._general_step(state, self._scalar(dt))
         new_rho = self._step_density(
             state["density"], state["vx"], state["vy"], state["vz"],
@@ -471,13 +550,15 @@ class Advection:
         on one device when the block fits, else one step launch per step
         (the velocity halo planes hoisted out of the loop on the blocked
         path).  Refined: one flat whole-run kernel launch when the grid
-        qualifies (``_flat_kind``), else the gather step per step."""
+        qualifies (``_flat_kind``), else the gather step (the split step
+        with ``overlap``) per step."""
         steps, dt = int(steps), self._scalar(dt)
         if self.dense is None:
             if self._flat_run is not None:
                 return self._flat_run.run(state, steps, dt)
+            step = self._split_step if self.overlap else self._general_step
             for _ in range(steps):
-                state = self._general_step(state, dt)
+                state = step(state, dt)
             return state
         rho, vx, vy, vz = (state[k] for k in ("density", "vx", "vy", "vz"))
         if self.fused:
@@ -592,7 +673,8 @@ class Advection:
             },
         )
         adv = Advection(grid, self.hood_id, self.dtype,
-                        use_kernels=self.use_kernels, allow_dense=False)
+                        use_kernels=self.use_kernels, allow_dense=False,
+                        overlap=self.overlap)
         cells = grid.get_cells()
         centers = grid.geometry.get_center(cells)
         state = grid.set_cell_data(state, "vx", cells, -centers[:, 1] + 0.5)

@@ -24,10 +24,15 @@ operations for uint32 (no ``>`` or ``+`` on the CPU), so counts and the
 rule compute in int32 (the gather step) or float32 (the dense view, as in
 the kernel) and the results are stored as uint32.
 
-The JAX package's split-phase ``overlap`` step, its exchange-amortized
-``_wide_spec`` and its cohort ``batch_step_spec`` are not ported: they
-raise ``NotImplementedError`` naming their queue items.  There is no
-fallback: a kernel that fails to build or launch raises.
+``overlap=True`` skips the dense 2-D path and makes ``step`` / ``run`` the
+split-phase step on the row layout: start the alive halo (kernel B9 on a
+side stream on CUDA), count and rule the inner rows, which read no ghost,
+wait, then the outer rows — equal to the gather step.
+
+The JAX package's exchange-amortized ``_wide_spec`` and its cohort
+``batch_step_spec`` are not ported: they raise ``NotImplementedError``
+naming their queue items.  There is no fallback: a kernel that fails to
+build or launch raises.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import torch
 from ..grid import _not_in_slice
 from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
 from ..parallel.dense import HaloExtend, detect_dense2d
-from ..parallel.stencil import StencilTables, gather_neighbors
+from ..parallel.stencil import StencilTables, gather_neighbors, split_rows
 
 __all__ = ["GameOfLife"]
 
@@ -60,16 +65,19 @@ class GameOfLife:
 
     def __init__(self, grid, hood_id=None, overlap: bool = False,
                  allow_dense: bool = True, use_kernels: bool = True):
-        if overlap:
-            _not_in_slice("GameOfLife's split-phase overlap step", "12")
         self.grid = grid
         self.hood_id = hood_id
         self.use_kernels = bool(use_kernels)
+        #: split-phase stepping on the row layout (no dense 2-D path)
+        self.overlap = bool(overlap)
         self._exchange = grid.halo(hood_id)
-        self.tables = StencilTables(grid, hood_id)
-        self.dense2d = detect_dense2d(grid, hood_id) if allow_dense else None
+        self.tables = None if self.overlap else StencilTables(grid, hood_id)
+        self.dense2d = (detect_dense2d(grid, hood_id)
+                        if allow_dense and not self.overlap else None)
         #: whether ``run`` takes the whole-run kernel (``gol_run``)
         self.fused = False
+        if self.overlap:
+            self._init_overlap()
         if self.dense2d is not None:
             self._init_dense()
 
@@ -86,6 +94,8 @@ class GameOfLife:
     def step(self, state):
         """One turn on the row layout: ghost refresh, neighbor gather,
         count over the valid entries, rule on the local rows."""
+        if self.overlap:
+            return self._overlap_step(state)
         state = self._exchange(state)
         alive = state["is_alive"].to(torch.int32)
         nbr_alive = gather_neighbors(alive, self.tables.nbr_rows)   # [D, R, K]
@@ -96,6 +106,51 @@ class GameOfLife:
             "is_alive": torch.where(local, _life_rule(count, alive), alive).to(_U32),
             "live_neighbor_count": torch.where(
                 local, count, torch.zeros_like(count)).to(_U32),
+        }
+
+    # ------------------------------------------------- split-phase path
+
+    def _init_overlap(self):
+        """Compacted inner / outer row sets and their gather tables (the JAX
+        package's ``_build_overlap_step`` tables; widths on the bucket ladder
+        with the grid's hints, pad lanes the scratch row)."""
+        grid = self.grid
+        hood = grid.epoch.hoods[self.hood_id]
+        ar = np.arange(grid.n_devices)[:, None]
+        put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                            device=grid.device)
+        self._sides = [(put(rows, torch.int64),
+                        put(hood.nbr_rows[ar, rows], torch.int64),
+                        put(hood.nbr_valid[ar, rows], torch.bool))
+                       for rows in split_rows(grid, self.hood_id)]
+        self._local = put(grid.epoch.local_mask, torch.bool)
+        self._ar = torch.arange(grid.n_devices, device=grid.device)[:, None]
+
+    def _overlap_step(self, state):
+        """The split-phase turn (``game_of_life.py:185-220`` of the JAX
+        package): start the alive halo, count and rule the inner rows (no
+        payload read), merge the ghosts, then the outer rows; the counts
+        are 0 off the local rows, and ``where(local, ...)`` cleans the
+        scratch row the pad lanes wrote."""
+        ex, ar = self._exchange, self._ar
+        field = {"is_alive": state["is_alive"]}
+        handle = ex.start(field)
+
+        def side(a, rows, nbr, valid):
+            count = (valid & (gather_neighbors(a, nbr) != 0)).sum(dim=-1, dtype=torch.int32)
+            return count, _life_rule(count, a[ar, rows])
+
+        (ri, *ti), (ro, *to) = self._sides
+        cnt_i, new_i = side(state["is_alive"].to(torch.int32), ri, *ti)
+        a2 = ex.finish(field, handle)["is_alive"].to(torch.int32)
+        cnt_o, new_o = side(a2, ro, *to)
+        out_a, cnt = a2.clone(), torch.zeros_like(a2)
+        out_a[ar, ri], out_a[ar, ro] = new_i, new_o
+        cnt[ar, ri], cnt[ar, ro] = cnt_i, cnt_o
+        zero = torch.zeros_like(a2)
+        return {
+            "is_alive": torch.where(self._local, out_a, a2).to(_U32),
+            "live_neighbor_count": torch.where(self._local, cnt, zero).to(_U32),
         }
 
     # ------------------------------------------------------ dense 2-D path
@@ -174,7 +229,7 @@ class GameOfLife:
         return cells[alive > 0]
 
     def _wide_spec(self):
-        _not_in_slice("GameOfLife's exchange-amortized wide step", "12")
+        _not_in_slice("GameOfLife's exchange-amortized wide step", "15")
 
     def batch_step_spec(self):
         _not_in_slice("GameOfLife's cohort batch step", "15")

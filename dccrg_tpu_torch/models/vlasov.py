@@ -25,11 +25,15 @@ exactly on both.  Boundaries follow ``grid.topology``: periodic dimensions
 wrap; open dimensions use vacuum inflow (f = 0 outside) with free outflow,
 so mass decreases monotonically as phase-space density leaves the box.
 
-The JAX package's split-phase ``overlap`` form, its exchange-amortized
-``_wide_spec``, its cohort ``batch_step_spec`` and its run telemetry are
-not ported (the first three raise ``NotImplementedError`` naming their
-queue items).  There is no fallback: a kernel that fails to build or
-launch raises.
+``overlap=True`` forces the general row layout, even on a slab grid, and
+makes ``step`` / ``run`` the split-phase step: start the f halo (kernel B9
+on a side stream on CUDA), update the inner rows, which read no ghost,
+wait, then update the outer rows — bitwise equal to the general step.
+
+The JAX package's exchange-amortized ``_wide_spec``, its cohort
+``batch_step_spec`` and its run telemetry are not ported (the first two
+raise ``NotImplementedError`` naming their queue items).  There is no
+fallback: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from ..ops.vlasov_kernel import (
 )
 from ..parallel.dense import HaloExtend
 from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
-from .advection import build_face_tables
+from .advection import build_face_tables, build_split_tables
 
 __all__ = ["Vlasov"]
 
@@ -56,10 +60,11 @@ class Vlasov:
     def __init__(self, grid, nv: int = 4, v_max: float = 1.0,
                  dtype=np.float32, use_kernels: bool = True,
                  overlap: bool = False):
-        if overlap:
-            _not_in_slice("Vlasov's split-phase overlap step", "12")
         self.grid = grid
-        self.info = grid.epoch.dense
+        #: split-phase stepping on the general row layout, which this forces
+        #: even on slab grids (the split form overlaps the gather path's halo)
+        self.overlap = bool(overlap)
+        self.info = grid.epoch.dense if not self.overlap else None
         self.nv = nv
         self.v_max = float(v_max)
         self.B = nv**3
@@ -143,7 +148,7 @@ class Vlasov:
         grid = self.grid
         self.tables = StencilTables(grid, None, with_geometry=True)
         self._exchange = grid.halo(None)
-        _, self._dev = build_face_tables(grid, None, self.tables, self.dtype)
+        host, self._dev = build_face_tables(grid, None, self.tables, self.dtype)
 
         # open-boundary face areas per cell per axis/side: the dense path's
         # vacuum-inflow/free-outflow closure (zero incoming, full upwind
@@ -171,34 +176,61 @@ class Vlasov:
             bnd_neg[d3][devs, rows] = np.where(lo, area, 0.0)
         self._has_open = bool(bnd_pos.any() or bnd_neg.any())
         put = lambda a: torch.tensor(a, dtype=self.torch_dtype, device=self.device)
-        self._bnd_pos, self._bnd_neg = put(bnd_pos), put(bnd_neg)
+        self._dev["bnd_pos"], self._dev["bnd_neg"] = put(bnd_pos), put(bnd_neg)
+        if self.overlap:
+            self._inner, self._outer = build_split_tables(
+                grid, None, host, self.dtype,
+                extra={"bnd_pos": bnd_pos, "bnd_neg": bnd_neg})
+            self._ar = torch.arange(D, device=self.device)[:, None]
 
-    def _general_step(self, f, dt):
-        f = self._exchange({"f": f})["f"]
-        dev = self._dev
-        f_n = gather_neighbors(f, self.tables.nbr_rows)       # [D, R, K, B]
-        sgn = dev["sign"][..., None]
-        v_face = self._vbT[dev["axis_idx"].long()]            # [D, R, K, B]
-        f_c = f[:, :, None, :]
-        up_pos = torch.where(v_face >= 0, f_c, f_n)
-        up_neg = torch.where(v_face >= 0, f_n, f_c)
+    def _face_update(self, t, f_c, f_n, dt):
+        """``f_c [..., B]`` plus its summed upwind face fluxes (the JAX
+        package's general step body) with each bin's constant velocity as
+        the face velocity, and the open boundary faces' outflow.  ``t``
+        holds the face tables of the cells ``f_c`` (all rows, or one split
+        side), ``f_n [..., K, B]`` their neighbors' blocks."""
+        sgn = t["sign"][..., None]
+        v_face = self._vbT[t["axis_idx"].long()]              # [..., K, B]
+        fc = f_c[..., None, :]
+        up_pos = torch.where(v_face >= 0, fc, f_n)
+        up_neg = torch.where(v_face >= 0, f_n, fc)
         upwind = torch.where(sgn > 0, up_pos, up_neg)
-        face_flux = upwind * (dt * v_face) * dev["min_area"][..., None]
-        contrib = torch.where((dev["face_dir"] != 0)[..., None],
+        face_flux = upwind * (dt * v_face) * t["min_area"][..., None]
+        contrib = torch.where((t["face_dir"] != 0)[..., None],
                               -sgn * face_flux, 0.0)
         total = ordered_sum(contrib, axis=-2)
         if self._has_open:
             # outgoing-only boundary faces (incoming is vacuum)
             vbT = self._vbT
             rate = sum(
-                self._bnd_pos[d3][..., None] * torch.clamp(vbT[d3], min=0)
-                + self._bnd_neg[d3][..., None] * torch.clamp(-vbT[d3], min=0)
+                t["bnd_pos"][d3][..., None] * torch.clamp(vbT[d3], min=0)
+                + t["bnd_neg"][d3][..., None] * torch.clamp(-vbT[d3], min=0)
                 for d3 in range(3)
             )
-            total = total - dt * f * rate
-        flux = total * dev["inv_volume"][..., None]
-        local = self.tables.local_mask[..., None]
-        return torch.where(local, f + flux, f)
+            total = total - dt * f_c * rate
+        return f_c + total * t["inv_volume"][..., None]
+
+    def _general_step(self, f, dt):
+        f = self._exchange({"f": f})["f"]
+        new = self._face_update(self._dev, f, gather_neighbors(f, self.tables.nbr_rows), dt)
+        return torch.where(self.tables.local_mask[..., None], new, f)
+
+    def _split_step(self, f, dt):
+        """The split-phase step (the JAX package's ``_build_split_general``):
+        start the f halo, update the inner rows (no payload read), merge the
+        ghosts, update the outer rows, keep the merged values off the local
+        rows.  Bitwise equal to :meth:`_general_step`."""
+        ex, ar = self._exchange, self._ar
+        handle = ex.start({"f": f})
+        t = self._inner
+        new_i = self._face_update(t, f[ar, t["rows"]], gather_neighbors(f, t["nbr_rows"]), dt)
+        f2 = ex.finish({"f": f}, handle)["f"]
+        t = self._outer
+        new_o = self._face_update(t, f2[ar, t["rows"]], gather_neighbors(f2, t["nbr_rows"]), dt)
+        out = f2.clone()
+        out[ar, self._inner["rows"]] = new_i
+        out[ar, self._outer["rows"]] = new_o
+        return torch.where(self.tables.local_mask[..., None], out, f2)
 
     # ----------------------------------------------------------- user API
 
@@ -233,11 +265,14 @@ class Vlasov:
         dt = self._scalar(dt)
         if self.info is not None:
             return {**state, "f": self._dense_step(state["f"], dt)}
+        if self.overlap:
+            return {**state, "f": self._split_step(state["f"], dt)}
         return {**state, "f": self._general_step(state["f"], dt)}
 
     def run(self, state, steps: int, dt):
         """Advance ``steps`` timesteps: on the dense float32 path one
-        kernel launch a step."""
+        kernel launch a step; on the row layout one halo exchange (one B9
+        launch on CUDA with D > 1) a step."""
         for _ in range(int(steps)):
             state = self.step(state, dt)
         return state
@@ -274,7 +309,7 @@ class Vlasov:
         return float(self.density(state).sum() * np.prod(l0))
 
     def _wide_spec(self):
-        _not_in_slice("Vlasov's exchange-amortized wide step", "12")
+        _not_in_slice("Vlasov's exchange-amortized wide step", "15")
 
     def batch_step_spec(self):
         _not_in_slice("Vlasov's cohort batch step", "15")

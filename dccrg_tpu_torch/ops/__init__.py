@@ -8,7 +8,7 @@ launches its kernel, and nowhere else; every twin adds one to
 #: kernel launches per wrapper (CUDA tensors only)
 LAUNCHES = {"fused_run": 0, "flux_update_blocked": 0, "flux_update": 0,
             "flat_amr_run": 0, "flat_ml_run": 0, "gol_run": 0,
-            "vlasov_step": 0, "bicg_solve": 0}
+            "vlasov_step": 0, "bicg_solve": 0, "ring_copy": 0}
 #: plain-twin calls per wrapper
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 

@@ -12,7 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["StencilTables", "gather_neighbors", "ordered_sum", "compact_rows"]
+from .shapes import bucket_rows
+
+__all__ = ["StencilTables", "gather_neighbors", "ordered_sum", "compact_rows",
+           "split_rows"]
 
 
 def compact_rows(mask: np.ndarray, scratch: int,
@@ -31,6 +34,23 @@ def compact_rows(mask: np.ndarray, scratch: int,
     for d in range(D):
         rows[d, : counts[d]] = np.flatnonzero(mask[d])
     return rows
+
+
+def split_rows(grid, hood_id):
+    """The inner and outer row sets of a split-phase step: each ``[D, W]``
+    from :func:`compact_rows`, W on the bucket ladder with the grid's hints
+    ``(hood_id, "split.inner"/"split.outer", 0)``, pad lanes the scratch
+    row.  Inner rows have no remote neighbor; outer rows do."""
+    epoch = grid.epoch
+    hood = epoch.hoods[hood_id]
+    hints = grid._ring_hints
+    out = []
+    for side, mask in (("inner", hood.inner_mask), ("outer", hood.outer_mask)):
+        key = (hood_id, f"split.{side}", 0)
+        W = bucket_rows(max(int(mask.sum(axis=1).max()), 1), hints.get(key))
+        hints[key] = W
+        out.append(compact_rows(mask, epoch.R - 1, width=W))
+    return out[0], out[1]
 
 
 class StencilTables:

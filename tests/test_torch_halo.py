@@ -101,6 +101,12 @@ def test_single_slot_exchange_is_identity():
 
 
 def test_cell_datatype_policy_not_ported():
+    """The ``cell_datatype`` policy is ported: a policy that selects no cell
+    leaves every ghost row as it was, and ships nothing."""
     g = _refined(dccrg_tpu_torch, 3, 0)
-    with pytest.raises(NotImplementedError, match="cell_datatype"):
-        g.halo(cell_datatype=lambda *a: None)
+    s, _ = _state(g)
+    ex = g.halo(cell_datatype=lambda f, ids, *a: np.zeros(len(ids), bool))
+    out = ex(s)
+    assert ex.bytes_moved(s) == ex.wire_bytes(s) == 0
+    for k in SPEC:
+        assert out[k] is s[k]
