@@ -7,14 +7,23 @@ Run from the repository root on a machine with one CUDA card (an H100):
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
-1. build      — compile every ``dccrg_tpu_torch/csrc/*.cu`` with nvcc, in
-                parallel, and print the command, seconds and ptxas report;
+1. build      — compile every ``dccrg_tpu_torch/csrc/*.cu`` and the bare
+                grid-barrier probe of phase 20 with nvcc, in parallel, and
+                print the command, seconds and ptxas report;
 2. kernels    — each kernel against its plain PyTorch twin on the card, at
                 the main path's shapes, bitwise (``torch.equal``; -0 == +0):
-                the dense kernels on seeded fields, the flat AMR kernels on
-                the refined grids of phases 6-7 (96^3 and 64^3 voxels), the
-                Game of Life kernel on the 500x500 board (30% alive, open and
-                periodic, 7 and 8 turns), the Vlasov step kernel at 32^3 x
+                the dense kernels on seeded fields (the whole-run kernel B1
+                at 128x128x64 for 0, 1, 7, 50 and 300 steps, with open x and
+                z faces, on an odd 33x17x9 block and on the largest block
+                fused_run_fits admits at 128x128, 128x128x67; a plan made
+                for another block refused before launch), the flat AMR
+                kernels on the refined grids of phases 6-7 (96^3 and 64^3
+                voxels), the Game of Life kernel B4 on the 500x500 board
+                (30% alive, open and periodic, 1, k-1, k, k+1, 7, 8 and 300
+                turns, k its plan's turns a round), on boards of 1x500,
+                500x1 and 5x7, and on a 500x500 board of values in {-1, 0,
+                0.5, 1, 2, 3} (also bit for bit); a plan made for another
+                board refused before launch), the Vlasov step kernel at 32^3 x
                 512 bins (one periodic slab; two slabs, open z), the BiCG
                 whole-solve kernel on the flat tables of phases 12-13 (64^3
                 voxels, two-level and uniform; 60 iterations) and of a
@@ -103,7 +112,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 run's; cell-updates/s;
 20. timing    — each kernel beside its twin and its least possible time, the
                 ring copy also beside torch.index_select, on copies of the
-                field that exceed the L2 (its L2-resident time logged too).
+                field that exceed the L2 (its L2-resident time logged too);
+                the launch plans of B1 and B4 (bricks or tiles, their
+                extents, shared memory a CTA, CTAs, turns a round) with the
+                registers ptxas gave each, and the bare grid barrier timed
+                on each kernel's grid.
 
 Launch counters are set to 0 just before each of phases 3-19 drives its path
 and read just after.  Output ends with the card's name and power limit, one
@@ -113,6 +126,7 @@ result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -165,6 +179,39 @@ def flat_ml_flops_per_voxel(cap_active) -> int:
     return n
 
 
+#: phase 20's scratch kernel, built beside the package's kernels and not one
+#: of them: ``steps`` bare grid barriers on a cooperative grid of ``ctas``
+#: CTAs of bx x by threads (what B1 pays to synchronise a step, B4 a round)
+BARRIER_PROBE = r"""
+#include <cooperative_groups.h>
+__global__ void barrier_loop(int steps) {
+  for (int i = 0; i < steps; ++i) cooperative_groups::this_grid().sync();
+}
+extern "C" int barrier_probe(int ctas, int bx, int by, int steps, void* stream) {
+  void* args[] = {&steps};
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)barrier_loop, dim3(ctas),
+                                                dim3(bx, by), args, 0,
+                                                (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+"""
+#: cudaErrorInvalidValue: what a whole-run launcher returns for a plan that
+#: does not fit its block or board
+CUDA_INVALID_VALUE = 1
+
+
+def ptxas_registers(ptxas: str, kernel: str) -> str:
+    """The ptxas line of registers (and stack) of the entry whose mangled
+    name holds ``kernel``, from ``-Xptxas -v`` output."""
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt:
+                    return nxt.split(":", 1)[-1].strip()
+    return "not in this run's build log"
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -190,6 +237,7 @@ def main() -> int:
     from dccrg_tpu_torch.ops import flat_amr as F
     from dccrg_tpu_torch.ops import gol_kernel as G
     from dccrg_tpu_torch.ops import poisson_kernel as B
+    from dccrg_tpu_torch.ops import resident as R
     from dccrg_tpu_torch.ops import vlasov_kernel as V
     from dccrg_tpu_torch.parallel import halo_dma as H
     from dccrg_tpu_torch.parallel.halo import HaloExchange
@@ -277,7 +325,17 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe_src = cuda_build.BUILD_DIR / "barrier_probe.cu"
+    probe_lib = cuda_build.BUILD_DIR / "libbarrier_probe.so"
+    probe_src.write_text(BARRIER_PROBE)
+    probe_nvcc = subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(probe_lib), str(probe_src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = cuda_build.build()
+    probe_log, _ = probe_nvcc.communicate()
+    check(probe_nvcc.returncode == 0,
+          f"barrier probe: nvcc exit {probe_nvcc.returncode}\n{probe_log}")
     log(f"[build] {len(built)} librar{'y' if len(built) == 1 else 'ies'} in "
         f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
     for lib, info in built.items():
@@ -289,13 +347,14 @@ def main() -> int:
     # ------------------------------------------------ 2. kernels vs twins
     rng = np.random.default_rng(1234)
 
-    def inputs(D, nzl, ny, nx):
+    def inputs(D, nzl, ny, nx, seed=None):
+        r = rng if seed is None else np.random.default_rng(seed)
         shape = (D, nzl, ny, nx)
-        rho = rng.uniform(0.1, 1.0, shape)
-        vx, vy = rng.normal(0.0, 0.5, shape), rng.normal(0.0, 0.5, shape)
+        rho = r.uniform(0.1, 1.0, shape)
+        vx, vy = r.normal(0.0, 0.5, shape), r.normal(0.0, 0.5, shape)
         z = (np.arange(D * nzl) + 0.5) / (D * nzl)
         vz = 0.3 * np.sin(2 * np.pi * z).reshape(D, nzl, 1, 1) \
-            + rng.normal(0.0, 0.05, shape)
+            + r.normal(0.0, 0.05, shape)
         t = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
         l0 = np.array([1.0 / nx, 1.0 / ny, 1.0 / (D * nzl)])
         area = tuple(float(a) for a in np.array(
@@ -355,8 +414,46 @@ def main() -> int:
     kw1 = dict(area=x_b1["area"], inv_vol=x_b1["inv_vol"])
     twin_err["fused_run"] = hold("B1 fused_run 128x128x64, 50 steps", K.fused_run,
                                  K.fused_run_plain, fused_args(x_b1, 50), kw1)
-    hold("B1 fused_run 128x128x64, 7 steps (odd)", K.fused_run,
-         K.fused_run_plain, fused_args(x_b1, 7), kw1)
+    for steps, what in ((7, "odd"), (0, "none"), (1, "one"), (300, "the race check")):
+        twin_err["fused_run"] = max(twin_err["fused_run"], hold(
+            f"B1 fused_run 128x128x64, {steps} steps ({what})", K.fused_run,
+            K.fused_run_plain, fused_args(x_b1, steps), kw1))
+    # the on-chip plan's other shapes: open x and z faces (zero masks), an
+    # odd block no brick divides, the largest block fused_run_fits admits
+    # at 128 x 128
+    x_open = inputs(1, 64, 128, 128, seed=41)
+    x_open["mx"][-1] = 0.0     # z is open in every input: mzu's last face is 0
+    x67 = inputs(1, 67, 128, 128, seed=43)
+    for label, x, steps in (("128x128x64, open x and z faces", x_open, 50),
+                            ("33x17x9 (odd)", inputs(1, 9, 17, 33, seed=42), 40),
+                            ("128x128x67 (largest admitted)", x67, 40)):
+        check(K.fused_run_fits(*x["rho"].shape[1:]), f"{label}: not admitted")
+        twin_err["fused_run"] = max(twin_err["fused_run"], hold(
+            f"B1 fused_run {label}, {steps} steps", K.fused_run, K.fused_run_plain,
+            fused_args(x, steps), dict(area=x["area"], inv_vol=x["inv_vol"])))
+    check(not K.fused_run_fits(68, 128, 128), "128x128x68 admitted")
+    limits = R.card_limits(dev.index)
+
+    def refused(label, err):
+        check(err == CUDA_INVALID_VALUE,
+              f"{label}: not refused (cudaError_t {err}, expected {CUDA_INVALID_VALUE})")
+        log(f"[kernels] {label}: refused before launch (cudaErrorInvalidValue)")
+
+    # the launcher recomputes what the block needs from the plan's cut: the
+    # headline's plan does not hold 128x128x67 (its bricks one plane deeper)
+    p64 = K.fused_run_plan(64, 128, 128, *limits)
+    deeper = tuple(-(-n // p) for n, p in zip((67, 128, 128), p64.parts))
+    check(K.fused_smem_bytes(deeper, [p > 1 for p in p64.parts]) > p64.smem_bytes,
+          "the headline's plan would hold 128x128x67")
+    a67 = fused_args(x67, 1)
+    out67 = torch.empty_like(a67[0])
+    faces = torch.empty(2 * p64.ctas * 6 * p64.face_floats, device=dev)
+    refused("B1 dense_fused_run: 128x128x64's plan on 128x128x67",
+            K._kernels().dense_fused_run(
+                *(t.data_ptr() for t in a67[:8]), out67.data_ptr(), faces.data_ptr(),
+                67, 128, 128, 1, *K._consts(a67[8], kw1["area"], kw1["inv_vol"]),
+                *p64.parts, *p64.threads, p64.smem_bytes, p64.face_floats,
+                torch.cuda.current_stream().cuda_stream))
     x_b2 = inputs(1, 128, 512, 512)
     kw2 = dict(block=K.pick_step_block(128, 512, 512), area=x_b2["area"],
                inv_vol=x_b2["inv_vol"])
@@ -427,15 +524,47 @@ def main() -> int:
     hold("B6 flat_ml_run 64^3 voxels, 8 steps, random density", F.flat_ml_run,
          F.flat_ml_run_plain, a, kw)
 
-    # B4 on the bench's board: 500x500, 30% alive
+    # B4 on the bench's board: 500x500, 30% alive; turns about the plan's
+    # turns a round (k) and a long run (the race check); boards of one row,
+    # one column and one tile; a board of finite non-0/1 values, held bit
+    # for bit (the sign of a zero count included)
     board = torch.tensor((np.random.default_rng(7).random((500, 500)) < 0.3)
                          .astype(np.float32), device=dev)
+    p500 = G.gol_run_plan(500, 500, *limits)
+    k4 = p500.turns_per_round
     for px in (False, True):
-        for turns in (7, 8):
+        for turns in sorted({7, 8, 1, k4 - 1, k4, k4 + 1, 300} - {0}):
             err = hold(f"B4 gol_run 500x500, {'periodic' if px else 'open'}, "
                        f"{turns} turns", G.gol_run, G.gol_run_plain,
                        (board, turns, px, px), {})
             twin_err["gol_run"] = max(twin_err.get("gol_run", 0.0), err)
+    for shape in ((1, 500), (500, 1), (5, 7)):
+        b = torch.tensor((np.random.default_rng(8).random(shape) < 0.4)
+                         .astype(np.float32), device=dev)
+        for px in (False, True):
+            twin_err["gol_run"] = max(twin_err["gol_run"], hold(
+                f"B4 gol_run {shape[0]}x{shape[1]}, {'periodic' if px else 'open'}, "
+                f"37 turns", G.gol_run, G.gol_run_plain, (b, 37, px, px), {}))
+    values = torch.tensor(np.random.default_rng(9).choice(
+        [-1.0, 0.0, 0.5, 1.0, 2.0, 3.0], (500, 500)).astype(np.float32), device=dev)
+    for px in (False, True):
+        args = (values, k4 + 1, px, px)
+        twin_err["gol_run"] = max(twin_err["gol_run"], hold(
+            f"B4 gol_run 500x500 of values in {{-1, 0, 0.5, 1, 2, 3}}, "
+            f"{'periodic' if px else 'open'}, {k4 + 1} turns", G.gol_run,
+            G.gol_run_plain, args, {}))
+        check(all(same_bits(a, b) for a, b in zip(G.gol_run(*args), G.gol_run_plain(*args))),
+              "B4 on non-0/1 values: kernel and twin differ in their bits")
+    # the 500x500 board's plan on a 1000x1000 board: its tiles twice as
+    # long on each axis, over the plan's shared memory
+    big = torch.zeros((1000, 1000), device=dev)
+    out_b, cnt_b = torch.empty_like(big), torch.empty_like(big)
+    scr_b = torch.empty((2, 1000, 1000), device=dev)
+    refused("B4 gol_run: 500x500's plan on 1000x1000",
+            G._kernels().gol_run(
+                big.data_ptr(), out_b.data_ptr(), cnt_b.data_ptr(), scr_b.data_ptr(),
+                1000, 1000, 1, 0, 0, *p500.parts, k4, *p500.threads, p500.smem_bytes,
+                torch.cuda.current_stream().cuda_stream))
 
     # B7 at the bench's phase space: 32^3 cells x 8^3 bins, block 4
     def vlasov_args(D, periodic, seed):
@@ -1269,6 +1398,36 @@ def main() -> int:
                          source="dccrg_tpu_torch/csrc/halo_dma.cu",
                          replaces="dccrg_tpu/parallel/halo_dma.py:151", ms=ms,
                          plain_ms=plain_ms, bound=b, library_ms=library_ms))
+    # the on-chip plans of B1 and B4 at their main-path shapes, their
+    # registers, and the bare grid barrier on each kernel's grid: what a
+    # step of B1 and a round of B4 pay to synchronise
+    p1 = K.fused_run_plan(64, 128, 128, *limits)
+    p4 = G.gol_run_plan(500, 500, *limits)
+    log(f"[timing] fused_run plan at 128x128x64: {p1.parts} bricks (z, y, x) of at "
+        f"most {p1.tile} cells, {p1.ctas} CTAs of {p1.threads} threads, "
+        f"{p1.smem_bytes} bytes of shared memory a CTA; registers "
+        + ptxas_registers(built.get("dense_advection", {}).get("ptxas", ""),
+                          "dense_fused_run_kernel"))
+    log(f"[timing] gol_run plan at 500x500: {p4.parts} tiles (y, x) of at most "
+        f"{p4.tile} cells, k = {p4.turns_per_round} turns a round, {p4.ctas} CTAs "
+        f"of {p4.threads} threads, {p4.smem_bytes} bytes of shared memory a CTA; "
+        "registers " + ptxas_registers(built.get("gol", {}).get("ptxas", ""),
+                                       "gol_run_kernel"))
+    probe = ctypes.CDLL(str(probe_lib))
+    probe.barrier_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def barriers(plan, n):
+        err = probe.barrier_probe(plan.ctas, *plan.threads, n,
+                                  torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"barrier probe: cudaError_t {err}")
+
+    n4 = 20000 // p4.turns_per_round
+    t1 = statistics.median(event_ms(lambda: barriers(p1, 5000), 1) for _ in range(3))
+    t4 = statistics.median(event_ms(lambda: barriers(p4, n4), 1) for _ in range(3))
+    log(f"[timing] bare grid barrier (median of 3, CUDA events): x5000 on B1's grid "
+        f"{t1!r} ms ({1e3 * t1 / 5000!r} us each); x{n4} on B4's grid (one a round "
+        f"of 20000 turns) {t4!r} ms ({1e3 * t4 / n4!r} us each) on {card}")
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]

@@ -14,8 +14,10 @@
 //   cell flux  = z- + y- + x- - x+ - y+ - z+   (left to right)
 //   new rho    = r + flux * inv_vol
 // so each kernel equals its plain PyTorch twin (ops/dense_advection.py)
-// bitwise.  The fused run folds the face mask into a hoisted weight,
-// ((dt * vf) * area) * mask, exactly as make_fused_run does.
+// bitwise.  The whole run hoists the x and y weights with the face mask
+// folded in, ((dt * vf) * area) * mask, exactly as make_fused_run does, and
+// the z product (dt * vf) * area, whose mask it applies at use: the same
+// product in the same order.
 //
 // Periodic wraps are explicit index arithmetic ((i+1) % n, (i-1+n) % n),
 // matching jnp.roll(x, -1) / jnp.roll(x, 1); non-periodic faces carry a
@@ -42,7 +44,6 @@ __device__ __forceinline__ float face_flux(float r_c, float r_n, float v_c,
 }
 
 constexpr int kStepThreads = 256;
-constexpr int kFusedThreads = 256;
 
 // One advection step, one thread per (x, y) column marching over a chunk of
 // `zchunk` z planes and carrying the z-1 / z / z+1 density and vz values in
@@ -143,104 +144,262 @@ dense_step_kernel(const float* __restrict__ rho, const float* __restrict__ e_lo,
   }
 }
 
+// ---------------------------------------------------------- whole run
+
+// part i of n cells cut into p parts: the first n % p parts hold one more
+__device__ __forceinline__ void part(int n, int p, int i, int& start, int& len) {
+  const int q = n / p, r = n % p;
+  start = i * q + (i < r ? i : r);
+  len = q + (i < r ? 1 : 0);
+}
+
+// v mod n for v >= -n
+__device__ __forceinline__ int wrap(int v, int n) { return (v % n + n) % n; }
+
+// boundary cells a thread of the whole run exchanges a step at most
+// (fused_run_plan keeps a brick's halo within kSlots x threads)
+constexpr int kSlots = 8;
+
 // A whole run of `steps` advection steps on one device's [nzl, ny, nx]
-// block in one cooperative launch.  Replaces make_fused_run.
+// block in one cooperative launch, the block held on chip for the whole
+// run.  Replaces make_fused_run.
 //
-// Pass 0 hoists the loop invariants (make_fused_run's hoists): the four
-// face weights ((dt * vf) * area) * mask and the four upwind selects,
-// packed as bits of one byte, and copies rho into `out`.  Then each step
-// reads the source buffer and writes the other one (ping-pong out / scr),
-// with a grid-wide barrier between steps; an odd step count ends with the
-// copy scr -> out.  Every pass is grid-stride over cells, x fastest.
+// The block is cut into pz x py x px bricks, one per CTA (at most one CTA
+// per SM); the plan (ops/dense_advection.py::fused_run_plan) picks the cut
+// and the launcher takes it as given.  Part i of n cells into p parts
+// starts at i*(n/p) + min(i, n%p) and holds n/p (+1 for i < n%p) cells.
+// Each CTA keeps in shared memory, for all steps:
+//   A, D    this step's and the next step's density of its brick, each with
+//           a one-cell halo on every split axis (ping-pong);
+//   Wx, Wy  the masked face weights ((dt * vf) * area) * mask;
+//   Wz      the unmasked z product (dt * vf) * area, the z+ and z- masks
+//           applied at use: mul(Wz, mzu[z]) is the reference's z+ weight and
+//           mul(Wz of the cell below, mzd[z]) its z- weight (vfz_lo of a
+//           cell is vfz_hi of the cell below, bit for bit);
+//   S       the three upwind selects (vf >= 0 on x, y, z+), bits of a byte;
+//   the weights and selects over the brick and a one-cell halo on the minus
+//   side of each split axis (the x-, y-, z- faces use the neighbour's).
+// An axis that is not split (one part) has no halo: its neighbours wrap
+// inside the brick.  A thread owns columns (y, x) of the brick and marches
+// each over z, carrying the density, z product and select of the cell below
+// in registers.  A step computes D from A; writes the edge planes of split
+// axes to a global face buffer (double-buffered by step parity, written and
+// read around L1, each thread's cells of the exchange fixed for the run so
+// a warp's stores and loads are contiguous); waits at the grid barrier;
+// reads the neighbours' planes into D's halo; and swaps A and D.  There is
+// no integer division in the step loop.
 //
 // Bound on this card: the run's compulsory bytes are tiny (rho, vx, vy, vz
 // in and rho out, once), so the least time is the operation count, ~11
-// flops a cell a step.  What it really pays per step is traffic between
-// the SMs and L2: the working set (two density buffers, four weights, the
-// selects: ~21 bytes a cell, 22 MB at 128x128x64) stays resident in the
-// 50 MB L2 across steps, so steps stream from L2, not device memory, plus
-// one grid barrier per step.  Index arithmetic is 32-bit: 64-bit division
-// and modulo are emulated on the card and would dominate the step.
-// Keeping whole z-slab tiles in shared memory
-// over several steps (temporal blocking) is the next step for speed.
-__global__ void __launch_bounds__(kFusedThreads)
+// flops a cell a step.  What a step pays is the shared-memory work of
+// ~1/128 of the block on each SM (~8k cells, 13 loads a cell: the issue
+// rate of the SM), the grid barrier, and the face exchange through L2
+// (~2.5k floats a CTA each way); nothing else leaves the SM.
+__global__ void __launch_bounds__(512, 1)
 dense_fused_run_kernel(const float* __restrict__ rho, const float* __restrict__ vx,
                        const float* __restrict__ vy, const float* __restrict__ vz,
                        const float* __restrict__ mx, const float* __restrict__ my,
                        const float* __restrict__ mzu, const float* __restrict__ mzd,
-                       float* out, float* scr, float* __restrict__ wx,
-                       float* __restrict__ wy, float* __restrict__ wzu,
-                       float* __restrict__ wzd, unsigned char* __restrict__ sel,
-                       int nzl, int ny, int nx, int steps, float dt, float ax,
-                       float ay, float az, float inv_vol) {
-  cg::grid_group grid = cg::this_grid();
-  // 32-bit index arithmetic: the launcher refuses blocks of 2^31 cells or
-  // more (a block this kernel takes is far smaller)
-  const int P = ny * nx;
-  const int N = nzl * P;
-  const int stride = gridDim.x * blockDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+                       float* __restrict__ out, float* faces, int nzl,
+                       int ny, int nx, int steps, float dt, float ax, float ay,
+                       float az, float inv_vol, int pz, int py, int px, int fs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cta = blockIdx.x, ctas = gridDim.x;
+  const int bi = cta % px, bj = (cta / px) % py, bk = cta / (px * py);
+  int x0, tx, y0, ty, z0, tz;
+  part(nx, px, bi, x0, tx);
+  part(ny, py, bj, y0, ty);
+  part(nzl, pz, bk, z0, tz);
+  const int sx = px > 1, sy = py > 1, sz = pz > 1;
+  // A: [AZ][AY][AX], interior (z, y, x) at (z+sz, y+sy, x+sx)
+  const int AX = tx + 2 * sx, AY = ty + 2 * sy, AZ = tz + 2 * sz, AXY = AX * AY;
+  // weights and selects: [VZ][VY][VX], interior at (z+sz, y+sy, x+sx)
+  const int VX = tx + sx, VY = ty + sy, VZ = tz + sz, VXY = VX * VY;
+  const int nA = AXY * AZ, nV = VXY * VZ;
+  float* A = reinterpret_cast<float*>(smem);  // this step's density
+  float* D = A + nA;                           // the next step's
+  float* Wx = D + nA;
+  float* Wy = Wx + nV;
+  float* Wz = Wy + nV;
+  unsigned char* S = reinterpret_cast<unsigned char*>(Wz + nV);
 
-  for (int c = first; c < N; c += stride) {
-    const int x = c % nx;
-    const int y = (c / nx) % ny;
-    const int z = c / P;
-    const int in_plane = c - z * P;
-    const int c_xp = c - x + (x + 1) % nx;
-    const int c_yp = c + ((y + 1) % ny - y) * nx;
-    const int c_zp = ((z + 1) % nzl) * P + in_plane;
-    const int c_zm = ((z - 1 + nzl) % nzl) * P + in_plane;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int tid = threadIdx.y * bx + threadIdx.x, nth = bx * by;
+
+  // ---- pass 0: load the brick and its halo, hoist weights and selects
+  for (int i = tid; i < nA; i += nth) {
+    const int gx = wrap(x0 + i % AX - sx, nx);
+    const int gy = wrap(y0 + (i / AX) % AY - sy, ny);
+    const int gz = wrap(z0 + i / AXY - sz, nzl);
+    A[i] = rho[(gz * ny + gy) * nx + gx];
+  }
+  for (int i = tid; i < nV; i += nth) {
+    const int gx = wrap(x0 + i % VX - sx, nx);
+    const int gy = wrap(y0 + (i / VX) % VY - sy, ny);
+    const int gz = wrap(z0 + i / VXY - sz, nzl);
+    const int c = (gz * ny + gy) * nx + gx;
+    const int c_xp = c - gx + (gx + 1 == nx ? 0 : gx + 1);
+    const int c_yp = c + ((gy + 1 == ny ? 0 : gy + 1) - gy) * nx;
+    const int c_zp = c + ((gz + 1 == nzl ? 0 : gz + 1) - gz) * ny * nx;
     const float vfx = mul(add(vx[c], vx[c_xp]), 0.5f);
     const float vfy = mul(add(vy[c], vy[c_yp]), 0.5f);
-    const float vfz_hi = mul(add(vz[c], vz[c_zp]), 0.5f);
-    const float vfz_lo = mul(add(vz[c_zm], vz[c]), 0.5f);
-    wx[c] = mul(mul(mul(dt, vfx), ax), mx[x]);
-    wy[c] = mul(mul(mul(dt, vfy), ay), my[y]);
-    wzu[c] = mul(mul(mul(dt, vfz_hi), az), mzu[z]);
-    wzd[c] = mul(mul(mul(dt, vfz_lo), az), mzd[z]);
-    sel[c] = (unsigned char)((vfx >= 0.f) | ((vfy >= 0.f) << 1) |
-                             ((vfz_hi >= 0.f) << 2) | ((vfz_lo >= 0.f) << 3));
-    out[c] = rho[c];
+    const float vfz = mul(add(vz[c], vz[c_zp]), 0.5f);
+    Wx[i] = mul(mul(mul(dt, vfx), ax), mx[gx]);
+    Wy[i] = mul(mul(mul(dt, vfy), ay), my[gy]);
+    Wz[i] = mul(mul(dt, vfz), az);
+    S[i] = (unsigned char)((vfx >= 0.f) | ((vfy >= 0.f) << 1) | ((vfz >= 0.f) << 2));
   }
-  grid.sync();
+  __syncthreads();
 
-  for (int i = 0; i < steps; ++i) {
-    const float* src = (i & 1) ? scr : out;
-    float* dst = (i & 1) ? out : scr;
-    for (int c = first; c < N; c += stride) {
-      const int x = c % nx;
-      const int y = (c / nx) % ny;
-      const int z = c / P;
-      const int in_plane = c - z * P;
-      const int c_xp = c - x + (x + 1) % nx;
-      const int c_xm = c - x + (x - 1 + nx) % nx;
-      const int c_yp = c + ((y + 1) % ny - y) * nx;
-      const int c_ym = c + ((y - 1 + ny) % ny - y) * nx;
-      const int c_zp = ((z + 1) % nzl) * P + in_plane;
-      const int c_zm = ((z - 1 + nzl) % nzl) * P + in_plane;
-      const float r = src[c];
-      const unsigned s = sel[c];
-      const float fx = mul((s & 1u) ? r : src[c_xp], wx[c]);
-      const float fy = mul((s & 2u) ? r : src[c_yp], wy[c]);
-      const float fz = mul((s & 4u) ? r : src[c_zp], wzu[c]);
-      const float fz_m = mul((s & 8u) ? src[c_zm] : r, wzd[c]);
-      // the - faces are the + faces of the x-1 / y-1 neighbours
-      const float fy_m = mul((sel[c_ym] & 2u) ? src[c_ym] : r, wy[c_ym]);
-      const float fx_m = mul((sel[c_xm] & 1u) ? src[c_xm] : r, wx[c_xm]);
-      float flux = fz_m;
-      flux = add(flux, fy_m);
-      flux = add(flux, fx_m);
-      flux = sub(flux, fx);
-      flux = sub(flux, fy);
-      flux = sub(flux, fz);
-      dst[c] = add(r, mul(flux, inv_vol));
+  // neighbours' CTA indices on split axes: x-, x+, y-, y+, z-, z+
+  const int row_cta = (bk * py + bj) * px;
+  const int nb[6] = {row_cta + (bi == 0 ? px - 1 : bi - 1),
+                     row_cta + (bi + 1 == px ? 0 : bi + 1),
+                     (bk * py + (bj == 0 ? py - 1 : bj - 1)) * px + bi,
+                     (bk * py + (bj + 1 == py ? 0 : bj + 1)) * px + bi,
+                     ((bk == 0 ? pz - 1 : bk - 1) * py + bj) * px + bi,
+                     ((bk + 1 == pz ? 0 : bk + 1) * py + bj) * px + bi};
+  // The boundary exchange: items tid + m * nth of the split axes' planes
+  // (x, then y, then z; each minus side then plus side, in the order of the
+  // plane in the face buffer), at most kSlots a thread (the plan keeps the
+  // count so).  Item m writes A[out_a[m]], a cell of the brick's own edge
+  // plane, to the face buffer at out_f[m], and fills A[in_a[m]], a halo
+  // cell, from the facing plane of the neighbour at in_f[m] (face buffer
+  // offsets within one step parity).
+  int out_a[kSlots], out_f[kSlots], in_a[kSlots], in_f[kSlots];
+#pragma unroll
+  for (int m = 0; m < kSlots; ++m) {
+    int i = tid + m * nth;
+    in_a[m] = -1;
+    out_a[m] = out_f[m] = in_f[m] = 0;
+    const int nxf = sx * 2 * tz * ty, nyf = sy * 2 * tz * tx, nzf = sz * 2 * ty * tx;
+    if (i < nxf) {
+      const int side = i / (tz * ty), z = (i / ty) % tz, y = i % ty;
+      const int row = ((z + sz) * AY + y + sy) * AX;
+      in_a[m] = row + (side ? AX - 1 : 0);
+      in_f[m] = (nb[side] * 6 + 1 - side) * fs + z * ty + y;
+      out_a[m] = row + (side ? tx : 1);
+      out_f[m] = (cta * 6 + side) * fs + z * ty + y;
+    } else if ((i -= nxf) < nyf) {
+      const int side = i / (tz * tx), z = (i / tx) % tz, x = i % tx;
+      const int col = (z + sz) * AY * AX + x + sx;
+      in_a[m] = col + (side ? AY - 1 : 0) * AX;
+      in_f[m] = (nb[2 + side] * 6 + 3 - side) * fs + z * tx + x;
+      out_a[m] = col + (side ? ty : 1) * AX;
+      out_f[m] = (cta * 6 + 2 + side) * fs + z * tx + x;
+    } else if ((i -= nyf) < nzf) {
+      const int side = i / (ty * tx), y = (i / tx) % ty, x = i % tx;
+      const int col = (y + sy) * AX + x + sx;
+      in_a[m] = col + (side ? AZ - 1 : 0) * AXY;
+      in_f[m] = (nb[4 + side] * 6 + 5 - side) * fs + y * tx + x;
+      out_a[m] = col + (side ? tz : 1) * AXY;
+      out_f[m] = (cta * 6 + 4 + side) * fs + y * tx + x;
     }
-    grid.sync();
+  }
+  // A thread owns the columns (y, x) = (threadIdx.y + j by, threadIdx.x +
+  // i bx) of the brick and marches each over z, carrying the density and
+  // the z product and select of the cell below in registers.
+  const int zm0 = sz ? -1 : tz - 1;  // plane 0's z- neighbour, in planes
+  for (int step = 0; step < steps; ++step) {
+    // ---- the next density from this one, in the reference's slot order
+    const float* __restrict__ src = A;
+    float* __restrict__ dst = D;
+    for (int y = threadIdx.y; y < ty; y += by) {
+      const int ay_ = y + sy;
+      const int a_yp = (ay_ + 1 == AY ? -ay_ : 1) * AX;
+      const int a_ym = (ay_ == 0 ? AY - 1 : -1) * AX;
+      const int v_ym = (ay_ == 0 ? VY - 1 : -1) * VX;
+      for (int x = threadIdx.x; x < tx; x += bx) {
+        const int ax_ = x + sx;
+        const int a_xp = ax_ + 1 == AX ? -ax_ : 1;
+        const int a_xm = ax_ == 0 ? AX - 1 : -1;
+        const int v_xm = ax_ == 0 ? VX - 1 : -1;
+        int a = (sz * AY + ay_) * AX + ax_, v = (sz * VY + ay_) * VX + ax_;
+        float r_dn = src[a + zm0 * AXY], r = src[a];
+        float wz_dn = Wz[v + zm0 * VXY];
+        unsigned s_dn = S[v + zm0 * VXY];
+        for (int z = 0; z < tz; ++z, a += AXY, v += VXY) {
+          // plane z+1: the next plane, the halo above the last (split) or
+          // plane 0 (not split)
+          const float r_up = src[z + 1 == tz && !sz ? a - z * AXY : a + AXY];
+          const unsigned s = S[v];
+          const float wz = Wz[v];
+          const float mu = __ldg(mzu + z0 + z), md = __ldg(mzd + z0 + z);
+          const float fx = mul((s & 1u) ? r : src[a + a_xp], Wx[v]);
+          const float fy = mul((s & 2u) ? r : src[a + a_yp], Wy[v]);
+          const float fz = mul((s & 4u) ? r : r_up, mul(wz, mu));
+          const float fz_m = mul((s_dn & 4u) ? r_dn : r, mul(wz_dn, md));
+          const int vym = v + v_ym, vxm = v + v_xm;
+          const float fy_m = mul((S[vym] & 2u) ? src[a + a_ym] : r, Wy[vym]);
+          const float fx_m = mul((S[vxm] & 1u) ? src[a + a_xm] : r, Wx[vxm]);
+          float flux = fz_m;
+          flux = add(flux, fy_m);
+          flux = add(flux, fx_m);
+          flux = sub(flux, fx);
+          flux = sub(flux, fy);
+          flux = sub(flux, fz);
+          dst[a] = add(r, mul(flux, inv_vol));
+          r_dn = r;
+          r = r_up;
+          wz_dn = wz;
+          s_dn = s;
+        }
+      }
+    }
+    __syncthreads();
+    if (step + 1 == steps) {
+      A = D;
+      break;
+    }
+
+    // ---- the edge planes of split axes out to the face buffer, the grid
+    // barrier, the neighbours' planes into the halo (each pass's loads
+    // issued before its first store)
+    float* G = faces + (size_t)(step & 1) * ctas * 6 * fs;
+    float val[kSlots];
+#pragma unroll
+    for (int m = 0; m < kSlots; ++m)
+      if (in_a[m] >= 0) val[m] = D[out_a[m]];
+#pragma unroll
+    for (int m = 0; m < kSlots; ++m)
+      if (in_a[m] >= 0) __stcg(G + out_f[m], val[m]);
+    cg::this_grid().sync();
+#pragma unroll
+    for (int m = 0; m < kSlots; ++m)
+      if (in_a[m] >= 0) val[m] = __ldcg(G + in_f[m]);
+#pragma unroll
+    for (int m = 0; m < kSlots; ++m)
+      if (in_a[m] >= 0) D[in_a[m]] = val[m];
+    __syncthreads();
+    float* t = A;
+    A = D;
+    D = t;
   }
 
-  if (steps & 1) {
-    for (int c = first; c < N; c += stride) out[c] = scr[c];
-  }
+  // ---- the brick's density out
+  for (int y = threadIdx.y; y < ty; y += by)
+    for (int x = threadIdx.x; x < tx; x += bx)
+      for (int z = 0; z < tz; ++z)
+        out[((z0 + z) * ny + y0 + y) * nx + x0 + x] =
+            A[((z + sz) * AY + y + sy) * AX + x + sx];
+}
+
+// Opts `kernel` into `smem` bytes of dynamic shared memory and checks that
+// `ctas` blocks of `threads` threads can all be resident at once.
+cudaError_t cooperative_fits(const void* kernel, int ctas, int threads, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                        (size_t)smem);
+  if (err != cudaSuccess) return err;
+  if ((long long)per_sm * sms < ctas) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
 }
 
 template <bool EXT>
@@ -287,39 +446,49 @@ int dense_step_plane(const float* rho_ext, const float* vx, const float* vy,
                            zchunk, dt, ax, ay, az, inv_vol, stream);
 }
 
-// Scratch (scr, wx, wy, wzu, wzd: nzl*ny*nx floats each; sel: as many
-// bytes) is allocated by the caller.  The grid is as many blocks as can be
-// co-resident (occupancy x SMs, at most one cell per thread); a refused
-// cooperative launch returns its error and runs nothing.
+// The whole run on the plan's pz x py x px bricks (ops/dense_advection.py::
+// fused_run_plan): one CTA of bx x by threads a brick, `smem` bytes of
+// dynamic shared memory each.  `faces` holds 2 x CTAs x 6 x fs floats of
+// scratch, allocated by the caller.  A plan that does not fit the block
+// (its largest brick over `smem` bytes or its faces over `fs` floats, a
+// halo over kSlots cells a thread) is refused with cudaErrorInvalidValue,
+// and one the card cannot hold (more CTAs than can be co-resident, more
+// shared memory than a block may opt into) with its error; either runs
+// nothing.
 int dense_fused_run(const float* rho, const float* vx, const float* vy,
                     const float* vz, const float* mx, const float* my,
-                    const float* mzu, const float* mzd, float* out, float* scr,
-                    float* wx, float* wy, float* wzu, float* wzd,
-                    unsigned char* sel, int nzl, int ny, int nx, int steps,
-                    float dt, float ax, float ay, float az, float inv_vol,
-                    void* stream) {
+                    const float* mzu, const float* mzd, float* out, float* faces,
+                    int nzl, int ny, int nx, int steps, float dt, float ax,
+                    float ay, float az, float inv_vol, int pz, int py, int px,
+                    int bx, int by, int smem, int fs, void* stream) {
   if (nzl < 1 || ny < 1 || nx < 1 || steps < 0 ||
-      (long long)nzl * ny * nx >= (1LL << 31))
+      (long long)nzl * ny * nx >= (1LL << 31) || pz < 1 || py < 1 || px < 1 ||
+      pz > nzl || py > ny || px > nx || bx < 1 || by < 1 || bx * by > 512 ||
+      smem < 1 || fs < 0 || (long long)2 * pz * py * px * 6 * fs >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dense_fused_run_kernel, kFusedThreads, 0);
+  // the plan's needs, recomputed from the block (ops/dense_advection.py::
+  // fused_smem_bytes, fused_halo_cells)
+  const long long sx = px > 1, sy = py > 1, sz = pz > 1;
+  const long long tx = (nx + px - 1) / px, ty = (ny + py - 1) / py,
+                  tz = (nzl + pz - 1) / pz;
+  const long long need = 8 * (tz + 2 * sz) * (ty + 2 * sy) * (tx + 2 * sx) +
+                         13 * (tz + sz) * (ty + sy) * (tx + sx);
+  long long face = tz * ty;
+  if (tz * tx > face) face = tz * tx;
+  if (ty * tx > face) face = ty * tx;
+  if (need > smem || fs < face ||
+      2 * (sx * tz * ty + sy * tz * tx + sz * ty * tx) > (long long)kSlots * bx * by)
+    return (int)cudaErrorInvalidValue;
+  const int ctas = pz * py * px;
+  cudaError_t err = cooperative_fits((const void*)dense_fused_run_kernel, ctas,
+                                     bx * by, smem);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long N = (long long)nzl * ny * nx;
-  long long blocks = (N + kFusedThreads - 1) / kFusedThreads;
-  const long long resident = (long long)per_sm * sms;
-  if (blocks > resident) blocks = resident;
-  void* args[] = {&rho, &vx, &vy, &vz, &mx, &my, &mzu, &mzd, &out, &scr,
-                  &wx, &wy, &wzu, &wzd, &sel, &nzl, &ny, &nx, &steps, &dt,
-                  &ax, &ay, &az, &inv_vol};
+  void* args[] = {&rho, &vx, &vy, &vz, &mx, &my, &mzu, &mzd, &out, &faces,
+                  &nzl, &ny, &nx, &steps, &dt, &ax, &ay, &az, &inv_vol,
+                  &pz, &py, &px, &fs};
   err = cudaLaunchCooperativeKernel((const void*)dense_fused_run_kernel,
-                                    dim3((unsigned)blocks), dim3(kFusedThreads),
-                                    args, 0, (cudaStream_t)stream);
+                                    dim3((unsigned)ctas), dim3((unsigned)bx, (unsigned)by),
+                                    args, (size_t)smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

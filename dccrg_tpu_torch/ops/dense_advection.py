@@ -29,17 +29,22 @@ TPU's on-chip memory, not this card's; retuning them is queued.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import LAUNCHES, PLAIN_CALLS, reset_counts
+from .resident import card_limits, run_threads
 
 __all__ = [
     "LAUNCHES",
     "PLAIN_CALLS",
     "reset_counts",
     "fused_run_fits",
+    "FusedRunPlan",
+    "fused_run_plan",
     "pick_step_block",
     "flux_update_fits",
     "dense_step_arith",
@@ -80,6 +85,83 @@ def pick_step_block(nzl: int, ny: int, nx: int) -> int:
 def flux_update_fits(ny: int, nx: int) -> bool:
     """Whether the plane step kernel takes these x/y extents."""
     return _STEP_PLANE_ARRAYS * ny * nx * 4 <= _FUSED_VMEM_BUDGET
+
+
+# ------------------------------------------------------------ launch plans
+
+#: boundary cells a thread of :func:`fused_run`'s kernel exchanges a step at
+#: most (``kSlots`` in ``csrc/dense_advection.cu``)
+HALO_SLOTS = 8
+
+
+@dataclass(frozen=True)
+class FusedRunPlan:
+    """How :func:`fused_run`'s kernel holds a ``[nzl, ny, nx]`` block on
+    chip: ``parts = (pz, py, px)`` bricks, one CTA of ``threads = (bx, by)``
+    each, ``tile`` the largest brick ``(tz, ty, tx)``, ``smem_bytes`` the
+    dynamic shared memory a CTA, ``face_floats`` one face slot of the
+    global face buffer (2 x ctas x 6 slots)."""
+
+    parts: tuple
+    tile: tuple
+    ctas: int
+    threads: tuple
+    smem_bytes: int
+    face_floats: int
+
+
+def fused_smem_bytes(tile, split) -> int:
+    """Shared memory of a brick ``tile = (tz, ty, tx)`` whose axes are
+    ``split = (z, y, x)`` (cut into more than one part): two densities
+    (ping-pong, f32) with a one-cell halo on split axes, the three weights
+    (f32) and the select byte with a halo on the minus side of split
+    axes."""
+    tz, ty, tx = tile
+    sz, sy, sx = (int(bool(s)) for s in split)
+    n_a = (tz + 2 * sz) * (ty + 2 * sy) * (tx + 2 * sx)
+    n_v = (tz + sz) * (ty + sy) * (tx + sx)
+    return 8 * n_a + 13 * n_v
+
+
+def fused_halo_cells(tile, split) -> int:
+    """Halo cells a brick ``tile = (tz, ty, tx)`` reads from its neighbours
+    a step: two planes on each split axis."""
+    tz, ty, tx = tile
+    sz, sy, sx = (bool(s) for s in split)
+    return 2 * (sx * tz * ty + sy * tz * tx + sz * ty * tx)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_run_plan(nzl: int, ny: int, nx: int, sms: int,
+                   smem_per_block: int) -> FusedRunPlan:
+    """The cut of a ``[nzl, ny, nx]`` block into at most ``sms`` bricks
+    whose largest fits ``smem_per_block`` bytes (and whose halo its threads
+    fill in :data:`HALO_SLOTS` cells each): the one that needs the
+    least shared memory a CTA (the least work a CTA and, at equal memory,
+    the widest x rows, then the fewest CTAs).  Raises ``ValueError`` where
+    no cut fits."""
+    best, least = None, None
+    for pz in range(1, min(nzl, sms) + 1):
+        for py in range(1, min(ny, sms // pz) + 1):
+            for px in range(1, min(nx, sms // (pz * py)) + 1):
+                tile = (-(-nzl // pz), -(-ny // py), -(-nx // px))
+                split = (pz > 1, py > 1, px > 1)
+                smem = fused_smem_bytes(tile, split)
+                least = smem if least is None else min(least, smem)
+                key = (smem, -tile[2], pz * py * px)
+                fits = (smem <= smem_per_block and fused_halo_cells(tile, split)
+                        <= HALO_SLOTS * np.prod(run_threads(tile[2], tile[1])))
+                if fits and (best is None or key < best[0]):
+                    best = (key, (pz, py, px), tile)
+    if best is None:
+        raise ValueError(
+            f"fused_run_plan: no cut of the {nzl}x{ny}x{nx} block into at most "
+            f"{sms} bricks fits {smem_per_block} bytes of shared memory a CTA "
+            f"(the least any cut needs is {least})")
+    (smem, _, ctas), parts, (tz, ty, tx) = best
+    return FusedRunPlan(parts=parts, tile=(tz, ty, tx), ctas=ctas,
+                        threads=run_threads(tx, ty), smem_bytes=smem,
+                        face_floats=max(tz * ty, tz * tx, ty * tx))
 
 
 # ------------------------------------------------------------ plain twins
@@ -196,7 +278,7 @@ _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dense_step_blocked": [_PTR] * 13 + [_INT] * 5 + [_F32] * 5 + [_PTR],
     "dense_step_plane": [_PTR] * 9 + [_INT] * 5 + [_F32] * 5 + [_PTR],
-    "dense_fused_run": [_PTR] * 15 + [_INT] * 4 + [_F32] * 5 + [_PTR],
+    "dense_fused_run": [_PTR] * 10 + [_INT] * 4 + [_F32] * 5 + [_INT] * 7 + [_PTR],
 }
 _lib = None
 
@@ -337,14 +419,14 @@ def fused_run(rho, vx, vy, vz, mx, my, mz_up, mz_dn, dt, steps, *, area,
     steps = int(steps)
     if steps < 0:
         raise ValueError("steps must be >= 0")
+    plan = fused_run_plan(nzl, ny, nx, *card_limits(dev.index))
     out = torch.empty_like(rho)
-    scratch = torch.empty((5,) + tuple(rho.shape), dtype=torch.float32,
-                          device=dev)
-    sel = torch.empty(rho.shape, dtype=torch.uint8, device=dev)
+    faces = torch.empty(2 * plan.ctas * 6 * plan.face_floats, dtype=torch.float32,
+                        device=dev)
     err = _kernels().dense_fused_run(
-        *(t.data_ptr() for t in tensors), out.data_ptr(),
-        *(scratch[i].data_ptr() for i in range(5)), sel.data_ptr(),
+        *(t.data_ptr() for t in tensors), out.data_ptr(), faces.data_ptr(),
         nzl, ny, nx, steps, *_consts(dt, area, inv_vol),
+        *plan.parts, *plan.threads, plan.smem_bytes, plan.face_floats,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("fused_run", err)

@@ -17,14 +17,18 @@ tensors it launches the kernel or raises.  Launches count in
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import LAUNCHES, PLAIN_CALLS
 from .dense_advection import _check, _launched, _on_cpu
+from .resident import card_limits, run_threads
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "gol_run_fits", "gol_run", "gol_run_plain",
-           "gol_turn"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "gol_run_fits", "GolRunPlan", "gol_run_plan",
+           "gol_run", "gol_run_plain", "gol_turn"]
 
 # ----------------------------------------------- dispatch threshold (copied)
 
@@ -38,6 +42,97 @@ def gol_run_fits(ny: int, nx: int) -> bool:
     kernel itself takes any board below 2^31 cells; boards above this rule's
     ~3.1 M cells run the dense loop in plain torch (ROADMAP P4)."""
     return _GOL_ARRAYS * ny * nx * 4 <= _GOL_VMEM_BUDGET
+
+
+# ------------------------------------------------------------- launch plan
+
+#: turns a round of the whole-run kernel between two synchronisations of
+#: its CTAs, the most a plan takes (measured on the card: PERF.md, "B4")
+GOL_TURNS_PER_ROUND = 8
+#: halo cells a thread of the kernel reloads after a round at most
+#: (``kGolHaloSlots`` in ``csrc/gol.cu``)
+GOL_HALO_SLOTS = 8
+
+
+@dataclass(frozen=True)
+class GolRunPlan:
+    """How :func:`gol_run`'s kernel holds a ``[ny, nx]`` board on chip:
+    ``parts = (py, px)`` tiles, one CTA of ``threads = (bx, by)`` each
+    (``bx`` threads along a row, each on two columns; ``by`` strips of
+    rows), ``tile`` the largest tile ``(ty, tx)``, ``turns_per_round`` (k) turns
+    between synchronisations, each tile with a k-deep halo on split axes,
+    ``smem_bytes`` the dynamic shared memory a CTA."""
+
+    parts: tuple
+    tile: tuple
+    ctas: int
+    threads: tuple
+    smem_bytes: int
+    turns_per_round: int
+
+
+def gol_smem_bytes(tile, split, k: int) -> int:
+    """Shared memory of a tile ``(ty, tx)`` with a ``k``-deep halo on the
+    ``split = (y, x)`` axes: two f32 boards (ping-pong)."""
+    h = tile[0] + 2 * k * bool(split[0])
+    w = tile[1] + 2 * k * bool(split[1])
+    return 8 * h * w
+
+
+def gol_halo_cells(tile, split, k: int) -> int:
+    """Cells of a tile's ``k``-deep halo on the ``split = (y, x)`` axes:
+    what a CTA reloads from the board after a round."""
+    hy, hx = (k * bool(s) for s in split)
+    return 2 * hy * (tile[1] + 2 * hx) + 2 * hx * tile[0]
+
+
+def _gol_plan_at(ny: int, nx: int, sms: int, smem_per_block: int, k: int):
+    """The best cut of a ``[ny, nx]`` board for ``k`` turns a round (see
+    :func:`gol_run_plan`), or ``None`` where none fits; with the least
+    shared memory any cut needs."""
+    best, least = None, None
+    for py in range(1, min(ny, sms) + 1):
+        if py > 1 and ny // py < k:
+            break
+        for px in range(1, min(nx, sms // py) + 1):
+            if px > 1 and nx // px < k:
+                break
+            tile = (-(-ny // py), -(-nx // px))
+            split = (py > 1, px > 1)
+            smem = gol_smem_bytes(tile, split, k)
+            least = smem if least is None else min(least, smem)
+            key = (smem, -tile[1], py * px)
+            h, w = (t + 2 * k * sp for t, sp in zip(tile, split))
+            threads = run_threads((w + 1) // 2, h)   # a thread: two columns
+            fits = (smem <= smem_per_block and gol_halo_cells(tile, split, k)
+                    <= GOL_HALO_SLOTS * np.prod(threads))
+            if fits and (best is None or key < best[0]):
+                best = (key, (py, px), tile, threads)
+    if best is None:
+        return None, least
+    (smem, _, ctas), parts, tile, threads = best
+    return GolRunPlan(parts=parts, tile=tile, ctas=ctas, threads=threads,
+                      smem_bytes=smem, turns_per_round=k), least
+
+
+@functools.lru_cache(maxsize=256)
+def gol_run_plan(ny: int, nx: int, sms: int, smem_per_block: int) -> GolRunPlan:
+    """The cut of a ``[ny, nx]`` board into at most ``sms`` tiles, each at
+    least ``k`` cells along a split axis (so a halo reaches only the
+    adjacent tiles), whose largest tile and halo fit ``smem_per_block``
+    bytes (and whose halo its threads reload in :data:`GOL_HALO_SLOTS`
+    cells each): the one that needs the least shared memory a CTA (at equal
+    memory the widest rows, then the fewest CTAs), with ``k =``
+    :data:`GOL_TURNS_PER_ROUND`, or the largest smaller ``k`` that fits.
+    Raises ``ValueError`` where nothing fits."""
+    for k in range(GOL_TURNS_PER_ROUND, 0, -1):
+        plan, least = _gol_plan_at(ny, nx, sms, smem_per_block, k)
+        if plan is not None:
+            return plan
+    raise ValueError(
+        f"gol_run_plan: no cut of the {ny}x{nx} board into at most {sms} tiles "
+        f"fits {smem_per_block} bytes of shared memory a CTA (the least any cut "
+        f"needs is {least})")
 
 
 # ------------------------------------------------------------- plain twin
@@ -93,7 +188,7 @@ def _kernels():
         from ..cuda_build import load
 
         lib = load("gol")
-        lib.gol_run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.gol_run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.gol_run.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -113,12 +208,14 @@ def gol_run(alive, turns, periodic_x, periodic_y):
     turns = int(turns)
     if turns < 0:
         raise ValueError("turns must be >= 0")
+    plan = gol_run_plan(ny, nx, *card_limits(dev.index))
     out = torch.empty_like(alive)
     cnt = torch.empty_like(alive)
-    scr = torch.empty_like(alive)
+    board = torch.empty((2, ny, nx), dtype=torch.float32, device=dev)
     err = _kernels().gol_run(
-        alive.data_ptr(), out.data_ptr(), cnt.data_ptr(), scr.data_ptr(),
-        ny, nx, turns, int(bool(periodic_x)), int(bool(periodic_y)),
+        alive.data_ptr(), out.data_ptr(), cnt.data_ptr(), board.data_ptr(),
+        ny, nx, turns, int(bool(periodic_x)), int(bool(periodic_y)), *plan.parts,
+        plan.turns_per_round, *plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("gol_run", err)
