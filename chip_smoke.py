@@ -17,8 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 z faces, on an odd 33x17x9 block and on the largest block
                 fused_run_fits admits at 128x128, 128x128x67; a plan made
                 for another block refused before launch), the flat AMR
-                kernels on the refined grids of phases 6-7 (96^3 and 64^3
-                voxels), the Game of Life kernel B4 on the 500x500 board
+                kernels B5 and B6 on the refined grids of phases 6-7 (96^3
+                and 64^3 voxels; 0, 1, 7, 8, 50 and 300 steps on a seeded
+                random density, 7 and 8 on the initial one), B5 on an odd
+                34x18x26 grid and on the largest flat_amr_fits admits
+                (110x110x114, its weights read from L2) and, in phase 8, on
+                the adapted grid; B6 on a four-level grid (kmax 2, cubes
+                of edge 8) and on the largest flat_ml_kernel_fits admits at
+                three levels (104x108x112); a plan made for another grid
+                refused before launch by each), the Game of Life kernel B4
+                on the 500x500 board
                 (30% alive, open and periodic, 1, k-1, k, k+1, 7, 8 and 300
                 turns, k its plan's turns a round), on boards of 1x500,
                 500x1 and 5x7, and on a 500x500 board of values in {-1, 0,
@@ -113,10 +121,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 20. timing    — each kernel beside its twin and its least possible time, the
                 ring copy also beside torch.index_select, on copies of the
                 field that exceed the L2 (its L2-resident time logged too);
-                the launch plans of B1 and B4 (bricks or tiles, their
-                extents, shared memory a CTA, CTAs, turns a round) with the
+                the launch plans of B1, B4, B5 and B6 (bricks or tiles,
+                their extents, shared memory a CTA, CTAs, turns a round,
+                what lives in shared memory, registers and L2) with the
                 registers ptxas gave each, and the bare grid barrier timed
-                on each kernel's grid.
+                on each kernel's grid and on the 4,096-CTA grid of the
+                streaming B6 they replaced.
 
 Launch counters are set to 0 just before each of phases 3-19 drives its path
 and read just after.  Output ends with the card's name and power limit, one
@@ -134,6 +144,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 #: H100 SXM peaks (NVIDIA data sheet): device memory bytes/s, f32 flop/s
 #: outside the tensor cores
@@ -181,7 +192,8 @@ def flat_ml_flops_per_voxel(cap_active) -> int:
 
 #: phase 20's scratch kernel, built beside the package's kernels and not one
 #: of them: ``steps`` bare grid barriers on a cooperative grid of ``ctas``
-#: CTAs of bx x by threads (what B1 pays to synchronise a step, B4 a round)
+#: CTAs of bx x by threads (what B1, B5 and B6 pay to synchronise a step,
+#: B4 a round)
 BARRIER_PROBE = r"""
 #include <cooperative_groups.h>
 __global__ void barrier_loop(int steps) {
@@ -201,14 +213,15 @@ CUDA_INVALID_VALUE = 1
 
 
 def ptxas_registers(ptxas: str, kernel: str) -> str:
-    """The ptxas line of registers (and stack) of the entry whose mangled
-    name holds ``kernel``, from ``-Xptxas -v`` output."""
+    """The ptxas lines of registers and of stack and spills of the entry
+    whose mangled name holds ``kernel``, from ``-Xptxas -v`` output."""
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
-            for nxt in lines[i + 1:i + 4]:
-                if "registers" in nxt:
-                    return nxt.split(":", 1)[-1].strip()
+            found = [nxt.split(":", 1)[-1].strip() for nxt in lines[i + 1:i + 4]
+                     if "registers" in nxt or "spill" in nxt]
+            if found:
+                return "; ".join(found)
     return "not in this run's build log"
 
 
@@ -341,7 +354,7 @@ def main() -> int:
     for lib, info in built.items():
         log(f"[build] {lib}: {info['seconds']:.2f} s: {info['cmd']}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error", "entry function")):
                 log(f"[build]   {line.strip()}")
 
     # ------------------------------------------------ 2. kernels vs twins
@@ -507,22 +520,108 @@ def main() -> int:
                 0.1, 1.0, fr.shape).astype(np.float32), device=dev)
         return (*args, adv._scalar(dt), steps), fr.kwargs
 
+    def flat_hold(label, kernel, plain, a, kw):
+        err = hold(label, kernel, plain, a, kw)
+        name = "flat_amr_run" if kernel is F.flat_amr_run else "flat_ml_run"
+        twin_err[name] = max(twin_err.get(name, 0.0), err)
+
+    def random_flat_args(shape, seed, kmax=None):
+        """Seeded random density and signed CFL-scale weights on ``shape``;
+        kmax None: B5's masks (fine or coarse 2x2x2 blocks), else B6's
+        (random updf / pool, captures at random cube origins of each
+        doubling up to kmax)."""
+        r = np.random.default_rng(seed)
+        t = lambda x: torch.tensor(np.ascontiguousarray(x, np.float32), device=dev)
+        V = t(r.uniform(0.1, 1.0, shape))
+        w = [t(r.uniform(-1e-2, 1e-2, shape)) for _ in range(6)]
+        dt = float(np.float32(0.9))
+        if kmax is None:
+            blk = r.random(tuple(n // 2 for n in shape)) < 0.5
+            fine = blk.repeat(2, 0).repeat(2, 1).repeat(2, 2)
+            return (V, *w, t(fine / 1.0), t(~fine / 8.0), dt), {}
+        grids = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij", sparse=True)
+        caps = []
+        for k in range(kmax + 1):
+            f = 1 << (k + 1)
+            origin = (grids[0] % f == 0) & (grids[1] % f == 0) & (grids[2] % f == 0)
+            caps.append(t((origin & (r.random(shape) < 0.5)) / 8.0 ** (k + 1)))
+        return ((V, *w, t(r.random(shape) < 0.5), t(r.random(shape) < 0.5), caps, dt),
+                {"cap_active": [True] * (kmax + 1)})
+
+    # B5 on the refined grid's 96^3 voxels (a seeded random density, then
+    # its initial hump), about the parities and a long run (the race check)
+    for steps in (0, 1, 7, 8, 50, 300):
+        a, kw = flat_args(adv_r, s_r, steps, dt_r, seed=5)
+        flat_hold(f"B5 flat_amr_run 96^3 voxels, {steps} steps, random density",
+                  F.flat_amr_run, F.flat_amr_run_plain, a, kw)
     for steps in (8, 7):
         a, kw = flat_args(adv_r, s_r, steps, dt_r)
-        err = hold(f"B5 flat_amr_run 96^3 voxels, {steps} steps", F.flat_amr_run,
-                   F.flat_amr_run_plain, a, kw)
-        twin_err["flat_amr_run"] = max(twin_err.get("flat_amr_run", 0.0), err)
-    a, kw = flat_args(adv_r, s_r, 8, dt_r, seed=5)
-    hold("B5 flat_amr_run 96^3 voxels, 8 steps, random density", F.flat_amr_run,
-         F.flat_amr_run_plain, a, kw)
+        flat_hold(f"B5 flat_amr_run 96^3 voxels, {steps} steps", F.flat_amr_run,
+                  F.flat_amr_run_plain, a, kw)
+    # a grid no plan divides evenly, and the largest flat_amr_fits admits,
+    # whose weights do not fit on chip (the plan reads them from L2)
+    n_big = (110, 110, 114)
+    check(F.flat_amr_fits(int(np.prod(n_big))) and not F.flat_amr_fits(110 * 110 * 116),
+          f"{n_big} is not the largest admitted at 110 x 110")
+    for shape, steps in (((34, 18, 26), 41), (n_big, 40)):
+        plan = F.flat_amr_run_plan(*shape, *limits)
+        a, kw = random_flat_args(shape, 11)
+        flat_hold(f"B5 flat_amr_run {'x'.join(map(str, shape))}, {steps} steps (plan "
+                  f"{plan.parts}, weights {'on chip' if plan.weights_on_chip else 'in L2'})",
+                  F.flat_amr_run, F.flat_amr_run_plain, (*a, steps), kw)
+    # B6 on the refined3 grid's 64^3 voxels, the same counts
+    for steps in (0, 1, 7, 8, 50, 300):
+        a, kw = flat_args(adv_m, s_m, steps, dt_m, seed=6)
+        flat_hold(f"B6 flat_ml_run 64^3 voxels, 3 levels, {steps} steps, random "
+                  f"density", F.flat_ml_run, F.flat_ml_run_plain, a, kw)
     for steps in (8, 7):
         a, kw = flat_args(adv_m, s_m, steps, dt_m)
-        err = hold(f"B6 flat_ml_run 64^3 voxels, 3 levels, {steps} steps",
-                   F.flat_ml_run, F.flat_ml_run_plain, a, kw)
-        twin_err["flat_ml_run"] = max(twin_err.get("flat_ml_run", 0.0), err)
-    a, kw = flat_args(adv_m, s_m, 8, dt_m, seed=6)
-    hold("B6 flat_ml_run 64^3 voxels, 8 steps, random density", F.flat_ml_run,
-         F.flat_ml_run_plain, a, kw)
+        flat_hold(f"B6 flat_ml_run 64^3 voxels, 3 levels, {steps} steps",
+                  F.flat_ml_run, F.flat_ml_run_plain, a, kw)
+    # a four-level grid (8^3, balls 0.6, 0.5, 0.35 refined in turn: cubes
+    # of edge 8, doubling 2 through shared memory), and the largest grid
+    # flat_ml_kernel_fits admits at three levels
+    adv_4 = Advection(refined_grid(8, (0.6, 0.5, 0.35), (0.5, 0.5, 0.5), 3),
+                      dtype=np.float32, allow_dense=False)
+    check(adv_4._flat_kind == "ml_pallas" and adv_4._flat_run.kwargs["cap_active"] ==
+          [True, True, True], f"four-level dispatch {adv_4._flat_kind}")
+    s_4 = adv_4.initialize_state()
+    for steps in (7, 50):
+        a, kw = flat_args(adv_4, s_4, steps, 0.4 * adv_4.max_time_step(s_4), seed=8)
+        flat_hold(f"B6 flat_ml_run 64^3 voxels, 4 levels (kmax 2), {steps} steps",
+                  F.flat_ml_run, F.flat_ml_run_plain, a, kw)
+    del adv_4, s_4
+    m_big = (104, 108, 112)
+    check(F.flat_ml_kernel_fits(int(np.prod(m_big)), 2)
+          and not F.flat_ml_kernel_fits(104 * 108 * 116, 2),
+          f"{m_big} is not the largest admitted at 104 x 108, 3 levels")
+    plan = F.flat_ml_run_plan(*m_big, 1, *limits)
+    a, kw = random_flat_args(m_big, 12, kmax=1)
+    flat_hold(f"B6 flat_ml_run 104x108x112, 3 levels, 40 steps (plan {plan.parts}, "
+              f"weights {'on chip' if plan.weights_on_chip else 'in L2'})",
+              F.flat_ml_run, F.flat_ml_run_plain, (*a, 40), kw)
+    # the launchers recompute what the grid needs from the plan's cut: the
+    # 96^3 plan does not hold 98x96x96, nor the 64^3 plan 68x64x64
+    p96 = F.flat_amr_run_plan(96, 96, 96, *limits)
+    a, _ = random_flat_args((98, 96, 96), 13)
+    out_f = torch.empty_like(a[0])
+    faces_f = torch.empty(2 * p96.ctas * 6 * p96.face_floats, device=dev)
+    refused("B5 flat_amr_run: 96^3's plan on 98x96x96",
+            F._kernels().flat_amr_run(
+                *(x.data_ptr() for x in a[:9]), out_f.data_ptr(), faces_f.data_ptr(),
+                98, 96, 96, 1, *F._plan_args(p96),
+                torch.cuda.current_stream().cuda_stream))
+    p64 = F.flat_ml_run_plan(64, 64, 64, 1, *limits)
+    a, _ = random_flat_args((68, 64, 64), 14, kmax=1)
+    caps_f = torch.stack(a[9])
+    out_f = torch.empty_like(a[0])
+    faces_f = torch.empty(2 * p64.ctas * 6 * p64.face_floats, device=dev)
+    refused("B6 flat_ml_run: 64^3's plan on 68x64x64",
+            F._kernels().flat_ml_run(
+                *(x.data_ptr() for x in a[:9]), caps_f.data_ptr(), out_f.data_ptr(),
+                faces_f.data_ptr(), 68, 64, 64, 1, 1, 3, *F._plan_args(p64),
+                torch.cuda.current_stream().cuda_stream))
+    del a, out_f, faces_f, caps_f
 
     # B4 on the bench's board: 500x500, 30% alive; turns about the plan's
     # turns a round (k) and a long run (the race check); boards of one row,
@@ -868,6 +967,12 @@ def main() -> int:
     check(abs(m1 - m0) / m0 <= 1e-5, f"adapt: mass drift {abs(m1 - m0) / m0:.3e}")
     log(f"[adapt] leaves {n_r} -> {n_a} ({len(new_cells)} new, {len(removed)} "
         f"removed) in {time.perf_counter() - t:.2f} s; mass {m0!r} -> {m1!r}")
+    # B5 against its twin on the adapted grid's voxel layout (after the
+    # drive: these launches compare, they do not count)
+    a, kw = flat_args(adv_a, s_a, 50, dt_r, seed=7)
+    flat_hold(f"B5 flat_amr_run on the adapted grid ({n_a} leaves, "
+              f"{'x'.join(map(str, adv_a._flat_run.shape))} voxels), 50 steps",
+              F.flat_amr_run, F.flat_amr_run_plain, a, kw)
     stepped = drive("adapt step", lambda: adv_a.step(s_a, dt_r), {})
     check(bool(torch.isfinite(stepped["density"]).all()), "adapt step: non-finite")
     m2 = adv_a.total_mass(stepped)
@@ -1427,6 +1532,32 @@ def main() -> int:
     log(f"[timing] bare grid barrier (median of 3, CUDA events): x5000 on B1's grid "
         f"{t1!r} ms ({1e3 * t1 / 5000!r} us each); x{n4} on B4's grid (one a round "
         f"of 20000 turns) {t4!r} ms ({1e3 * t4 / n4!r} us each) on {card}")
+    # the on-chip plans of B5 and B6 at their main-path shapes and the
+    # largest admitted grids, the registers of the instantiations they run,
+    # and the bare barrier on their grids and on the grid of the streaming
+    # B6 they replace (one 64-thread CTA a 4-cube: 4,096 at 64^3)
+    flat_ptxas = built.get("flat_amr", {}).get("ptxas", "")
+    for label, plan, kern in (
+            ("flat_amr_run at 96^3", p96, "flat_amr_run_kernel"),
+            ("flat_amr_run at 110x110x114", F.flat_amr_run_plan(*n_big, *limits),
+             "flat_amr_run_kernel"),
+            ("flat_ml_run at 64^3, kmax 1", p64, "flat_ml_run_kernel"),
+            ("flat_ml_run at 104x108x112, kmax 1", F.flat_ml_run_plan(*m_big, 1, *limits),
+             "flat_ml_run_kernel")):
+        inst = f"{kern}ILi{plan.units_per_thread}ELb{int(plan.weights_on_chip)}E"
+        log(f"[timing] {label} plan: {plan.parts} bricks (z, y, x) of at most "
+            f"{plan.tile} voxels, {plan.ctas} CTAs of {plan.threads} threads, "
+            f"{plan.units_per_thread} 2x2x2 units a thread, {plan.smem_bytes} bytes "
+            f"of shared memory a CTA; shared memory holds {', '.join(plan.shared)}; "
+            f"registers {', '.join(plan.registers)}; L2 "
+            f"{', '.join(plan.l2) or 'nothing'}; ptxas {ptxas_registers(flat_ptxas, inst)}")
+    for label, ctas, threads, n in (("B5's grid", p96.ctas, p96.threads, 2000),
+                                    ("B6's grid", p64.ctas, p64.threads, 1000),
+                                    ("the streaming B6's grid", 4096, 64, 1000)):
+        grid = types.SimpleNamespace(ctas=ctas, threads=(threads, 1))
+        t_bar = statistics.median(event_ms(lambda: barriers(grid, n), 1) for _ in range(3))
+        log(f"[timing] bare grid barrier x{n} on {label} ({ctas} CTAs of {threads} "
+            f"threads): {t_bar!r} ms ({1e3 * t_bar / n!r} us each; median of 3) on {card}")
 
     kernels = []
     for r in rows:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import LAUNCHES, PLAIN_CALLS, reset_counts
-from .resident import card_limits, run_threads
+from .resident import card_limits, cuts, run_threads
 
 __all__ = [
     "LAUNCHES",
@@ -141,18 +141,16 @@ def fused_run_plan(nzl: int, ny: int, nx: int, sms: int,
     the widest x rows, then the fewest CTAs).  Raises ``ValueError`` where
     no cut fits."""
     best, least = None, None
-    for pz in range(1, min(nzl, sms) + 1):
-        for py in range(1, min(ny, sms // pz) + 1):
-            for px in range(1, min(nx, sms // (pz * py)) + 1):
-                tile = (-(-nzl // pz), -(-ny // py), -(-nx // px))
-                split = (pz > 1, py > 1, px > 1)
-                smem = fused_smem_bytes(tile, split)
-                least = smem if least is None else min(least, smem)
-                key = (smem, -tile[2], pz * py * px)
-                fits = (smem <= smem_per_block and fused_halo_cells(tile, split)
-                        <= HALO_SLOTS * np.prod(run_threads(tile[2], tile[1])))
-                if fits and (best is None or key < best[0]):
-                    best = (key, (pz, py, px), tile)
+    for pz, py, px in cuts((nzl, ny, nx), sms):
+        tile = (-(-nzl // pz), -(-ny // py), -(-nx // px))
+        split = (pz > 1, py > 1, px > 1)
+        smem = fused_smem_bytes(tile, split)
+        least = smem if least is None else min(least, smem)
+        key = (smem, -tile[2], pz * py * px)
+        fits = (smem <= smem_per_block and fused_halo_cells(tile, split)
+                <= HALO_SLOTS * np.prod(run_threads(tile[2], tile[1])))
+        if fits and (best is None or key < best[0]):
+            best = (key, (pz, py, px), tile)
     if best is None:
         raise ValueError(
             f"fused_run_plan: no cut of the {nzl}x{ny}x{nx} block into at most "

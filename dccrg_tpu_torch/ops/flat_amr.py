@@ -28,6 +28,14 @@ plain twin (``*_plain``, the same premultiply, then ``torch.roll``) only on
 CPU tensors.  The kernels keep the twins' association order, so the two
 agree bitwise on the card (up to the sign of zero).
 
+Both kernels hold their grid on chip for the whole run: one CTA a brick,
+cut by a pure-Python launch plan (:func:`flat_amr_run_plan`,
+:func:`flat_ml_run_plan`) that the wrapper passes to the kernel.  The plan
+says where each array lives: the density box in shared memory always, the
+six face weights there when they fit beside it (else read from L2 each
+step), the per-voxel masks and new values of a thread's 2x2x2 units in
+registers.
+
 The JAX kernels take an optional lane padding of the x extent
 (``pad_lane_extent`` / ``nx_pad``) that aligns the TPU's 128-lane rolls; by
 its own contract the padded form is bit-identical to the unpadded one, and
@@ -40,18 +48,24 @@ path; they model the TPU's on-chip memory, not this card's.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import LAUNCHES, PLAIN_CALLS
 from .dense_advection import _check, _f32, _launched, _on_cpu
+from .resident import RUN_THREADS, card_limits, cuts
 
 __all__ = [
     "flat_amr_fits",
     "flat_voxel_layout",
     "build_flat_amr_tables",
     "compute_flat_weights",
+    "FlatRunPlan",
+    "flat_amr_run_plan",
+    "flat_ml_run_plan",
     "flat_amr_run",
     "flat_amr_run_plain",
     "build_flat_ml_tables",
@@ -75,6 +89,147 @@ def flat_ml_kernel_fits(n_voxels: int, vl: int) -> bool:
     """The multi-level kernel's rule: the 2-level kernel's ~18 resident
     arrays plus one capture mask per doubling."""
     return (_FLAT_ARRAYS + vl) * n_voxels * 4 <= _FLAT_VMEM_BUDGET
+
+
+# ------------------------------------------------------------ launch plans
+
+#: 2x2x2 units a thread of B5 / B6 holds in registers at most
+#: (``kMaxUnits``)
+FLAT_MAX_UNITS = 4
+#: threads a CTA at most when each holds k units (``unit_threads(k)``):
+#: fewer threads leave each more registers
+FLAT_UNIT_THREADS = {1: 256, 2: 448, 3: 384, 4: 384}
+
+
+@dataclass(frozen=True)
+class FlatRunPlan:
+    """How :func:`flat_amr_run`'s or :func:`flat_ml_run`'s kernel holds a
+    ``[nz, ny, nx]`` voxel grid on chip: ``parts = (pz, py, px)`` bricks
+    aligned to ``align`` voxels, one CTA of ``threads`` threads each,
+    ``tile`` the largest brick ``(tz, ty, tx)``; each thread holds
+    ``units_per_thread`` 2x2x2 units in registers (0: single voxels, two
+    density boxes); ``smem_bytes`` the dynamic shared memory a CTA,
+    ``face_floats`` one face slot of the global face buffer (2 x ctas x 6
+    slots).  ``shared``, ``registers`` and ``l2`` name the arrays each
+    place holds for the whole run."""
+
+    parts: tuple
+    tile: tuple
+    align: int
+    ctas: int
+    threads: int
+    units_per_thread: int
+    weights_on_chip: bool
+    smem_bytes: int
+    face_floats: int
+    shared: tuple
+    registers: tuple
+    l2: tuple
+
+
+def flat_smem_bytes(tile, boxes: int, weights: bool, pool: int = 0,
+                    halo: int = 0) -> int:
+    """Shared memory of a brick ``tile = (tz, ty, tx)``: a pad float,
+    ``boxes`` density boxes with a one-voxel halo on every face, the six
+    face weights (each axis's pair with one plane on its minus side, x rows
+    padded to ``tx + 2``, a pad float) when ``weights``, ``pool`` floats of
+    pooling scratch, and the halo exchange's table (one int a cell of its
+    ``halo`` and 12 face entries; ``layout_floats`` in the source).  The
+    pads put a unit's voxel pairs on 8 bytes."""
+    tz, ty, tx = tile
+    n = 1 + boxes * (tz + 2) * (ty + 2) * (tx + 2) + pool + halo + 12
+    if weights:
+        n += 1 + 2 * (tz * ty * (tx + 2) + tz * (ty + 1) * tx + (tz + 1) * ty * tx)
+    return 4 * n
+
+
+def flat_pool_floats(tvox: int, kmax: int) -> int:
+    """Pooling scratch of a brick of ``tvox`` voxels: one float a 4-cube
+    for doubling 2, one an 8-cube for doubling 3 (``pool_floats``)."""
+    return (tvox // 64 if kmax >= 2 else 0) + (tvox // 512 if kmax >= 3 else 0)
+
+
+def flat_halo_cells(tile, parts) -> int:
+    """Halo cells a brick reads from its neighbours a step: two planes on
+    each axis cut into more than one part."""
+    tz, ty, tx = tile
+    sz, sy, sx = (p > 1 for p in parts)
+    return 2 * (sx * tz * ty + sy * tz * tx + sz * ty * tx)
+
+
+def _round_warp(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _flat_plan(name, shape, align, kmax, sms, smem_per_block, registers):
+    """The cut of ``shape`` into at most ``sms`` bricks aligned to
+    ``align`` voxels that keeps the most on chip: the weights in shared
+    memory if any cut allows it, then the fewest units a thread, the least
+    shared memory, the widest x rows and the fewest CTAs.  ``kmax`` >= 0:
+    2x2x2 units in registers; -1: single voxels, two boxes."""
+    nz, ny, nx = shape
+    if min(shape) < 1 or any(n % align for n in shape):
+        raise ValueError(f"{name}: {nz}x{ny}x{nx} is not a grid of "
+                         f"{align}-voxel cells")
+    cells = (nz // align, ny // align, nx // align)
+    best, least = None, None
+    for parts in cuts(cells, sms):
+        tile = tuple(-(-c // p) * align for c, p in zip(cells, parts))
+        tvox = tile[0] * tile[1] * tile[2]
+        if kmax >= 0:
+            units = tvox // 8
+            kb = next((k for k, n in FLAT_UNIT_THREADS.items() if units <= k * n), 0)
+            if not kb:
+                continue
+            threads = _round_warp(-(-units // kb))
+        else:
+            kb, threads = 0, min(RUN_THREADS, _round_warp(tvox))
+        for wsm in (True, False):
+            smem = flat_smem_bytes(tile, 2 if kb == 0 else 1, wsm,
+                                   flat_pool_floats(tvox, kmax),
+                                   flat_halo_cells(tile, parts))
+            least = smem if least is None else min(least, smem)
+            if smem <= smem_per_block:
+                key = (not wsm, kb, smem, -tile[2], parts[0] * parts[1] * parts[2])
+                if best is None or key < best[0]:
+                    best = (key, parts, tile, kb, threads, wsm, smem)
+                break
+    if best is None:
+        raise ValueError(
+            f"{name}: no cut of the {nz}x{ny}x{nx} grid into at most {sms} "
+            f"bricks of {align}-voxel cells fits {smem_per_block} bytes of "
+            f"shared memory a CTA and {FLAT_MAX_UNITS} units a thread ("
+            + ("no cut holds its units" if least is None else
+               f"the least shared memory any cut needs is {least}") + ")")
+    (*_, ctas), parts, (tz, ty, tx), kb, threads, wsm, smem = best
+    weights = ("wpx", "wnx", "wpy", "wny", "wpz", "wnz")
+    shared = ("density" if kb else "density (two boxes)",) + (weights if wsm else ())
+    return FlatRunPlan(
+        parts=parts, tile=(tz, ty, tx), align=align, ctas=ctas, threads=threads,
+        units_per_thread=kb, weights_on_chip=wsm, smem_bytes=smem,
+        face_floats=max(tz * ty, tz * tx, ty * tx), shared=shared,
+        registers=registers if kb else (),
+        l2=(() if wsm else weights) + (() if kb else ("updf",)))
+
+
+@functools.lru_cache(maxsize=256)
+def flat_amr_run_plan(nz: int, ny: int, nx: int, sms: int,
+                      smem_per_block: int) -> FlatRunPlan:
+    """:func:`flat_amr_run`'s launch plan for a ``[nz, ny, nx]`` grid (even
+    extents) on a card of ``sms`` SMs and ``smem_per_block`` bytes of
+    opt-in shared memory a CTA.  Raises ``ValueError`` where none fits."""
+    return _flat_plan("flat_amr_run_plan", (nz, ny, nx), 2, 0, sms,
+                      smem_per_block, ("upd_f", "upd_c", "new density"))
+
+
+@functools.lru_cache(maxsize=256)
+def flat_ml_run_plan(nz: int, ny: int, nx: int, kmax: int, sms: int,
+                     smem_per_block: int) -> FlatRunPlan:
+    """:func:`flat_ml_run`'s launch plan: bricks aligned to the pooling
+    cube of edge ``2^(kmax+1)``.  Raises ``ValueError`` where none fits."""
+    return _flat_plan("flat_ml_run_plan", (nz, ny, nx), 1 << (kmax + 1), kmax,
+                      sms, smem_per_block,
+                      ("updf", "pool", "caps at unit origins", "new density"))
 
 
 # ------------------------------------------------------------ host layout
@@ -513,8 +668,8 @@ def flat_ml_run_plain(V, wpx, wnx, wpy, wny, wpz, wnz, updf, pool, caps, dt,
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flat_amr_run": [_PTR] * 11 + [_INT] * 4 + [_PTR],
-    "flat_ml_run": [_PTR] * 12 + [_INT] * 6 + [_PTR],
+    "flat_amr_run": [_PTR] * 11 + [_INT] * 12 + [_PTR],
+    "flat_ml_run": [_PTR] * 12 + [_INT] * 14 + [_PTR],
 }
 _lib = None
 
@@ -548,6 +703,19 @@ def _check_steps(steps) -> int:
     return steps
 
 
+def _plan_args(plan: FlatRunPlan):
+    """The launcher's plan arguments: parts, threads, units a thread,
+    weights on chip, shared memory bytes, face slot floats."""
+    return (*plan.parts, plan.threads, plan.units_per_thread,
+            int(plan.weights_on_chip), plan.smem_bytes, plan.face_floats)
+
+
+def _faces(plan: FlatRunPlan, device):
+    """The global face buffer: two parities x CTAs x six face slots."""
+    return torch.empty(2 * plan.ctas * 6 * plan.face_floats,
+                       dtype=torch.float32, device=device)
+
+
 def flat_amr_run(V, wpx, wnx, wpy, wny, wpz, wnz, upd_f, upd_c, dt, steps):
     """Advance the flat two-level voxel grid ``V [nz1, ny1, nx1]`` (float32,
     even extents) ``steps`` timesteps in one launch.  ``w*`` are the face
@@ -565,12 +733,13 @@ def flat_amr_run(V, wpx, wnx, wpy, wny, wpz, wnz, upd_f, upd_c, dt, steps):
     _check_all(("V",) + _W_NAMES + ("upd_f", "upd_c"), tensors, shape, dev)
     steps = _check_steps(steps)
     w = _premultiply(tensors[1:7], dt)
+    plan = flat_amr_run_plan(*shape, *card_limits(dev.index))
     out = torch.empty_like(V)
-    scr = torch.empty_like(V)
+    faces = _faces(plan, dev)
     err = _kernels().flat_amr_run(
         V.data_ptr(), *(t.data_ptr() for t in w), upd_f.data_ptr(),
-        upd_c.data_ptr(), out.data_ptr(), scr.data_ptr(), *shape, steps,
-        torch.cuda.current_stream(dev).cuda_stream,
+        upd_c.data_ptr(), out.data_ptr(), faces.data_ptr(), *shape, steps,
+        *_plan_args(plan), torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("flat_amr_run", err)
     return out
@@ -602,12 +771,13 @@ def flat_ml_run(V, wpx, wnx, wpy, wny, wpz, wnz, updf, pool, caps, dt, steps,
     cap_stack = (torch.stack(caps) if caps else
                  torch.zeros((1,) + shape, dtype=torch.float32, device=dev))
     active = sum(1 << k for k in range(kmax + 1) if cap_active[k])
+    plan = flat_ml_run_plan(*shape, kmax, *card_limits(dev.index))
     out = torch.empty_like(V)
-    scr = torch.empty_like(V)
+    faces = _faces(plan, dev)
     err = _kernels().flat_ml_run(
         V.data_ptr(), *(t.data_ptr() for t in w), updf.data_ptr(),
         pool.data_ptr(), cap_stack.data_ptr(), out.data_ptr(),
-        scr.data_ptr(), *shape, steps, kmax, active,
+        faces.data_ptr(), *shape, steps, kmax, active, *_plan_args(plan),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("flat_ml_run", err)
