@@ -31,12 +31,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 turns, k its plan's turns a round), on boards of 1x500,
                 500x1 and 5x7, and on a 500x500 board of values in {-1, 0,
                 0.5, 1, 2, 3} (also bit for bit); a plan made for another
-                board refused before launch), the Vlasov step kernel at 32^3 x
-                512 bins (one periodic slab; two slabs, open z), the BiCG
-                whole-solve kernel on the flat tables of phases 12-13 (64^3
-                voxels, two-level and uniform; 60 iterations) and of a
-                9x7x5 grid with an open axis and all three cell roles,
-                solved to a residual target it reaches early; the halo's
+                board refused before launch), the Vlasov step kernel B7 at
+                32^3 x 512 bins (one periodic slab; two slabs, open z, the
+                edge planes read from the slab ring and given; open x and
+                y), at 27 bins on two slabs (open y and z) and on the
+                largest plane pick_vlasov_block admits at 512 bins (32 x
+                66); the BiCG whole-solve kernel B8 on the flat tables of
+                phases 12-13 (64^3 voxels, two-level and uniform; 60
+                iterations), of a 9x7x5 grid with an open axis and all three
+                cell roles, solved to a residual target it reaches early,
+                and on the largest grids bicg_fits admits (100x98x98 with
+                coarse rows, 98x98x100 without: the plan's l2 form); a plan
+                made for another shape refused before launch by each of B7
+                and B8; the halo's
                 ring copy on the 8-slot refined grid of phase 17 (f64
                 scalar, f32 (3,) and uint32 fields for its 8- and 4-byte
                 words; uint8 and f16 (3,) fields for its 1- and 2-byte
@@ -121,12 +128,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 20. timing    — each kernel beside its twin and its least possible time, the
                 ring copy also beside torch.index_select, on copies of the
                 field that exceed the L2 (its L2-resident time logged too);
-                the launch plans of B1, B4, B5 and B6 (bricks or tiles,
-                their extents, shared memory a CTA, CTAs, turns a round,
-                what lives in shared memory, registers and L2) with the
-                registers ptxas gave each, and the bare grid barrier timed
-                on each kernel's grid and on the 4,096-CTA grid of the
-                streaming B6 they replaced.
+                the launch plans of B1, B4, B5, B6, B7 and B8 (bricks or
+                tiles, their extents, shared memory a CTA, CTAs, turns a
+                round, what lives in shared memory, registers and L2) with
+                the registers ptxas gave each, and the bare grid barrier
+                timed on each whole-run kernel's grid (B8's: 120, two an
+                iteration) and on the 4,096-CTA grid of the streaming B6
+                they replaced.
 
 Launch counters are set to 0 just before each of phases 3-19 drives its path
 and read just after.  Output ends with the card's name and power limit, one
@@ -665,29 +673,62 @@ def main() -> int:
                 1000, 1000, 1, 0, 0, *p500.parts, k4, *p500.threads, p500.smem_bytes,
                 torch.cuda.current_stream().cuda_stream))
 
-    # B7 at the bench's phase space: 32^3 cells x 8^3 bins, block 4
-    def vlasov_args(D, periodic, seed):
+    # B7 at the bench's phase space: 32^3 cells x 8^3 bins, block 4; the
+    # edge planes read from the slab ring by the kernel (the main path's
+    # form), or given (the ring's planes, made here)
+    def vlasov_args(D, periodic, seed, ring=True):
         r = np.random.default_rng(seed)
         f = torch.tensor(r.uniform(0.0, 1.0, (D, 32 // D, 32, 32, 512))
                          .astype(np.float32), device=dev)
         v = torch.tensor(r.uniform(-1.0, 1.0, (3, 512)).astype(np.float32),
                          device=dev)
-        lo = torch.roll(f[:, -1:], 1, 0).contiguous()
-        hi = torch.roll(f[:, :1], -1, 0).contiguous()
-        if not periodic[2]:
-            lo[0] = 0.0
-            hi[-1] = 0.0
+        lo, hi = (None, None) if ring else (
+            e.contiguous() for e in V.ring_edges(f, periodic[2]))
         kw = dict(block=4, inv_dx=np.full(3, 32.0), periodic=periodic)
         return (f, lo, hi, v[0].contiguous(), v[1].contiguous(),
                 v[2].contiguous(), float(np.float32(0.4 / 32))), kw
 
     check(V.pick_vlasov_block(32, 32, 32, 512) == 4, "32^3 x 512 block is not 4")
-    for D, per in ((1, (True, True, True)), (2, (True, True, False))):
-        a7, kw7 = vlasov_args(D, per, 11 + D)
+    for D, per, ring in ((1, (True, True, True), True), (2, (True, True, False), True),
+                         (2, (True, True, False), False)):
+        a7, kw7 = vlasov_args(D, per, 11 + D, ring)
         err = hold(f"B7 vlasov_step 32^3 x 512 bins on {D} slab(s), "
-                   f"{'periodic' if per[2] else 'open z'}", V.vlasov_step,
+                   f"{'periodic' if per[2] else 'open z'}, edge planes "
+                   f"{'from the slab ring' if ring else 'given'}", V.vlasov_step,
                    V.vlasov_step_blocked_plain, a7, kw7)
         twin_err["vlasov_step"] = max(twin_err.get("vlasov_step", 0.0), err)
+
+    def vlasov_shape_args(shape, periodic, seed):
+        """Seeded f and bin velocities of any [D, nzl, ny, nx, B] shape,
+        the edge planes from the slab ring."""
+        D, nzl, ny, nx, nb = shape
+        r = np.random.default_rng(seed)
+        f = torch.tensor(r.uniform(0.0, 1.0, shape).astype(np.float32), device=dev)
+        v = torch.tensor(r.uniform(-1.0, 1.0, (3, nb)).astype(np.float32), device=dev)
+        lo = hi = None
+        block = V.pick_vlasov_block(nzl, ny, nx, nb)
+        check(block > 0, f"B7 {shape}: not admitted")
+        kw = dict(block=block, inv_dx=np.array([nx, ny, D * nzl], float), periodic=periodic)
+        return (f, lo, hi, *(v[i].contiguous() for i in range(3)),
+                float(np.float32(0.4 / max(nx, ny, D * nzl)))), kw
+
+    # open x and y, nv = 3 (27 bins: 4-byte copies, a ragged chunk), and the
+    # largest plane pick_vlasov_block admits at 512 bins (32 x 66 cells)
+    nx_big = V._VLASOV_VMEM_BUDGET // 24 // (32 * 512 * 4)
+    check(V.pick_vlasov_block(2, 32, nx_big, 512) and
+          not V.pick_vlasov_block(2, 32, nx_big + 1, 512),
+          f"32 x {nx_big} is not the largest admitted plane at 512 bins")
+    for shape, per, what in (((1, 32, 32, 32, 512), (False, False, True), "open x and y"),
+                             ((2, 16, 32, 32, 27), (True, False, False), "nv = 3, open y and z"),
+                             ((1, 32, 32, nx_big, 512), (True, True, True),
+                              "the largest admitted plane")):
+        a7, kw7 = vlasov_shape_args(shape, per, sum(shape))
+        plan = V.vlasov_step_plan(*shape, *limits)
+        err = hold(f"B7 vlasov_step {'x'.join(map(str, shape))} ({what}; plan: "
+                   f"{plan.tile} tiles of {plan.chunk} bins, {plan.z_parts} z runs, "
+                   f"{plan.ctas} CTAs)", V.vlasov_step, V.vlasov_step_blocked_plain, a7, kw7)
+        twin_err["vlasov_step"] = max(twin_err["vlasov_step"], err)
+    del a7
 
     # B8 on the flat tables of phases 12-13 (built once: they are the
     # whole-solve kernel's main-path shapes) and of a small grid with odd
@@ -749,6 +790,65 @@ def main() -> int:
                   f"B8 {label}: stopped at {int(it[0])} with {float(res[0])}")
         else:
             check(int(it[0]) == 60, f"B8 {label}: {int(it[0])} iterations")
+
+    def bicg_synth(shape, hc, seed):
+        """Seeded operands of any grid: a perturbed Laplacian (random
+        positive face weights), 90% solve rows, with coarse rows random
+        fine / coarse 2x2x2 blocks and the even-parity origins."""
+        r = np.random.default_rng(seed)
+        t = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+        w = [r.uniform(0.5, 1.5, shape) for _ in range(6)]
+        scaling = -sum(w) * r.uniform(1.0, 1.1, shape)
+        if hc:
+            blk = r.random(tuple(n // 2 for n in shape)) < 0.5
+            fine = blk.repeat(2, 0).repeat(2, 1).repeat(2, 2)
+            g = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij", sparse=True)
+            orig = (g[0] % 2 == 0) & (g[1] % 2 == 0) & (g[2] % 2 == 0)
+        else:
+            fine, orig = np.ones(shape, bool), np.zeros(shape, bool)
+        solve = r.random(shape) < 0.9
+        rhs = np.where(solve, r.standard_normal(shape), 0.0)
+        return [t(rhs), t(0.1 * r.standard_normal(shape))] + [t(a) for a in w] + [
+            t(scaling), t(fine), t(~fine), t(orig), t(solve), t(solve)]
+
+    # the largest grids bicg_fits admits, with and without coarse rows: the
+    # plan's l2 form (the state and weights read through L2)
+    for shape, hc in (((100, 98, 98), True), ((98, 98, 100), False)):
+        check(B.bicg_fits(int(np.prod(shape))) and
+              not B.bicg_fits(int(np.prod(shape)) + 98 * 98),
+              f"{shape} is not the largest bicg_fits admits at 98 x 98")
+        plan = B.bicg_solve_plan(*shape, hc, *limits)
+        check(plan.form == "l2", f"B8 {shape}: plan form {plan.form}")
+        args = (*bicg_synth(shape, hc, 17), 60, 0.0, inf)
+        twin_err["bicg_solve"] = max(twin_err["bicg_solve"], hold(
+            f"B8 bicg_solve {'x'.join(map(str, shape))} ({'coarse rows' if hc else 'uniform'}"
+            f", the largest admitted; plan {plan.form}, {plan.ctas} CTAs), 60 iterations",
+            B.bicg_solve, B.bicg_solve_plain, args, {"has_coarse": hc}))
+    del args
+
+    # each launcher recomputes its cut from the plan: the 32^3 x 512 plan
+    # (16 x 16 tiles of 16 bins) does not cover 32 x 4 x 4 x 27, nor the
+    # poisson grid's plan (128 bricks of 2 x 16 x 64) a 66 x 64 x 64 grid
+    p7 = V.vlasov_step_plan(1, 32, 32, 32, 512, *limits)
+    a7, _ = vlasov_shape_args((1, 32, 4, 4, 27), (True, True, True), 5)
+    out7 = torch.empty_like(a7[0])
+    refused("B7 vlasov_step: 32^3 x 512's plan on 32 x 4 x 4 x 27",
+            V._kernels().vlasov_step(
+                a7[0].data_ptr(), None, None, *(x.data_ptr() for x in a7[3:6]),
+                out7.data_ptr(), 1, 32, 4, 4, 27, 1, 1, 1, 1, 1.0, 1.0, 1.0,
+                *V._plan_args(p7), torch.cuda.current_stream().cuda_stream))
+    p8 = B.bicg_solve_plan(64, 64, 64, True, *limits)
+    a8 = bicg_synth((66, 64, 64), True, 6)
+    o8, r8 = torch.empty_like(a8[0]), torch.empty(1, device=dev)
+    i8 = torch.empty(1, dtype=torch.int32, device=dev)
+    s8 = torch.empty((9,) + tuple(a8[0].shape), device=dev)
+    part8 = torch.empty(3 * p8.tiles, device=dev)
+    refused("B8 bicg_solve: the poisson grid's plan on 66x64x64",
+            B._kernels().bicg_solve(
+                *(x.data_ptr() for x in a8), o8.data_ptr(), r8.data_ptr(), i8.data_ptr(),
+                s8.data_ptr(), part8.data_ptr(), 66, 64, 64, 1, 60, 0.0, inf,
+                *B._plan_args(p8), torch.cuda.current_stream().cuda_stream))
+    del a7, out7, a8, o8, s8
 
     # B9 on the refined grid of phase 17, on 8 slots: its density exchange is
     # the ring copy's main-path shape; a three-field state covers the dtypes
@@ -1040,9 +1140,8 @@ def main() -> int:
     short = vl.run(s_v, 5, dt_v)
     f = s_v["f"]
     for _ in range(5):
-        lo, hi = vl._edges(f)
         f = V.vlasov_step_blocked_plain(
-            f, lo, hi, vl._vx, vl._vy, vl._vz, dt_v, block=vl._fused_block,
+            f, None, None, vl._vx, vl._vy, vl._vz, dt_v, block=vl._fused_block,
             inv_dx=vl._inv_dx, periodic=vl._periodic)
     check(torch.equal(short["f"], f), "vlasov: 5 steps != twin")
     vl64 = Vlasov(g_v, nv=8, dtype=np.float64)
@@ -1448,11 +1547,12 @@ def main() -> int:
                      plain_ms=plain_ms, bound=b))
     a7, kw7 = vlasov_args(1, (True, True, True), 21)
     n7, plane7 = 32 * 32 * 32 * 512, 32 * 32 * 512
-    ms = event_ms(lambda: V.vlasov_step(*a7, **kw7), 20)
+    ms = event_ms(lambda: V.vlasov_step(*a7, **kw7), 50)
     plain_ms = event_ms(lambda: V.vlasov_step_blocked_plain(*a7, **kw7), 3)
-    # f in and out, the two edge planes and the bin velocities in; the
-    # edge planes' xy splits are 10 operations a cell
-    b = bound((2 * n7 + 2 * plane7 + 3 * 512) * 4,
+    # f in and out (the edge planes are f's, read from the slab ring) and
+    # the bin velocities in; the edge planes' xy splits are 10 operations a
+    # cell
+    b = bound((2 * n7 + 3 * 512) * 4,
               VLASOV_FLOPS_PER_CELL * n7 + 2 * 10 * plane7)
     rows.append(dict(name="vlasov_step", shape="32^3 x 512 bins, block 4, one step",
                      source="dccrg_tpu_torch/csrc/vlasov.cu",
@@ -1558,6 +1658,39 @@ def main() -> int:
         t_bar = statistics.median(event_ms(lambda: barriers(grid, n), 1) for _ in range(3))
         log(f"[timing] bare grid barrier x{n} on {label} ({ctas} CTAs of {threads} "
             f"threads): {t_bar!r} ms ({1e3 * t_bar / n!r} us each; median of 3) on {card}")
+
+    # the plans of B7 and B8 at their main-path shapes (and B8's l2 form at
+    # the largest admitted grid), the registers of the instantiations they
+    # run, and the bare barrier on B8's grid: what an iteration's two
+    # barriers cost
+    pv = V.vlasov_step_plan(1, 32, 32, 32, 512, *limits)
+    log(f"[timing] vlasov_step plan at 32^3 x 512: {pv.tiles} tiles (y, x) of at most "
+        f"{pv.tile} cells, {pv.chunks} chunks of {pv.chunk} bins, {pv.z_parts} z runs, "
+        f"{pv.ctas} CTAs of {pv.threads} threads, {pv.vec}-float copies, {pv.smem_bytes} "
+        f"bytes of shared memory a CTA; shared memory holds {', '.join(pv.shared)}; "
+        f"registers {', '.join(pv.registers)}; ptxas "
+        + ptxas_registers(built.get("vlasov", {}).get("ptxas", ""),
+                          f"vlasov_tile_kernelILi{pv.vec}E"))
+    bicg_ptxas = built.get("poisson", {}).get("ptxas", "")
+    for label, shape, hc in (("poisson, 64^3 voxels", (64, 64, 64), 1),
+                             ("poisson_uniform, 64^3 voxels", (64, 64, 64), 0),
+                             ("100x98x98, coarse rows", (100, 98, 98), 1)):
+        plan = B.bicg_solve_plan(*shape, bool(hc), *limits)
+        inst = f"bicg_{plan.form}_kernelILb{hc}E"
+        log(f"[timing] bicg_solve plan at {label}: form {plan.form}, {plan.ctas} CTAs of "
+            f"{plan.threads} threads, {plan.tiles_per_cta} tiles a CTA"
+            + (f", bricks of {plan.brick} voxels (tiles of {plan.tile_shape} items), "
+               f"{plan.voxels_per_thread} voxels a thread" if plan.form == "box" else "")
+            + f", {plan.smem_bytes} bytes of shared memory a CTA; shared memory holds "
+            f"{', '.join(plan.shared) or 'the reductions only'}; registers "
+            f"{', '.join(plan.registers) or 'nothing held'}; L2 {', '.join(plan.l2)}; "
+            f"ptxas {ptxas_registers(bicg_ptxas, inst)}")
+    p8u = B.bicg_solve_plan(64, 64, 64, False, *limits)
+    grid8 = types.SimpleNamespace(ctas=p8u.ctas, threads=(p8u.threads, 1))
+    t_bar = statistics.median(event_ms(lambda: barriers(grid8, 120), 1) for _ in range(3))
+    log(f"[timing] bare grid barrier x120 (two an iteration, 60 iterations) on B8's grid "
+        f"({grid8.ctas} CTAs of {p8u.threads} threads): {t_bar!r} ms ({1e3 * t_bar / 120!r} "
+        f"us each; median of 3) on {card}")
 
     kernels = []
     for r in rows:

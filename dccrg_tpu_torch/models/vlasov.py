@@ -126,9 +126,9 @@ class Vlasov:
 
     def _dense_step(self, f, dt):
         if self._fused_block:
-            lo, hi = self._edges(f)
+            # the kernel reads the slab ring's edge planes from f itself
             return vlasov_step(
-                f, lo, hi, self._vx, self._vy, self._vz, dt,
+                f, None, None, self._vx, self._vy, self._vz, dt,
                 block=self._fused_block, inv_dx=self._inv_dx,
                 periodic=self._periodic)
         # the XLA body (vlasov.py:127-149): x and y split inside the slab,

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "dccrg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "dccrg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "kernel_probe.py"]
 
 
 def _forbidden(name: str) -> bool:
