@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card (an H100):
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
-1. build      — compile every ``dccrg_tpu_torch/csrc/*.cu`` and the bare
-                grid-barrier probe of phase 20 with nvcc, in parallel, and
+1. build      — compile every ``dccrg_tpu_torch/csrc/*.cu`` and the probes
+                of phase 20 (a bare grid barrier, an empty kernel) with
+                nvcc, in parallel, and
                 print the command, seconds and ptxas report;
 2. kernels    — each kernel against its plain PyTorch twin on the card, at
                 the main path's shapes, bitwise (``torch.equal``; -0 == +0):
@@ -44,10 +45,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 coarse rows, 98x98x100 without: the plan's l2 form); a plan
                 made for another shape refused before launch by each of B7
                 and B8; the halo's
-                ring copy on the 8-slot refined grid of phase 17 (f64
-                scalar, f32 (3,) and uint32 fields for its 8- and 4-byte
-                words; uint8 and f16 (3,) fields for its 1- and 2-byte
-                words, also exchanged against the collective backend), and
+                grouped gather B9 on the 8-slot refined grid of phase 17,
+                in its three modes (payload, blocking, merge; one launch
+                for all the fields of a state, the merge also against the
+                blocking gather) for the three-field state (f64 scalar, f32
+                (3,), uint32: 8- and 4-byte words), uint8 and f16 (3,)
+                (1- and 2-byte words, also exchanged against the
+                collective backend), and bool, bfloat16 (2,), int16 and f32
+                (4,) (16-byte words); all eleven fields at once in
+                ceil(11 / RING_MAX_FIELDS) launches; and
                 the verify oracle (DCCRG_HALO_VERIFY=1) counting checks and
                 no mismatch;
 3. headline   — Grid 128x128x64 periodic -> Advection(float32) ->
@@ -102,19 +108,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 static-offset operator, no kernel; against the gather
                 operator in float64 (1e-12 of the peak); cell-iterations/s;
 16. halo      — the 8-slot refined grid's exchange of a three-field state,
-                blocking and start/wait on the Grid: one ring_copy launch a
-                field each, bitwise equal to each other and to the
-                collective backend; ring distances, S_k, bytes, and each
+                blocking and start/wait on the Grid: one ring_copy launch
+                for the blocking exchange, one for start and one for finish
+                (also counted, after phase 17's rates, in a profiler trace:
+                no other kernel), bitwise
+                equal to each other and to the collective backend; ring
+                distances, S_k, bytes, and each
                 form's exchange time (device, queued; wall, synchronised;
                 allocator segments added while queued); a one-slot grid's start
                 launches nothing and returns an empty handle;
 17. split_advection — the refined grid of phase 6 on 8 slots (198,008
-                leaves): Advection(float32, overlap=True).run(200), one
-                ring_copy launch a step; bitwise equal to the eager gather
+                leaves): Advection(float32, overlap=True).run(200), two
+                ring_copy launches a step (start, finish); bitwise equal to
+                the eager gather
                 step after each of the first 20 steps and after 200; mass
                 conserved; leaf-updates/s of both forms; a profiler trace
                 of 5 split steps says whether the side-stream copy ran
-                beside other kernels, and the device's busy share;
+                beside other kernels, B9's launches and mean device time a
+                launch on each stream (payloads on the side stream, merges
+                on the model's), and the device's busy share;
 18. split_vlasov — Vlasov (nv = 8, 512 bins, float32) on the refined 16^3
                 grid (7,456 leaves) on 8 slots: the ring copy of f (2 KiB
                 rows, 16-byte words) against its twin, and one eager
@@ -123,11 +135,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 step after each; phase-space cell-updates/s of both forms;
                 the same profiler trace;
 19. split_gol — the bench's Game of Life on 8 slots, GameOfLife(overlap=
-                True).run(200): its alive set equal to the one-slot gol_run
-                run's; cell-updates/s;
+                True).run(200) (two ring_copy launches a turn): its alive set
+                equal to the one-slot gol_run run's; cell-updates/s;
 20. timing    — each kernel beside its twin and its least possible time, the
                 ring copy also beside torch.index_select, on copies of the
-                field that exceed the L2 (its L2-resident time logged too);
+                field that exceed the L2 (its L2-resident time logged too),
+                B9's merge at split_advection's and split_gol's fields and
+                the grouped blocking exchange of the three-field state (one
+                launch) beside their bounds, and an empty kernel on the
+                ring copy's grid (the launch floor);
                 the launch plans of B1, B4, B5, B6, B7 and B8 (bricks or
                 tiles, their extents, shared memory a CTA, CTAs, turns a
                 round, what lives in shared memory, registers and L2) with
@@ -198,10 +214,10 @@ def flat_ml_flops_per_voxel(cap_active) -> int:
     return n
 
 
-#: phase 20's scratch kernel, built beside the package's kernels and not one
-#: of them: ``steps`` bare grid barriers on a cooperative grid of ``ctas``
-#: CTAs of bx x by threads (what B1, B5 and B6 pay to synchronise a step,
-#: B4 a round)
+#: phase 20's scratch kernels, built beside the package's kernels and not
+#: among them: ``steps`` bare grid barriers on a cooperative grid of
+#: ``ctas`` CTAs of bx x by threads (what B1, B5 and B6 pay to synchronise a
+#: step, B4 a round), and an empty kernel (the launch floor beside B9)
 BARRIER_PROBE = r"""
 #include <cooperative_groups.h>
 __global__ void barrier_loop(int steps) {
@@ -213,6 +229,11 @@ extern "C" int barrier_probe(int ctas, int bx, int by, int steps, void* stream) 
                                                 dim3(bx, by), args, 0,
                                                 (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int ctas, int threads, void* stream) {
+  empty_kernel<<<ctas, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 """
 #: cudaErrorInvalidValue: what a whole-run launcher returns for a plan that
@@ -869,36 +890,82 @@ def main() -> int:
         s9 = g_sa.set_cell_data(s9, k, cells_sa, vals)
     log(f"[halo] grid ({n_sa} leaves on 8 slots) + state in "
         f"{time.perf_counter() - t:.2f} s")
-    for k, x in s9.items():
-        before = K.LAUNCHES["ring_copy"]
-        got = H.ring_copy(x, ex_sa._rings.send)
-        sync()
-        check(K.LAUNCHES["ring_copy"] == before + 1, f"B9 {k}: no launch counted")
-        check(same_bits(got, H.ring_copy_plain(x, ex_sa._rings.send)),
-              f"B9 ring_copy {k}: kernel != twin")
-        log(f"[kernels] B9 ring_copy {tuple(got.shape)} {x.dtype}: bitwise equal "
-            f"to its twin")
-    # 1- and 2-byte elements: the kernel's uint8_t and uint16_t words, and
-    # the exchange around them against the collective backend
+    # 1- and 2-byte elements (the kernel's uint8_t and uint16_t words), bool
+    # and bfloat16, and f32 (4,) rows for its 16-byte words
     s9n = g_sa.new_state({"flag": ((), np.uint8), "h": ((3,), np.float16)})
     s9n = g_sa.set_cell_data(s9n, "flag", cells_sa, r9.integers(0, 256, n_sa, dtype=np.uint8))
     s9n = g_sa.set_cell_data(s9n, "h", cells_sa,
                              r9.standard_normal((n_sa, 3)).astype(np.float16))
-    for k, x in s9n.items():
+    D9, R9 = ex_sa.D, ex_sa.R
+    raw = lambda *shape: torch.tensor(r9.integers(0, 256, shape, dtype=np.uint8), device=dev)
+    s9x = {"b": raw(D9, R9).bitwise_and(1).to(torch.bool),
+           "bf": raw(D9, R9, 4).view(torch.bfloat16), "i16": raw(D9, R9, 2).view(torch.int16),
+           "w4": torch.tensor(r9.standard_normal((D9, R9, 4)), dtype=torch.float32, device=dev)}
+    rings9 = ex_sa._rings
+
+    def b9_modes(label, state):
+        """Hold each of B9's three modes, one launch for all the fields of
+        ``state``, bitwise against its twin, and the merge of the payload
+        against the blocking gather."""
+        xs = list(state.values())
+        runs = {}
+        for mode, jobs in (("payload", [(x, rings9.send) for x in xs]),
+                           ("blocking", [(x, rings9.full) for x in xs])):
+            before = K.LAUNCHES["ring_copy"]
+            runs[mode] = H.ring_gather(jobs)
+            sync()
+            check(K.LAUNCHES["ring_copy"] == before + 1, f"B9 {mode} {label}: launches")
+            for x, got, want in zip(xs, runs[mode], H.ring_gather_plain(jobs)):
+                check(same_bits(got, want), f"B9 {mode} {label} {x.dtype}: kernel != twin")
+        # the merge reads stale ghost rows (each field's bytes inverted on
+        # the rows the schedule refreshes), so the payload must overwrite
+        # every one of them
+        ghost = rings9.merge.view(D9, R9) >= 0
+        stale = []
+        for x in xs:
+            # bytes, with an axis of their own: torch.where takes no uint32
+            xb = x.unsqueeze(-1).view(torch.uint8)
+            inv = xb ^ 1 if x.dtype == torch.bool else xb.bitwise_not()
+            mask = ghost.view((D9, R9) + (1,) * (xb.dim() - 2))
+            stale.append(torch.where(mask, inv, xb).view(x.dtype).squeeze(-1))
+        jobs = [(x, rings9.merge, p) for x, p in zip(stale, runs["payload"])]
         before = K.LAUNCHES["ring_copy"]
-        got = H.ring_copy(x, ex_sa._rings.send)
+        merged = H.ring_gather(jobs)
         sync()
-        check(K.LAUNCHES["ring_copy"] == before + 1, f"B9 {k}: no launch counted")
-        check(same_bits(got, H.ring_copy_plain(x, ex_sa._rings.send)),
-              f"B9 ring_copy {k}: kernel != twin")
+        check(K.LAUNCHES["ring_copy"] == before + 1, f"B9 merge {label}: launches")
+        for x, got, want, full in zip(xs, merged, H.ring_gather_plain(jobs), runs["blocking"]):
+            check(same_bits(got, want), f"B9 merge {label} {x.dtype}: kernel != twin")
+            check(same_bits(got.view(x.shape), full.view(x.shape)),
+                  f"B9 merge {label} {x.dtype}: merge != blocking gather")
+        plan = H.ring_gather_plan([(x, rings9.full) for x in xs])
+        log(f"[kernels] B9 payload, blocking and merge of {label} "
+            f"({', '.join(str(x.dtype) for x in xs)}): one launch each, bitwise equal to "
+            f"the twin; merge == blocking; blocking plan {plan}")
+
+    b9_modes("the three-field state", s9)
+    b9_modes("the narrow state", s9n)
+    b9_modes("bool, bfloat16, int16 and f32 (4,)", s9x)
+    # more fields than one launch carries: ceil(fields / RING_MAX_FIELDS)
+    many = [x for st in (s9, s9n, s9x) for x in st.values()]
+    before = K.LAUNCHES["ring_copy"]
+    got = H.ring_gather([(x, rings9.full) for x in many])
+    sync()
+    n_launch = -(-len(many) // H.RING_MAX_FIELDS)
+    check(K.LAUNCHES["ring_copy"] == before + n_launch,
+          f"B9 {len(many)} fields: {K.LAUNCHES['ring_copy'] - before} launches, "
+          f"expected {n_launch}")
+    for x, y, want in zip(many, got, H.ring_gather_plain([(x, rings9.full) for x in many])):
+        check(same_bits(y, want), f"B9 {len(many)} fields {x.dtype}: kernel != twin")
+    log(f"[kernels] B9 blocking gather of {len(many)} fields: {n_launch} launches, bitwise "
+        f"equal to the twin")
     ex9 = ex_sa(s9n)
     ref9 = collective_halo(g_sa)(s9n)
     for k in s9n:
         check(same_bits(ex9[k], ref9[k]) and not same_bits(ex9[k], s9n[k]),
               f"B9 exchange {k}: pallas != collective, or nothing moved")
-    log("[kernels] B9 ring_copy uint8 and f16 (3,): bitwise equal to its twin; "
-        "their exchange bitwise equal to the collective backend's")
-    del s9n, ex9, ref9
+    log("[kernels] B9 exchange of uint8 and f16 (3,): bitwise equal to the collective "
+        "backend's")
+    del s9n, s9x, ex9, ref9, many, got
     twin_err["ring_copy"] = 0.0
     os.environ["DCCRG_HALO_VERIFY"] = "1"
     ex_v = HaloExchange(g_sa.epoch, g_sa.epoch.hoods[None], dev, hood_id=None)
@@ -1303,13 +1370,31 @@ def main() -> int:
     rate("poisson_rolled", lambda: solve60(p_ro, s_ro), n_p, 60, unit="cell-iterations/s")
     del r64
 
+    def trace_kernels(fn):
+        """The kernel events of a profiler trace of ``fn``: (start us, end
+        us, stream, name) each."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                sync()
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        return [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"), e["name"])
+                for e in events if e.get("cat") == "kernel"]
+
     # 16. halo: the 8-slot exchange, blocking and split, on the Grid
     def halo_both():
         blocking = g_sa.update_copies_of_remote_neighbors(s9)
         handle = g_sa.start_remote_neighbor_copy_updates(s9)
         return blocking, g_sa.wait_remote_neighbor_copy_updates(s9, handle)
 
-    blocking, merged = drive("halo", halo_both, {"ring_copy": 6})
+    # one B9 launch a blocking exchange, one for start and one for finish,
+    # whatever the field count
+    blocking, merged = drive("halo", halo_both, {"ring_copy": 3})
     ex_c = collective_halo(g_sa)
     coll = ex_c(s9)
     for k in s9:
@@ -1358,7 +1443,8 @@ def main() -> int:
     dt_sa = 0.4 * adv_s.max_time_step(s_sa)
     log(f"[split_advection] models + state in {time.perf_counter() - t:.2f} s, "
         f"dt {dt_sa!r}")
-    out = drive("split_advection", lambda: adv_s.run(s_sa, 200, dt_sa), {"ring_copy": 200})
+    # a step starts the halo (one B9 launch) and finishes it (one)
+    out = drive("split_advection", lambda: adv_s.run(s_sa, 200, dt_sa), {"ring_copy": 400})
     finite_mass("split_advection", adv_s, s_sa, out, 1e-5)
     se = sf = s_sa
     for i in range(20):
@@ -1376,21 +1462,12 @@ def main() -> int:
 
     def side_stream_overlap(label, fn):
         """Profile ``fn`` and log from the trace's kernel events: the ring
-        copies' count, streams and device time, the part of it during which
-        a kernel of another stream ran, and the device's busy share of the
-        window from the first kernel's start to the last one's end."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with tempfile.TemporaryDirectory() as tmp:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                sync()
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        kern = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"),
-                 "ring_copy" in e["name"]) for e in events if e.get("cat") == "kernel"]
+        copies' count, streams and device time (launches and mean us a
+        launch a stream: the payloads run on the side stream, the merges on
+        the model's), the part of it during which a kernel of another
+        stream ran, and the device's busy share of the window from the first
+        kernel's start to the last one's end."""
+        kern = [(s, e, st, "ring_gather" in n) for s, e, st, n in trace_kernels(fn)]
         if not kern:
             log(f"[{label}] profiler: no device events; overlap and idle share "
                 f"not measured")
@@ -1402,12 +1479,28 @@ def main() -> int:
                    for s2, e2, st2, _ in other if st2 != st)
         span = max(k[1] for k in kern) - min(k[0] for k in kern)
         busy = sum(e - s for s, e, _, _ in kern)
+        per_stream = {}
+        for s, e, st, _ in ring:
+            per_stream.setdefault(st, []).append(e - s)
+        means = {st: (len(v), sum(v) / len(v)) for st, v in per_stream.items()}
         log(f"[{label}] profiler, 5 split steps: {len(kern)} kernels, {len(ring)} "
-            f"ring copies on stream(s) {sorted({k[2] for k in ring}, key=str)}, "
+            f"ring copies (stream: launches, mean us a launch {means}), "
             f"{ring_us!r} us of ring copy, {over!r} us of it beside a kernel of "
             f"another stream; kernels {busy!r} us of a {span!r} us window "
             f"(busy share {busy / span!r})")
 
+    # what the device ran in phase 16's exchanges: one kernel a blocking
+    # exchange, two a start/wait (no clone, no index_put_ of a field).  The
+    # profiler runs only after the rates above, so they are taken in a
+    # process that has not traced yet
+    for label, fn, n_kern in (("blocking", lambda: ex_sa(s9), 1),
+                              ("start/wait", lambda: ex_sa.finish(s9, ex_sa.start(s9)), 2)):
+        fn()
+        names = [k[3] for k in trace_kernels(fn)]
+        check(len(names) == n_kern and all("ring_gather" in n for n in names),
+              f"halo {label}: the trace holds kernels {names}, expected {n_kern} B9")
+        log(f"[halo] profiled {label} exchange of the three fields: {len(names)} "
+            f"kernel(s), all B9")
     side_stream_overlap("split_advection", lambda: adv_s.run(s_sa, 5, dt_sa))
     del se, sf, out
 
@@ -1427,10 +1520,11 @@ def main() -> int:
     ex_sv = g_sv.halo()
     check(ex_sv.backend == "pallas" and len(ex_sv.ring_ks) > 0,
           f"split_vlasov halo: backend {ex_sv.backend}, rings {ex_sv.ring_ks}")
-    got = H.ring_copy(s_sv["f"], ex_sv._rings.send)
+    jobs_sv = [(s_sv["f"], ex_sv._rings.send)]
+    got, = H.ring_gather(jobs_sv)
     sync()
-    check(same_bits(got, H.ring_copy_plain(s_sv["f"], ex_sv._rings.send)),
-          "B9 ring_copy split_vlasov f: kernel != twin")
+    check(same_bits(got, H.ring_gather_plain(jobs_sv)[0]),
+          "B9 payload split_vlasov f: kernel != twin")
     # the state's ghost rows (not its pad rows) poisoned: one exchange must
     # restore them, on both backends alike
     ep = g_sv.epoch
@@ -1441,11 +1535,11 @@ def main() -> int:
     check(same_bits(eager_x["f"], coll_x["f"]),
           "split_vlasov f: the exchange != the collective backend's")
     check(same_bits(eager_x["f"], s_sv["f"]), "split_vlasov f: ghosts not restored")
-    log(f"[split_vlasov] B9 ring_copy f {tuple(got.shape)}: bitwise equal to its "
+    log(f"[split_vlasov] B9 payload f {tuple(got.shape)}: bitwise equal to its "
         f"twin; an exchange of poisoned ghosts bitwise equal to the collective "
         f"backend's, and restores them")
     del got, ghost, stale, eager_x, coll_x
-    out = drive("split_vlasov", lambda: vl_s.run(s_sv, 20, dt_sv), {"ring_copy": 20})
+    out = drive("split_vlasov", lambda: vl_s.run(s_sv, 20, dt_sv), {"ring_copy": 40})
     check(bool(torch.isfinite(out["f"]).all()), "split_vlasov: non-finite f")
     m0, m1 = vl_s.total_mass(s_sv), vl_s.total_mass(out)
     check(abs(m1 - m0) / m0 <= 1e-5, f"split_vlasov: mass drift {abs(m1 - m0) / m0:.3e}")
@@ -1469,7 +1563,7 @@ def main() -> int:
     gol8 = GameOfLife(g_g8, overlap=True)
     check(gol8.dense2d is None, "split_gol: took the dense path")
     s_g8 = gol8.new_state(alive_cells=alive0)
-    out = drive("split_gol", lambda: gol8.run(s_g8, 200), {"ring_copy": 200})
+    out = drive("split_gol", lambda: gol8.run(s_g8, 200), {"ring_copy": 400})
     want = set(gol.alive_cells(gol.run(s_gol, 200)).tolist())
     got = set(gol8.alive_cells(out).tolist())
     check(got == want, f"split_gol: {len(got)} alive, the gol_run run {len(want)}")
@@ -1590,10 +1684,10 @@ def main() -> int:
         def cold(fn, src):
             return lambda: fn(src[next(turn) % len(src)])
 
-        ms = event_ms(cold(lambda c: H.ring_copy(c, idx), copies), 200)
-        plain_ms = event_ms(cold(lambda c: H.ring_copy_plain(c, idx), copies), 200)
+        ms = event_ms(cold(lambda c: H.ring_gather([(c, idx)]), copies), 200)
+        plain_ms = event_ms(cold(lambda c: H.ring_gather_plain([(c, idx)]), copies), 200)
         library_ms = event_ms(cold(lambda c: torch.index_select(c, 0, idx), flats), 200)
-        warm_ms = event_ms(lambda: H.ring_copy(x, idx), 200)
+        warm_ms = event_ms(lambda: H.ring_gather([(x, idx)]), 200)
         log(f"[timing] ring_copy at {shape}: {warm_ms!r} ms with its rows in L2 "
             f"(one field, {len(copies)} copies for the cold times) on {card}")
         del copies, flats
@@ -1603,6 +1697,59 @@ def main() -> int:
                          source="dccrg_tpu_torch/csrc/halo_dma.cu",
                          replaces="dccrg_tpu/parallel/halo_dma.py:151", ms=ms,
                          plain_ms=plain_ms, bound=b, library_ms=library_ms))
+    # B9's merge at the main-path shapes that take one (split_advection's
+    # density, split_gol's alive field; a step's second launch): a payload's
+    # rows into the refreshed ghost rows of all D*R rows, over copies of the
+    # field that exceed the L2, beside its byte bound (each of the D*R
+    # output rows read once, from the field or the payload, and written
+    # once, plus its table entry)
+    rings_g8 = gol8._exchange._rings_for_field("is_alive")
+    for x, rings, shape in ((s_sa["density"], ex_sa._rings, "split_advection density, f32"),
+                            (s_g8["is_alive"], rings_g8, "split_gol is_alive, uint32")):
+        pay, = H.ring_gather([(x, rings.send)])
+        copies = [x.clone() for _ in range(-(-(128 << 20) // (x.numel() * x.element_size())))]
+        turn_m = iter(range(1 << 30))
+        merge_ms = event_ms(lambda: H.ring_gather(
+            [(copies[next(turn_m) % len(copies)], rings.merge, pay)]), 200)
+        del copies
+        n_rows = rings.merge.numel()
+        bm = bound(n_rows * (2 * x[0, 0].numel() * x.element_size() + 4), 0)
+        log(f"[timing] ring_gather merge at {shape} ({n_rows} rows, {pay.shape[0]} payload "
+            f"rows): {merge_ms!r} ms a launch over copies of the field; bound {bm[0]!r} ms "
+            f"({bm[1]}), kernel/bound {merge_ms / bm[0]!r} on {card}")
+    # the grouped blocking exchange of the three-field state (one launch
+    # through HaloExchange), over copies of the state that exceed the L2,
+    # beside its byte bound (each field's rows read and written once, its
+    # table entry a row), and the launch floor: an empty kernel on B9's
+    # density grid in the same harness
+    probe = ctypes.CDLL(str(probe_lib))
+    probe.empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    size9 = sum(x.numel() * x.element_size() for x in s9.values())
+    states = [{k: x.clone() for k, x in s9.items()} for _ in range(-(-(128 << 20) // size9))]
+    turn9 = iter(range(1 << 30))
+    K.reset_counts()
+    ex_ms = event_ms(lambda: ex_sa(states[next(turn9) % len(states)]), 200)
+    check(K.LAUNCHES["ring_copy"] == 201, f"grouped exchange: {K.LAUNCHES['ring_copy']} "
+          f"launches for 201 exchanges")
+    rows9 = ex_sa.D * ex_sa.R
+    b9 = bound(sum(rows9 * (2 * x[0, 0].numel() * x.element_size() + 4)
+                   for x in s9.values()), 0)
+    warm9 = event_ms(lambda: ex_sa(s9), 200)
+    plan9 = H.ring_gather_plan([(x, ex_sa._rings.full) for x in s9.values()])
+    dens = s_sa["density"]
+    ctas9 = H.ring_gather_plan([(dens, ex_sa._rings.send)])[0]["ctas"]
+
+    def empty():
+        check(probe.empty_launch(ctas9, 256, torch.cuda.current_stream().cuda_stream) == 0,
+              "empty kernel: launch failed")
+    empty_ms = event_ms(empty, 200)
+    log(f"[timing] ring_gather grouped blocking exchange of the three fields ({rows9} rows "
+        f"a field, 8 + 12 + 4 bytes a row): {ex_ms!r} ms, one launch, over copies of the "
+        f"state ({warm9!r} ms L2-resident); bound {b9[0]!r} ms ({b9[1]}), kernel/bound "
+        f"{ex_ms / b9[0]!r}; plan {plan9} on {card}")
+    log(f"[timing] empty kernel of {ctas9} CTAs of 256 threads (B9's grid at the density "
+        f"payload): {empty_ms!r} ms a launch, the floor beside ring_copy on {card}")
+    del states
     # the on-chip plans of B1 and B4 at their main-path shapes, their
     # registers, and the bare grid barrier on each kernel's grid: what a
     # step of B1 and a round of B4 pay to synchronise
@@ -1618,7 +1765,6 @@ def main() -> int:
         f"of {p4.threads} threads, {p4.smem_bytes} bytes of shared memory a CTA; "
         "registers " + ptxas_registers(built.get("gol", {}).get("ptxas", ""),
                                        "gol_run_kernel"))
-    probe = ctypes.CDLL(str(probe_lib))
     probe.barrier_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
     def barriers(plan, n):

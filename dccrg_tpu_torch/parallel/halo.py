@@ -6,27 +6,35 @@ send rows around a per-peer ring — one step per ring distance k (device d
 largest pair count (the reference's send/recv lists,
 ``dccrg.hpp:8590-8889``).  Here all D slots sit on one tensor, so a ring
 step is a gather of the send rows of slot (d-k) % D for every receiving
-slot d, and the merge an ``index_put_`` into the receiving slot's ghost
-rows.  The ring tables, their bucketed sizes and their scratch-row padding
-are the JAX package's; every ring distance's rows are concatenated into one
-table of flat rows (``[D * R]`` indexing), so one field's payload is one
-gather and its merge one scatter.  A ghost row holds exactly its owner's
-value afterwards: the exchange moves values without arithmetic.
+slot d, and the merge another gather.  The ring tables, their bucketed
+sizes and their scratch-row padding are the JAX package's; every ring
+distance's rows are concatenated into one table of flat rows (``[D * R]``
+indexing).  From them each schedule builds, once per epoch, two int32
+tables over all ``D * R`` rows: ``full`` (a row's own flat index, or on a
+ghost row the schedule refreshes its owner's) and ``merge`` (that ghost
+row's payload slot, else -1).  Pad slots enter neither: they ship the
+sender's scratch row in the payload, as in the JAX package, but land
+nowhere, so the scratch row keeps its own value.  A ghost row holds
+exactly its owner's value afterwards: the exchange moves values without
+arithmetic.
 
-The gather goes by the schedule's ``backend`` (``parallel/halo_dma.py``):
-kernel B9 (``pallas``) or the plain gather (``collective``).  The blocking
-exchange (``__call__``) and the split-phase pair ``start`` / ``finish`` run
-the same protocol: ``ring_start`` (the gather) and ``ring_finish`` (the
-scatter).  On CUDA, ``start`` launches the gathers on a side stream and
-``finish`` makes the current stream wait for them, so a caller can queue
-work that does not read ghost rows in between (the reference's overlap
-pattern, ``dccrg.hpp:5010-5367``).
+Every part of the protocol is one grouped gather over all the fields
+(``parallel/halo_dma.py``), by the schedule's ``backend``: kernel B9
+(``pallas``, one launch for up to ``RING_MAX_FIELDS`` fields) or its
+plain twin (``collective``), on the same tables.  The blocking exchange
+(``__call__``) gathers through ``full``; the split-phase pair runs
+``ring_start`` (the payloads, through the send table) and ``ring_finish``
+(the merge, through ``merge``).  On CUDA, ``start`` launches its gather on
+a side stream and ``finish`` makes the current stream wait for it, so a
+caller can queue work that does not read ghost rows in between (the
+reference's overlap pattern, ``dccrg.hpp:5010-5367``).
 
 A ``cell_datatype`` policy (the reference's ``get_mpi_datatype`` seam,
 ``dccrg_get_cell_datatype.hpp:48-125``) gives each field its own filtered
-ring schedule, evaluated once per epoch; unselected ghost copies keep their
-previous values.  Unlike the JAX package, which runs the policy form on the
-collective transport only, the port runs it on the schedule's backend too.
+ring schedule and tables, evaluated once per epoch; unselected ghost
+copies keep their previous values.  Unlike the JAX package, which runs the
+policy form on the collective transport only, the port runs it on the
+schedule's backend too.
 
 ``DCCRG_HALO_VERIFY=1`` replays every non-collective exchange on the
 collective form and compares bytes; checks and mismatches are counted on
@@ -40,7 +48,6 @@ import numpy as np
 import torch
 
 from . import halo_dma
-from .halo_dma import AS_SIGNED
 from .shapes import bucket_pairs
 
 __all__ = ["HaloExchange", "HaloHandle"]
@@ -61,17 +68,15 @@ class HaloHandle:
 
 
 class _Rings:
-    """One ring schedule on the device: the active distances ``ks``, their
-    bucketed sizes, the concatenated flat source rows ``send`` (int32, the
-    B9 table) and ghost rows ``recv`` (int64), ordered k, then receiving
-    slot, then pair slot; ``wire`` rows shipped (padding included) and
-    ``cells`` useful rows."""
+    """One ring schedule: the active distances ``ks``, their bucketed sizes,
+    the concatenated flat source rows ``send`` (int32 on the device, the
+    payload table) and receiving rows ``recv`` (int64 on the host, pads on
+    the scratch row), ordered k, then receiving slot, then pair slot; the
+    int32 device tables ``full`` and ``merge`` over all ``D * R`` rows (None
+    without a ring); ``wire`` rows shipped (padding included) and ``cells``
+    useful rows."""
 
-    __slots__ = ("ks", "sizes", "send", "recv", "wire", "cells")
-
-
-def _signed(x):
-    return x.view(AS_SIGNED[x.dtype]) if x.dtype in AS_SIGNED else x
+    __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire", "cells")
 
 
 def _same_bytes(a, b) -> bool:
@@ -136,11 +141,12 @@ class HaloExchange:
         """Ring schedule from exact per-pair row lists (the JAX package's
         ``_ring_from_pairs``): step k ships d -> (d+k) % D; only distances
         some pair uses appear, each sized by its own largest pair count on
-        the bucket ladder.  Pad slots ship the scratch row and land on it."""
+        the bucket ladder.  Pad slots ship the scratch row; the ``full`` and
+        ``merge`` tables leave them out."""
         D, R, scratch = self.D, self.R, self.R - 1
         rings = _Rings()
         rings.ks, rings.sizes, rings.wire, rings.cells = [], [], 0, 0
-        send, recv = [], []
+        send, recv, real = [], [], []
         ar = np.arange(D)
         for k in range(1, D):
             S_k = max(
@@ -155,6 +161,7 @@ class HaloExchange:
             self._ring_hints[hint_key] = S_k
             st = np.full((D, S_k), scratch, np.int64)
             rt = np.full((D, S_k), scratch, np.int64)
+            ok = np.zeros((D, S_k), bool)
             for d in range(D):
                 sr = pair_lists.get((d, (d + k) % D))
                 if sr is not None:
@@ -163,16 +170,29 @@ class HaloExchange:
                 rr = pair_lists.get(((d - k) % D, d))
                 if rr is not None:
                     rt[d, :len(rr[1])] = rr[1]
+                    ok[d, :len(rr[1])] = True
             # receiving slot d reads slot (d - k) % D's send rows
             src = (ar - k) % D
             send.append((src[:, None] * R + st[src]).reshape(-1))
             recv.append((ar[:, None] * R + rt).reshape(-1))
+            real.append(ok.reshape(-1))
             rings.ks.append(k)
             rings.sizes.append(S_k)
             rings.wire += D * S_k
         cat = lambda parts: np.concatenate(parts) if parts else np.zeros(0, np.int64)
-        rings.send = torch.as_tensor(cat(send).astype(np.int32), device=self.device)
-        rings.recv = torch.as_tensor(cat(recv), device=self.device)
+        send, recv = cat(send), cat(recv)
+        rings.send = torch.as_tensor(send.astype(np.int32), device=self.device)
+        rings.recv = torch.as_tensor(recv)
+        rings.full = rings.merge = None
+        if rings.ks:
+            # each refreshed ghost row has one owner, so one real slot
+            slot = np.flatnonzero(cat(real))
+            full = np.arange(D * R, dtype=np.int32)
+            full[recv[slot]] = send[slot]
+            merge = np.full(D * R, -1, np.int32)
+            merge[recv[slot]] = slot
+            rings.full = torch.as_tensor(full, device=self.device)
+            rings.merge = torch.as_tensor(merge, device=self.device)
         return rings
 
     def _rings_for_field(self, name: str) -> _Rings:
@@ -202,31 +222,57 @@ class HaloExchange:
 
     # --------------------------------------------------- wire protocol
 
-    def ring_start(self, x, rings: _Rings, backend=None):
-        """Every ring step's payload of one (signed-view) field, ``[T, ...]``
-        in the order of ``rings.send``: one B9 launch (``pallas``) or one
-        plain gather (``collective``); ``backend`` defaults to the
-        schedule's.  The single definition of the wire protocol's send half
-        (the JAX package's ``ring_dma_start`` / ``make_ring_start``): the
-        blocking exchange, the split pair and the verify oracle call it."""
-        if (backend or self.backend) == "pallas":
-            return halo_dma.ring_copy(x, rings.send)
-        return halo_dma.ring_copy_plain(x, rings.send)
-
-    @staticmethod
-    def ring_finish(x, rings: _Rings, payload):
-        """Scatter ``ring_start``'s payload into a copy of ``x``'s ghost rows
-        (padded slots land on the scratch row)."""
-        out = x.clone(memory_format=torch.contiguous_format)
-        out.view((-1,) + tuple(x.shape[2:]))[rings.recv] = payload
+    def _moving(self, state):
+        """``[(name, x, rings)]`` of the fields of ``state`` that have rings."""
+        out = []
+        for name, x in state.items():
+            rings = self._rings_for_field(name)
+            if rings.ks:
+                out.append((name, x, rings))
         return out
 
-    def _exchange_field(self, name, x, backend=None):
-        rings = self._rings_for_field(name)
-        if not rings.ks:
-            return x
-        xs = _signed(x)
-        return self.ring_finish(xs, rings, self.ring_start(xs, rings, backend)).view(x.dtype)
+    def _gather(self, jobs, backend=None):
+        """One grouped gather of ``jobs`` (``halo_dma.ring_gather``'s form):
+        kernel B9 (``pallas``) or its plain twin (``collective``);
+        ``backend`` defaults to the schedule's.  The single definition of
+        the wire protocol's transport: the blocking exchange, the split pair
+        and the verify oracle call it."""
+        if not jobs:
+            return []
+        if (backend or self.backend) == "pallas":
+            return halo_dma.ring_gather(jobs)
+        return halo_dma.ring_gather_plain(jobs)
+
+    def ring_start(self, state, backend=None) -> dict:
+        """Every field's ring payload, ``[T, ...]`` in the order of its
+        schedule's send table (None where a field has no ring), in one
+        grouped gather: the send half of the wire protocol (the JAX
+        package's ``ring_dma_start`` / ``make_ring_start``)."""
+        moving = self._moving(state)
+        got = self._gather([(x, rings.send) for _, x, rings in moving], backend)
+        payload = dict.fromkeys(state)
+        payload.update((name, p) for (name, _, _), p in zip(moving, got))
+        return payload
+
+    def ring_finish(self, state, payload, backend=None) -> dict:
+        """``state`` with ``ring_start``'s payloads merged into the ghost
+        rows their schedules refresh, in one grouped gather; a field with no
+        payload is returned as it is."""
+        names = [name for name in state if payload[name] is not None]
+        got = self._gather([(state[name], self._rings_for_field(name).merge,
+                             payload[name]) for name in names], backend)
+        out = dict(state)
+        out.update(zip(names, got))
+        return out
+
+    def _exchange(self, state, backend=None) -> dict:
+        """The blocking exchange: every field with rings gathered through its
+        ``full`` table in one grouped gather."""
+        moving = self._moving(state)
+        got = self._gather([(x, rings.full) for _, x, rings in moving], backend)
+        out = dict(state)
+        out.update((name, y.view(x.shape)) for (name, x, _), y in zip(moving, got))
+        return out
 
     def __call__(self, state):
         if isinstance(state, HaloHandle):
@@ -234,7 +280,7 @@ class HaloExchange:
                 "got a HaloHandle where a state belongs — pass the handle as "
                 "wait_remote_neighbor_copy_updates(state, handle)"
             )
-        out = {name: self._exchange_field(name, x) for name, x in state.items()}
+        out = self._exchange(state)
         if self._verify_active():
             self._verify_oracle(state, out)
         return out
@@ -246,39 +292,31 @@ class HaloExchange:
             self._side = torch.cuda.Stream(self.device)
         return self._side
 
-    def _payloads(self, fields):
-        out = {}
-        for name, x in fields.items():
-            rings = self._rings_for_field(name)
-            out[name] = self.ring_start(x, rings) if rings.ks else None
-        return out
-
     def start(self, state) -> HaloHandle:
         """Gather every field's ghost payloads and return them in a
-        ``HaloHandle``; the state is not touched.  On CUDA the gathers run
+        ``HaloHandle``; the state is not touched.  On CUDA the gather runs
         on a side stream that first waits for the current stream, and
-        ``start`` returns without waiting for them; on the CPU they run
-        here.  With no ring to ship (one slot) the handle is empty: no
-        payload, no event."""
+        ``start`` returns without waiting for it; on the CPU it runs here.
+        With no ring to ship (one slot) the handle is empty: no payload, no
+        event."""
         if isinstance(state, HaloHandle):
             raise TypeError("start() takes the state, not a HaloHandle")
-        fields = {name: _signed(x) for name, x in state.items()}
-        if self.device.type != "cuda" or not any(
-                self._rings_for_field(name).ks for name in fields):
-            return HaloHandle(self._payloads(fields))
+        moving = self._moving(state)
+        if self.device.type != "cuda" or not moving:
+            return HaloHandle(self.ring_start(state))
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            payload = self._payloads(fields)
+            payload = self.ring_start(state)
             event = torch.cuda.Event()
             event.record(side)
         # the caching allocator must not hand out the fields' memory while
         # the side stream still reads them, nor the payloads' while the
         # current stream has yet to merge them
-        for name, x in fields.items():
+        for _, x, rings in moving:
             x.record_stream(side)
-            self._rings_for_field(name).send.record_stream(side)
+            rings.send.record_stream(side)
         for p in payload.values():
             if p is not None:
                 p.record_stream(cur)
@@ -287,7 +325,7 @@ class HaloExchange:
     def finish(self, state, handle: HaloHandle):
         """Merge a ``start`` handle's payloads into the ghost rows of
         ``state`` (the state ``start`` was given); on CUDA the current
-        stream first waits for the side stream's gathers."""
+        stream first waits for the side stream's gather."""
         if not isinstance(handle, HaloHandle):
             raise TypeError("finish() expects the HaloHandle returned by start()")
         if isinstance(state, HaloHandle):
@@ -296,11 +334,7 @@ class HaloExchange:
             raise ValueError("finish() got a different field set than start()")
         if handle.event is not None:
             torch.cuda.current_stream(self.device).wait_event(handle.event)
-        out = {}
-        for name, x in state.items():
-            p = handle.payload[name]
-            out[name] = x if p is None else self.ring_finish(
-                _signed(x), self._rings_for_field(name), p).view(x.dtype)
+        out = self.ring_finish(state, handle.payload)
         if self._verify_active():
             # the handle came from start(state) on this same state, so the
             # blocking oracle on ``state`` is the expected merge
@@ -317,9 +351,9 @@ class HaloExchange:
         byte (NaN payloads included).  Mismatching fields are counted in
         ``verify_mismatches``, never raised; returns their number."""
         mismatches = 0
-        for name, x in state.items():
-            ref = self._exchange_field(name, x, backend="collective")
-            if not _same_bytes(out[name], ref):
+        ref = self._exchange(state, backend="collective")
+        for name in state:
+            if not _same_bytes(out[name], ref[name]):
                 mismatches += 1
                 self.verify_mismatches[name] = self.verify_mismatches.get(name, 0) + 1
         self.verify_checks += len(state)

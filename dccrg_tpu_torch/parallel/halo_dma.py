@@ -1,26 +1,34 @@
-"""The halo's device-side transport: the ring-step payload copy (CUDA).
+"""The halo's device-side transport: the grouped row gather (CUDA).
 
 The JAX package's ``parallel/halo_dma.py`` ships each ring step's packed
 ``[S_k, ...]`` payload with a Pallas kernel that issues an asynchronous
 remote DMA to device ``(d + k) % D`` (its ``ring_copy``, reached through
-``ring_dma_start``).  Here all D device slots sit on one tensor on one card,
-so that remote copy becomes an in-device gather, kernel B9
-(``csrc/halo_dma.cu``): for every ring distance k, receiving slot d and
-``i < S_k``, ``payload_k[d, i] = x[(d - k) % D, send_k[(d - k) % D, i]]``.
-One launch covers every ring distance of a field, from the schedule's
-concatenated table of flat source rows (``HaloExchange`` builds it once per
-epoch); the ghost-row scatter stays outside the kernel, as in the JAX
-package; ``HaloExchange.ring_start`` picks the kernel or its twin by the
-schedule's backend (the JAX package's ``ring_dma_start``).  The kernel moves
+``ring_dma_start``), and ``parallel/halo.py`` scatters the payload into the
+ghost rows outside the kernel.  Here all D device slots sit on one tensor
+on one card, so both halves are row gathers, and one kernel, B9
+(``csrc/halo_dma.cu``), carries the whole protocol: :func:`ring_gather`
+takes every field of an exchange in one launch, each field a job
+
+* ``(x, table)`` -> ``x.flatten(0, 1)[table]``: the ring payload (``table``
+  the schedule's flat send rows, B9's JAX function ``ring_copy``) or the
+  whole blocking exchange (``table`` the schedule's ``full`` table over all
+  ``D * R`` rows);
+* ``(x, table, payload)`` -> row r is ``payload[table[r]]`` where
+  ``table[r] >= 0``, else ``x``'s own row: the merge of a payload into the
+  ghost rows (``table`` the schedule's ``merge`` table).
+
+``HaloExchange`` builds the tables once per epoch and field schedule and
+picks the kernel or its twin by the schedule's backend.  The kernel moves
 bytes with no arithmetic, so ghost copies stay bit-exact for every dtype.
 
 Backend selection (``DCCRG_HALO_BACKEND``, the JAX package's values and
 meanings):
 
-* ``collective`` — the plain advanced-indexing gather (:func:`ring_copy_plain`,
-  the port's form of the ``ppermute`` ring; always available, and the
-  bit-identity oracle for the kernel);
-* ``pallas`` — the device-side ring copy: kernel B9 through :func:`ring_copy`
+* ``collective`` — the plain advanced-indexing gather
+  (:func:`ring_gather_plain`, the port's form of the ``ppermute`` ring, on
+  the same tables; always available, and the bit-identity oracle for the
+  kernel);
+* ``pallas`` — the device-side gather: kernel B9 through :func:`ring_gather`
   (on CPU tensors its plain twin).  Unlike the JAX package, an explicit
   ``pallas`` never degrades to ``collective``: on CUDA it builds and launches
   the kernel or raises;
@@ -31,12 +39,14 @@ meanings):
 collective oracle and compare bytes (``HaloExchange._verify_oracle``);
 mismatches are counted on the exchange object, never raised.
 
-Launches count in ``ops.LAUNCHES["ring_copy"]``, twin calls in
-``ops.PLAIN_CALLS["ring_copy"]``.
+Launches count in ``ops.LAUNCHES["ring_copy"]`` (one a launch, whatever its
+field count), twin calls in ``ops.PLAIN_CALLS["ring_copy"]`` (one a grouped
+call).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
 import numpy as np
@@ -45,8 +55,8 @@ import torch
 from ..ops import PLAIN_CALLS
 from ..ops.dense_advection import _launched, _on_cpu
 
-__all__ = ["AS_SIGNED", "BACKENDS", "resolve_backend", "ring_copy",
-           "ring_copy_plain", "verify_enabled"]
+__all__ = ["AS_SIGNED", "BACKENDS", "RING_MAX_FIELDS", "resolve_backend", "ring_gather",
+           "ring_gather_plain", "ring_gather_plan", "verify_enabled"]
 
 #: legal DCCRG_HALO_BACKEND values
 BACKENDS = ("collective", "pallas", "auto")
@@ -86,16 +96,31 @@ def verify_enabled() -> bool:
 
 # ------------------------------------------------------------- plain twin
 
-def ring_copy_plain(x, index):
-    """Twin of :func:`ring_copy`: the collective form's advanced-indexing
-    gather of the flat source rows ``index`` from ``x [D, R, ...]``."""
-    PLAIN_CALLS["ring_copy"] += 1
+def _gather_plain(x, table, payload=None):
+    """One job of :func:`ring_gather_plain`, uncounted."""
     if x.dtype in AS_SIGNED:
-        return ring_copy_plain(x.view(AS_SIGNED[x.dtype]), index).view(x.dtype)
-    return x.flatten(0, 1)[index]
+        s = AS_SIGNED[x.dtype]
+        p = None if payload is None else payload.view(s)
+        return _gather_plain(x.view(s), table, p).view(x.dtype)
+    rows = x.flatten(0, 1)
+    if payload is None:
+        return rows[table]
+    keep = (table < 0).view((-1,) + (1,) * (rows.dim() - 1))
+    return torch.where(keep, rows, payload[table.clamp(min=0)]).view(x.shape)
+
+
+def ring_gather_plain(jobs):
+    """Twin of :func:`ring_gather`: each job's advanced-indexing gather (and,
+    for a merge, a select), the collective backend's form."""
+    PLAIN_CALLS["ring_copy"] += 1
+    return [_gather_plain(*job) for job in jobs]
 
 
 # ----------------------------------------------------------------- kernel
+
+#: fields one launch carries (``kMaxFields`` in ``csrc/halo_dma.cu``); a
+#: larger exchange takes several launches of the kernel
+RING_MAX_FIELDS = 8
 
 _lib = None
 
@@ -107,36 +132,90 @@ def _kernels():
         from ..cuda_build import load
 
         lib = load("halo_dma")
-        lib.ring_copy.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.ring_copy.restype = ctypes.c_int
+        for fn in (lib.ring_gather, lib.ring_gather_plan):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def ring_copy(x, index):
-    """Every ring step's payload of one field in one launch: returns
-    ``x.flatten(0, 1)[index]``, ``[T, *x.shape[2:]]``, for a contiguous
-    ``x [D, R, ...]`` of any dtype and an int32 table ``index [T]`` of flat
-    source rows.  Launches on the current stream."""
-    if _on_cpu(x, index):
-        return ring_copy_plain(x, index)
-    if x.dim() < 2:
-        raise ValueError(f"x must be [D, R, ...], got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("x: must be contiguous")
-    if index.dtype != torch.int32 or index.dim() != 1 or not index.is_contiguous():
-        raise ValueError("index: must be a contiguous 1-D int32 tensor")
-    if index.device != x.device:
-        raise ValueError(f"index on {index.device}, x on {x.device}")
-    out = torch.empty((index.numel(),) + tuple(x.shape[2:]), dtype=x.dtype,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    row_bytes = int(np.prod(x.shape[2:], dtype=np.int64)) * x.element_size()
-    err = _kernels().ring_copy(
-        x.data_ptr(), out.data_ptr(), index.data_ptr(), index.numel(),
-        row_bytes, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _launched("ring_copy", err)
-    return out
+def _descriptors(jobs):
+    """Check the jobs, allocate their outputs, and return ``(outputs,
+    descriptors)``: a row of six int64 a job with rows to move (first or 0,
+    second, dst, table, rows, row bytes).  A gather over all of ``x``'s rows
+    (a blocking exchange) passes ``x`` as first too: the kernel then reads a
+    row whose entry is its own index beside the entry, not after it."""
+    outs, desc = [], []
+    for job in jobs:
+        if len(job) not in (2, 3):
+            raise ValueError("a job is (x, table) or (x, table, payload)")
+        x, table = job[0], job[1]
+        payload = job[2] if len(job) == 3 else None
+        if x.dim() < 2:
+            raise ValueError(f"x must be [D, R, ...], got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError("x: must be contiguous")
+        if table.dtype != torch.int32 or table.dim() != 1 or not table.is_contiguous():
+            raise ValueError("table: must be a contiguous 1-D int32 tensor")
+        if table.device != x.device:
+            raise ValueError(f"table on {table.device}, x on {x.device}")
+        row = tuple(x.shape[2:])
+        if payload is None:
+            out = torch.empty((table.numel(),) + row, dtype=x.dtype, device=x.device)
+            second = x.data_ptr()
+            first = second if table.numel() == x.shape[0] * x.shape[1] else 0
+        else:
+            if table.numel() != x.shape[0] * x.shape[1]:
+                raise ValueError(f"merge table of {table.numel()} rows for x of "
+                                 f"{x.shape[0] * x.shape[1]}")
+            if (payload.dtype != x.dtype or tuple(payload.shape[1:]) != row
+                    or not payload.is_contiguous() or payload.device != x.device):
+                raise ValueError("payload: must be a contiguous [T, ...] tensor of "
+                                 "x's dtype, row shape and device")
+            out = torch.empty_like(x)
+            first, second = x.data_ptr(), payload.data_ptr()
+        outs.append(out)
+        if out.numel():
+            desc.append((first, second, out.data_ptr(), table.data_ptr(), table.numel(),
+                         math.prod(row) * x.element_size()))
+    return outs, desc
 
+
+def ring_gather(jobs):
+    """Every job's rows in one launch of kernel B9 (``RING_MAX_FIELDS`` jobs
+    a launch): ``(x, table)`` gives ``x.flatten(0, 1)[table]``,
+    ``[T, *x.shape[2:]]``; ``(x, table, payload)`` gives ``x``'s shape, row r
+    ``payload[table[r]]`` where ``table[r] >= 0``, else ``x``'s row r.  Any
+    dtype; contiguous ``x [D, R, ...]`` and payloads; int32 tables whose
+    entries lie in range (the halo schedule builds them so).  Launches on
+    the current stream; on CPU tensors runs the twin."""
+    if not jobs:
+        return []
+    if _on_cpu(*(t for job in jobs for t in job)):
+        return ring_gather_plain(jobs)
+    outs, desc = _descriptors(jobs)
+    stream = torch.cuda.current_stream(outs[0].device).cuda_stream
+    lib = _kernels()
+    for at in range(0, len(desc), RING_MAX_FIELDS):
+        part = np.array(desc[at:at + RING_MAX_FIELDS], dtype=np.int64)
+        err = lib.ring_gather(part.ctypes.data, len(part), stream)
+        _launched("ring_copy", err)
+    return outs
+
+
+def ring_gather_plan(jobs):
+    """The split :func:`ring_gather` launches for ``jobs`` (CUDA tensors),
+    without launching: a dict a job with its ``word`` bytes, ``lanes``
+    (threads a row), ``rows`` (rows a thread), ``cta_begin`` and ``ctas``
+    (CTAs of its launch).  For logs."""
+    _, desc = _descriptors(jobs)
+    plans = []
+    for at in range(0, len(desc), RING_MAX_FIELDS):
+        part = np.array(desc[at:at + RING_MAX_FIELDS], dtype=np.int64)
+        out = np.zeros((len(part), 5), dtype=np.int32)
+        err = _kernels().ring_gather_plan(part.ctypes.data, len(part), out.ctypes.data)
+        if err:
+            raise RuntimeError(f"ring_gather_plan: cudaError_t {err}")
+        plans += [dict(zip(("word", "lanes", "rows", "cta_begin", "ctas"), map(int, r)))
+                  for r in out]
+    return plans

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Chip-side probes of the Vlasov step kernel B7 and the BiCG whole-solve
-kernel B8 that ``chip_smoke.py`` does not run.
+"""Chip-side probes of the Vlasov step kernel B7, the BiCG whole-solve
+kernel B8 and the halo gather B9 that ``chip_smoke.py`` does not run.
 
 Run from the repository root on a machine with a CUDA card (an H100):
 
     python3 kernel_probe.py vlasov-sweep    # B7 forms x plans, 32^3 x 512 bins
     python3 kernel_probe.py bicg-profile    # B8 cycles an iteration by phase
+    python3 kernel_probe.py ring-sweep [--baseline DIR]   # B9 forms
 
 ``vlasov-sweep`` compiles copies of ``csrc/vlasov.cu`` with other tile rows
 (``kMaxRows``), window stages (``kStages``) and CTAs an SM (``kMinCtas``),
@@ -19,6 +20,31 @@ at the phase boundaries of the box form's iteration, taken by thread 0 of
 CTA 0, runs 60 iterations on seeded operands of both 64^3 grids (with and
 without coarse rows), holds the solution against the twin, and prints the
 cycles an iteration each phase took.  The stamps themselves add time.
+
+``ring-sweep`` compiles copies of ``csrc/halo_dma.cu`` that each change
+one thing from the shipped form (``RING_FORMS``, all built at once): rows
+a thread of one-word rows in payloads (``kRowsPayload``) and where the
+field's own rows are read (``kRowsOwn``), the CTA cap (``kMaxCtas``; 0 is
+one wave), words a lane (``kLaneWords``), bytes of one-word rows a thread
+(``kRunBytes``), fields a launch (``kMaxFields``, the size of the
+by-value parameter block) and how row words are read (``load_narrow`` for
+one-word rows, ``load_wide`` for wider ones: the read-only path, plain or
+streaming loads).  It launches each on the main path's shapes: the 8-slot
+refined 48^3 grid's density payload (f32, 4 bytes a row), the three-field
+blocking exchange and merge (f64, f32 (3,), uint32) of that grid, and the
+8-slot refined 16^3 grid's Vlasov payload (512 f32, 2 KiB a row).  Each
+result is held bitwise against the twin; each time is the mean device
+time of 200 launches queued behind a device-side sleep (CUDA events),
+taking turns over copies of the inputs that exceed the 50 MB L2, each
+launch allocating its outputs as the main path does.  An empty kernel
+(``chip_smoke.py``'s ``BARRIER_PROBE``) is timed in the same harness, the
+launch floor.  With ``--baseline DIR`` it also builds ``DIR``'s
+``csrc/halo_dma.cu`` (the one-field ``ring_copy`` interface of an earlier
+checkout) and times it beside every form at the two payload shapes in
+``chip_smoke.py``'s harness (the index warm, an output allocated a
+launch), in turns (baseline, the forms, the forms reversed, baseline),
+and the three-field blocking exchange on that checkout's protocol against
+one launch.
 
 Copies build into ``dccrg_tpu_torch/_build/probe/``.  Without CUDA the
 script exits 1 and prints nothing else.
@@ -62,6 +88,18 @@ BICG_STAMPS = [
     ("    __syncthreads();\n    if (better) best_res = res_new;",
      "    PROF(9) __syncthreads(); PROF(10)\n    if (better) best_res = res_new;"),
 ]
+#: the B9 forms the ring sweep builds: a label and the edits that make it
+#: from the shipped source (a compile-time constant's value, or the load a
+#: load function returns: an intrinsic's name or "*" for a plain load), the
+#: shipped form first
+RING_FORMS = [("shipped", {})] + [
+    (f"{name} {v}", {name: v}) for name, values in (
+        ("kRowsPayload", (1, 4, 8)), ("kRowsOwn", (1, 2, 4)), ("kMaxCtas", (264, 2112, 4224)),
+        ("kLaneWords", (2,)), ("kRunBytes", (16,)), ("kMaxFields", (32,)))
+    for v in values] + [
+    (f"{fn} {load}", {fn: load}) for fn, loads in (("load_narrow", ("__ldcs", "*")),
+                                                   ("load_wide", ("__ldg", "*")))
+    for load in loads]
 PROF_HEAD = """
 __device__ unsigned long long g_prof[16];
 #define PROF(k) if (blockIdx.x == 0 && threadIdx.x == 0) { \\
@@ -99,6 +137,30 @@ def event_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def queued_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events), the
+    calls queued behind a device-side sleep as long as their host-side
+    issue, so the host's launch overhead opens no gaps between them (the
+    harness of ``chip_smoke.py``'s ``event_ms``)."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    issue_s = min(1.5 * reps * (time.perf_counter() - t), 2.0)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(issue_s * 2e9))
     a.record()
     for _ in range(reps):
         fn()
@@ -242,22 +304,207 @@ def bicg_profile(card: str) -> int:
     return 0 if ok else 1
 
 
+def ring_form(src: str, edits) -> str:
+    """``src`` with a B9 form's edits made, each exactly once."""
+    for name, value in edits.items():
+        if name.startswith("load_"):
+            load = "*p" if value == "*" else f"{value}(p)"
+            src, n = re.subn(rf"(T {name}\(const T\* p\) \{{ return )[^;]*;",
+                             rf"\g<1>{load};", src)
+        else:
+            src, n = re.subn(rf"constexpr int {name} = \d+;",
+                             f"constexpr int {name} = {value};", src)
+        assert n == 1, name
+    return src
+
+
+def refined_grid(n, radius, center, n_devices):
+    """``n``^3 periodic grid, the ball of ``radius`` around ``center``
+    refined once, on ``n_devices`` slots (``chip_smoke.py``'s split grids)."""
+    import numpy as np
+
+    from dccrg_tpu_torch import CartesianGeometry, Grid
+
+    g = (Grid().set_initial_length((n, n, n)).set_neighborhood_length(0)
+         .set_periodic(True, True, True).set_maximum_refinement_level(1)
+         .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                       level_0_cell_length=(1.0 / n,) * 3)
+         .initialize(n_devices=n_devices))
+    ids = g.get_cells()
+    r = np.linalg.norm(g.geometry.get_center(ids) - np.asarray(center), axis=1)
+    g.refine_completely_many(ids[r < radius])
+    g.stop_refining()
+    return g
+
+
+def ring_sweep(card: str, baseline) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import BARRIER_PROBE
+    from dccrg_tpu_torch.parallel import halo_dma as H
+
+    dev = torch.device("cuda")
+    r = np.random.default_rng(9)
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    ex = refined_grid(48, 0.3, (0.3, 0.5, 0.5), 8).halo()
+    exv = refined_grid(16, 0.3, (0.5, 0.5, 0.5), 8).halo()
+    D, R, Rv = ex.D, ex.R, exv.R
+    rings, rv = ex._rings, exv._rings
+    three = [t(r.standard_normal((D, R)), torch.float64),
+             t(r.standard_normal((D, R, 3)), torch.float32),
+             t(r.integers(-2**31, 2**31, (D, R)), torch.int32)]
+    pay3 = H.ring_gather_plain([(x, rings.send) for x in three])
+    shapes = {
+        "density payload": [(t(r.standard_normal((D, R)), torch.float32), rings.send)],
+        "three-field blocking": [(x, rings.full) for x in three],
+        "three-field merge": [(x, rings.merge, p) for x, p in zip(three, pay3)],
+        "vlasov payload": [(t(r.standard_normal((8, Rv, 512)), torch.float32), rv.send)],
+    }
+    print(f"density payload {rings.send.numel()} rows of 4 B; three fields {D * R} rows of "
+          f"8, 12 and 4 B; vlasov payload {rv.send.numel()} rows of 2048 B", flush=True)
+
+    def cold(jobs):
+        """Copies of the jobs' inputs that together exceed 128 MiB."""
+        size = sum(x.numel() * x.element_size() for job in jobs for x in job)
+        n = -(-(128 << 20) // size)
+        return [[tuple(x.clone() for x in job) for job in jobs] for _ in range(n)]
+
+    stream = torch.cuda.current_stream().cuda_stream
+    src = (ROOT / "dccrg_tpu_torch/csrc/halo_dma.cu").read_text()
+    sources = [(f"halo_dma_{i}", ring_form(src, edits)) for i, (_, edits) in
+               enumerate(RING_FORMS)] + [("barrier_probe", BARRIER_PROBE)]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(lambda a: build(*a), sources))
+    libs = {}
+    for (label, _), (lib, regs) in zip(RING_FORMS, built):
+        lib.ring_gather.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        libs[label] = lib
+        print(f"form {label}: " + "; ".join(regs), flush=True)
+    empty = built[-1][0]
+    empty.empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+    def go_empty(ctas, threads):
+        assert empty.empty_launch(ctas, threads, stream) == 0
+    for ctas, threads in ((1, 32), (77, 256), (264, 256)):
+        print(f"empty kernel, {ctas} CTAs of {threads} threads: "
+              f"{queued_ms(lambda: go_empty(ctas, threads), 200)!r} ms on {card}", flush=True)
+
+    ok = True
+    best = {}
+    for label, jobs in shapes.items():
+        want = H.ring_gather_plain(jobs)
+        copies = cold(jobs)
+        staged, desc0 = H._descriptors(copies[0])
+        desc0 = np.array(desc0, dtype=np.int64)
+        turn = iter(range(1 << 30))
+        for form, lib in libs.items():
+            def go():
+                # outputs allocated a launch, as on the main path
+                _, d = H._descriptors(copies[next(turn) % len(copies)])
+                d = np.array(d, dtype=np.int64)
+                assert lib.ring_gather(d.ctypes.data, len(d), stream) == 0
+            for x in staged:
+                x.zero_()
+            assert lib.ring_gather(desc0.ctypes.data, len(desc0), stream) == 0
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                        for a, b in zip(staged, want))
+            ok &= equal
+            ms = queued_ms(go, 200)
+            print(f"  {label}: {form}: {ms!r} ms, bitwise {equal}", flush=True)
+            if label not in best or ms < best[label][0]:
+                best[label] = (ms, form)
+        del copies, staged
+    for label, (ms, form) in best.items():
+        print(f"best {label}: {ms!r} ms ({form}) on {card}")
+    if baseline is not None:
+        old, regs = build("halo_dma_baseline",
+                          (pathlib.Path(baseline) / "dccrg_tpu_torch/csrc/halo_dma.cu").read_text())
+        old.ring_copy.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        print(f"baseline {baseline}: {'; '.join(regs)}", flush=True)
+        # each launch allocates its output, as the main path does (the
+        # caching allocator hands the same block back), over copies of the
+        # field that exceed the L2; the index table stays warm: the baseline
+        # and every form in turns (baseline, forms, forms reversed, baseline)
+        for label in ("density payload", "vlasov payload"):
+            (x, idx), = shapes[label]
+            copies = [c[0][0] for c in cold(shapes[label])]
+            rb = x[0, 0].numel() * x.element_size()
+            turn = iter(range(1 << 30))
+
+            def go_old():
+                c = copies[next(turn) % len(copies)]
+                out = torch.empty((idx.numel(),) + tuple(x.shape[2:]), dtype=x.dtype,
+                                  device=dev)
+                assert old.ring_copy(c.data_ptr(), out.data_ptr(), idx.data_ptr(),
+                                     idx.numel(), rb, stream) == 0
+
+            def go_form(lib):
+                def go():
+                    _, d = H._descriptors([(copies[next(turn) % len(copies)], idx)])
+                    d = np.array(d, dtype=np.int64)
+                    assert lib.ring_gather(d.ctypes.data, 1, stream) == 0
+                return go
+            order = [None] + list(libs) + list(libs)[::-1] + [None]
+            times = {}
+            for form in order:
+                ms = queued_ms(go_old if form is None else go_form(libs[form]), 200)
+                times.setdefault(form, []).append(ms)
+            print(f"A/B {label}: baseline {times[None]!r} ms on {card}", flush=True)
+            for form in libs:
+                print(f"A/B {label}: {form}: {times[form]!r} ms", flush=True)
+            del copies
+        # the three-field blocking exchange: the baseline's protocol (a ring
+        # copy, a clone and an index_put_ a field) against one grouped launch
+        recv = rings.recv.to(dev)
+        send_ptr, n_send = rings.send.data_ptr(), rings.send.numel()
+
+        def old_exchange():
+            for x in three:
+                row = x[0, 0].numel() * x.element_size()
+                p = torch.empty((n_send,) + tuple(x.shape[2:]), dtype=x.dtype, device=dev)
+                assert old.ring_copy(x.data_ptr(), p.data_ptr(), send_ptr, n_send, row,
+                                     stream) == 0
+                out = x.clone()
+                out.view((-1,) + tuple(x.shape[2:]))[recv] = p
+
+        blocking = shapes["three-field blocking"]
+        times = [queued_ms(fn, 200) for fn in
+                 (old_exchange, lambda: H.ring_gather(blocking),
+                  lambda: H.ring_gather(blocking), old_exchange)]
+        print(f"A/B three-field blocking exchange: baseline protocol (9 launches) "
+              f"{times[0]!r}, shipped (1 launch) {times[1]!r}, shipped {times[2]!r}, "
+              f"baseline protocol {times[3]!r} ms on {card}", flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_probe: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
-    if len(sys.argv) != 2 or sys.argv[1] not in ("vlasov-sweep", "bicg-profile"):
+    args = sys.argv[1:]
+    baseline = None
+    if args[1:2] == ["--baseline"] and len(args) == 3:
+        baseline = args.pop()
+        args.pop()
+    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep")
+    if len(args) != 1 or args[0] not in modes \
+            or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         torch.cuda.get_device_name(0)
     print(card, flush=True)
-    return (vlasov_sweep if sys.argv[1] == "vlasov-sweep" else bicg_profile)(card)
+    if args[0] == "ring-sweep":
+        return ring_sweep(card, baseline)
+    return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 
 if __name__ == "__main__":

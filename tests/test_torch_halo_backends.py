@@ -150,7 +150,8 @@ def test_pallas_exchange_matches_jax(monkeypatch, n_dev, spec):
     calls = PLAIN_CALLS["ring_copy"]
     launches = LAUNCHES["ring_copy"]
     out = pg.update_copies_of_remote_neighbors(rand_state(pg, spec))
-    assert PLAIN_CALLS["ring_copy"] == calls + (len(spec) if n_dev > 1 else 0)
+    # one grouped gather moves every field
+    assert PLAIN_CALLS["ring_copy"] == calls + (1 if n_dev > 1 else 0)
     assert LAUNCHES["ring_copy"] == launches          # no card here
     want = jg.update_copies_of_remote_neighbors(rand_state(jg, spec))
     assert _by_id(pg, out) == _by_id(jg, want)
@@ -166,11 +167,11 @@ def test_ring_copy_twin_is_the_flat_gather():
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.integers(0, 2**32, size=(3, 5, 2), dtype=np.uint32))
     idx = torch.tensor([14, 0, 7, 7, 4], dtype=torch.int32)
-    got = halo_dma.ring_copy(x, idx)
+    got, = halo_dma.ring_gather([(x, idx)])
     assert got.dtype == torch.uint32 and got.shape == (5, 2)
     assert np.array_equal(got.numpy(), x.numpy().reshape(15, 2)[idx.numpy()])
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
-        halo_dma.ring_copy(x, idx.to("meta"))
+        halo_dma.ring_gather([(x, idx.to("meta"))])
 
 
 def test_flat_tables_follow_the_ring(monkeypatch):
@@ -192,24 +193,27 @@ def test_flat_tables_follow_the_ring(monkeypatch):
 
 def test_ring_start_uses_the_schedule_backend(monkeypatch):
     """ring_start goes through B9's wrapper on the backend resolved when the
-    schedule was built, and through the plain gather when the caller (the
-    verify oracle) asks for the collective form."""
+    schedule was built, in one grouped call for every field, and through
+    the plain gather when the caller (the verify oracle) asks for the
+    collective form."""
     monkeypatch.setenv("DCCRG_HALO_BACKEND", "pallas")
     g = make_grid(dccrg_tpu_torch)
     ex = g.halo()
     monkeypatch.setenv("DCCRG_HALO_BACKEND", "collective")
     wrapped = []
 
-    def spy(x, index):
-        wrapped.append(index)
-        return halo_dma.ring_copy_plain(x, index)
+    def spy(jobs):
+        wrapped.append(jobs)
+        return halo_dma.ring_gather_plain(jobs)
 
-    monkeypatch.setattr(halo_dma, "ring_copy", spy)
-    x = rand_state(g, {"v": ((), np.float64)})["v"]
-    got = ex.ring_start(x, ex._rings)
-    assert len(wrapped) == 1 and wrapped[0] is ex._rings.send
-    assert torch.equal(got, x.flatten(0, 1)[ex._rings.send.long()])
-    assert torch.equal(got, ex.ring_start(x, ex._rings, "collective"))
+    monkeypatch.setattr(halo_dma, "ring_gather", spy)
+    state = rand_state(g, {"v": ((), np.float64), "w": ((3,), np.float32)})
+    got = ex.ring_start(state)
+    assert len(wrapped) == 1 and all(job[1] is ex._rings.send for job in wrapped[0])
+    ref = ex.ring_start(state, "collective")
+    for name, x in state.items():
+        assert torch.equal(got[name], x.flatten(0, 1)[ex._rings.send.long()])
+        assert torch.equal(got[name], ref[name])
     assert len(wrapped) == 1
 
 
@@ -225,7 +229,7 @@ def test_ring_copy_twin_any_dtype(dtype):
     if dtype == torch.bool:
         x = x.to(torch.uint8).bitwise_and(1).to(torch.bool)
     idx = torch.tensor([17, 0, 9, 9, 5, 12], dtype=torch.int32)
-    got = halo_dma.ring_copy(x, idx)
+    got, = halo_dma.ring_gather([(x, idx)])
     assert got.dtype == dtype and got.shape == (6, 3)
     want = x.view(torch.uint8) if dtype == torch.bool else x
     assert np.array_equal(got.view(want.dtype).reshape(6, -1).view(torch.uint8).numpy(),
@@ -246,8 +250,8 @@ def test_narrow_exchange_pallas_equals_collective(monkeypatch, dtype):
     gen = torch.Generator().manual_seed(6)
     x = torch.randint(-2**15, 2**15, (8, gp.epoch.R, 2), generator=gen,
                       dtype=torch.int32).to(torch.int16).view(dtype)
-    # every pad slot lands on the scratch row R-1: keep it uniform, as
-    # new_state does, so the racing duplicate writes agree
+    # a uniform scratch row, as new_state makes it
+    # (test_torch_halo_tables.py holds a random one)
     x[:, -1] = 0
     want, got = hc({"w": x})["w"], gp.halo()({"w": x})["w"]
     assert got.dtype == dtype and not torch.equal(got.view(torch.int16), x.view(torch.int16))
