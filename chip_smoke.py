@@ -53,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 (1- and 2-byte words, also exchanged against the
                 collective backend), and bool, bfloat16 (2,), int16 and f32
                 (4,) (16-byte words); all eleven fields at once in
-                ceil(11 / RING_MAX_FIELDS) launches; and
+                ceil(11 / RING_MAX_FIELDS) launches; B9 on the particle
+                state of phase 23 (int32 counts and rows of P x 3 f32) in
+                its three modes; and
                 the verify oracle (DCCRG_HALO_VERIFY=1) counting checks and
                 no mismatch;
 3. headline   — Grid 128x128x64 periodic -> Advection(float32) ->
@@ -74,7 +76,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 8. adapt      — on the refined grid: run(50), check_for_adaptation,
                 adapt_grid, run(50) (two flat_amr_run launches), then one
                 step on the gather path (no kernel, no twin) and the gather
-                step's rate over 20 steps;
+                step's rate over 20 steps; the adaptation's host seconds
+                split into the epoch rebuild (incremental, or the full
+                build it falls back to), remap_state and the rest, beside a
+                full build_epoch of the adapted leaves;
 9. gol        — the bench's Game of Life (500x500x1, neighborhood length 1,
                 open, 30% alive from default_rng(0)) -> run(20000): one
                 gol_run launch; 200 turns against the twin, 50 turns against
@@ -150,10 +155,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 the registers ptxas gave each, and the bare grid barrier
                 timed on each whole-run kernel's grid (B8's: 120, two an
                 iteration) and on the 4,096-CTA grid of the streaming B6
-                they replaced.
+                they replaced;
+21. balance   — phase 17's grid (198,008 leaves, 8 slots): Advection
+                (float32, gather step) 20 steps, the refined cells weighted
+                2, balance_load under HSFC, remap_state, a ghost refresh, 20
+                steps (41 ring_copy launches): bitwise equal by cell id to
+                40 steps without the balance, mass conserved; again with the
+                staged form (chunks of 20,000 cells), bitwise equal to the
+                one-shot form; the host seconds of balance_load under HSFC,
+                RCB and GRAPH with the incremental rebuild and with
+                DCCRG_EPOCH_DELTA=0, cells moved, weighted imbalance before
+                and after;
+22. pic       — the bench's PIC (1,000,000 particles from default_rng(0) on a
+                periodic 32^3 grid, one slot, capacity twice the largest
+                occupancy, the rotating velocity field, dt = 0.2/32,
+                float32) -> run(50): the device re-bucket, every particle
+                kept, none dropped; 5 steps bitwise equal to the host
+                re-bucket; pushes/s including migration (median of 3);
+23. pic_refined_lb — 200,000 particles on 16^3 with the ball r < 0.25 refined
+                once and an HSFC balance, on 8 slots, dt = 0.1/16 -> run(50):
+                two ring_copy launches a step (counts, then coordinates);
+                the same checks, each cell's particles equal to the
+                unbalanced 8-slot run's; pushes/s; B9 timed at the particle
+                state's two row widths.
 
-Launch counters are set to 0 just before each of phases 3-19 drives its path
-and read just after.  Output ends with the card's name and power limit, one
+Launch counters are set to 0 just before each of phases 3-19 and 21-23
+drives its path and read just after.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.
@@ -200,6 +227,11 @@ VLASOV_FLOPS_PER_CELL = 15
 #: pool 7/8 and origin product 1/8, the fine product 1, the final sum 1)
 BICG_FLOPS_PER_VOXEL = 48
 BICG_COARSE_FLOPS_PER_VOXEL = 8
+#: the bench's PIC configuration (bench.py: BASELINE.md config 4): 1M
+#: particles on a uniform 32^3 grid, and the refined, HSFC-balanced variant
+#: of 200k on 16^3
+PIC_N, PIC_GRID = 1_000_000, 32
+PIC_REFINED_N, PIC_REFINED_GRID = 200_000, 16
 
 
 def flat_ml_flops_per_voxel(cap_active) -> int:
@@ -274,7 +306,10 @@ def main() -> int:
     import numpy as np
 
     from dccrg_tpu_torch import (Advection, CartesianGeometry, GameOfLife, Grid,
-                                 Poisson, Vlasov, cuda_build)
+                                 Particles, Poisson, Vlasov, cuda_build)
+    from dccrg_tpu_torch.parallel import epoch_delta
+    from dccrg_tpu_torch.parallel.epoch import build_epoch
+    from dccrg_tpu_torch.parallel.shapes import epoch_shape_hints
     from dccrg_tpu_torch.ops import dense_advection as K
     from dccrg_tpu_torch.ops import flat_amr as F
     from dccrg_tpu_torch.ops import gol_kernel as G
@@ -343,6 +378,34 @@ def main() -> int:
             g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
             g.stop_refining()
         return g
+
+    def pic_setup(n_particles, length, *, max_ref=0, refine_ball=None,
+                  balance_method=None, seed=0, n_devices=1):
+        """The bench's PIC fixture (benchmarks/microbench.py's pic_setup) on
+        the port: a periodic length^3 grid (cells within ``refine_ball`` of
+        the centre refined once, then a ``balance_load`` under
+        ``balance_method``), uniform particles from default_rng(seed), the
+        capacity twice the largest occupancy, and the reference's rotating
+        velocity field.  Returns (model, points, velocity field)."""
+        g = (Grid().set_initial_length((length,) * 3).set_neighborhood_length(1)
+             .set_periodic(True, True, True).set_maximum_refinement_level(max_ref)
+             .set_load_balancing_method(balance_method or "RCB")
+             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                           level_0_cell_length=(1.0 / length,) * 3)
+             .initialize(n_devices=n_devices))
+        if refine_ball is not None:
+            ids = g.get_cells()
+            rr = np.linalg.norm(g.geometry.get_center(ids) - 0.5, axis=1)
+            g.refine_completely_many(ids[rr < refine_ball])
+            g.stop_refining()
+        if balance_method is not None:
+            g.balance_load()
+        pts = np.random.default_rng(seed).uniform(0.0, 1.0, size=(n_particles, 3))
+        occ = np.bincount(g.leaves.position(g.get_existing_cell(pts)))
+        pc = Particles(g, max_particles_per_cell=2 * int(occ.max()))
+        vel = pc.velocity_field(lambda c: np.stack(
+            [0.5 - c[:, 1], c[:, 0] - 0.5, np.full(len(c), 0.05)], axis=-1))
+        return pc, pts, vel
 
     def event_ms(fn, reps):
         """Mean device time of ``fn`` over ``reps`` calls (CUDA events).
@@ -901,12 +964,12 @@ def main() -> int:
     s9x = {"b": raw(D9, R9).bitwise_and(1).to(torch.bool),
            "bf": raw(D9, R9, 4).view(torch.bfloat16), "i16": raw(D9, R9, 2).view(torch.int16),
            "w4": torch.tensor(r9.standard_normal((D9, R9, 4)), dtype=torch.float32, device=dev)}
-    rings9 = ex_sa._rings
 
-    def b9_modes(label, state):
+    def b9_modes(label, state, ex=ex_sa):
         """Hold each of B9's three modes, one launch for all the fields of
         ``state``, bitwise against its twin, and the merge of the payload
-        against the blocking gather."""
+        against the blocking gather, on ``ex``'s ring tables."""
+        rings9, D9, R9 = ex._rings, ex.D, ex.R
         xs = list(state.values())
         runs = {}
         for mode, jobs in (("payload", [(x, rings9.send) for x in xs]),
@@ -945,6 +1008,21 @@ def main() -> int:
     b9_modes("the three-field state", s9)
     b9_modes("the narrow state", s9n)
     b9_modes("bool, bfloat16, int16 and f32 (4,)", s9x)
+    # the particle state of phase 23 (the bench's refined PIC grid on 8
+    # slots after an HSFC balance): 4-byte counts and rows of P x 3 f32
+    t = time.perf_counter()
+    pc_lb, pts_lb, vel_lb = pic_setup(PIC_REFINED_N, PIC_REFINED_GRID, max_ref=1,
+                                      refine_ball=0.25, balance_method="HSFC", seed=1,
+                                      n_devices=8)
+    s_lb0 = pc_lb.new_state(pts_lb)
+    log(f"[pic_refined_lb] grid ({len(pc_lb.grid.get_cells())} leaves on 8 slots, HSFC) + "
+        f"model (P = {pc_lb.P}) + state of {PIC_REFINED_N} particles in "
+        f"{time.perf_counter() - t:.2f} s")
+    check(pc_lb._exchange.backend == "pallas" and len(pc_lb._exchange.ring_ks) > 0,
+          f"pic_refined_lb halo: backend {pc_lb._exchange.backend}")
+    b9_modes(f"the particle state (int32 counts, {pc_lb.P} x 3 f32 rows)",
+             {k: s_lb0[k] for k in ("number_of_particles", "particles")}, ex=pc_lb._exchange)
+    rings9 = ex_sa._rings
     # more fields than one launch carries: ceil(fields / RING_MAX_FIELDS)
     many = [x for st in (s9, s9n, s9x) for x in st.values()]
     before = K.LAUNCHES["ring_copy"]
@@ -1115,11 +1193,34 @@ def main() -> int:
     # 8. adapt: one adaptation cycle between two flat runs on the refined
     # grid, then one gather step
     m0 = adv_r.total_mass(s_r)
+    # the adaptation's host seconds, split: the epoch rebuild (the delta
+    # patch, or the full build it falls back to) and remap_state timed by
+    # wrapping the grid's own methods
+    split = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return wrapper
+
+    g_r._rebuild_incremental = timed("epoch rebuild", g_r._rebuild_incremental)
+    g_r.stop_refining = timed("stop_refining", g_r.stop_refining)
+    g_r.remap_state = timed("remap_state", g_r.remap_state)
+    counts0 = dict(epoch_delta.COUNTS)
 
     def adapt_cycle():
         st = adv_r.run(s_r, 50, dt_r)
+        sync()
+        t = time.perf_counter()
         st = adv_r.check_for_adaptation(st)
+        split["check_for_adaptation"] = time.perf_counter() - t
+        t = time.perf_counter()
         new_adv, st, new_cells, removed = adv_r.adapt_grid(st)
+        sync()
+        split["adapt_grid"] = time.perf_counter() - t
         check(new_adv._flat_kind == "pallas",
               f"adapt: the adapted grid took {new_adv._flat_kind}")
         return new_adv, new_adv.run(st, 50, dt_r), new_cells, removed
@@ -1134,6 +1235,22 @@ def main() -> int:
     check(abs(m1 - m0) / m0 <= 1e-5, f"adapt: mass drift {abs(m1 - m0) / m0:.3e}")
     log(f"[adapt] leaves {n_r} -> {n_a} ({len(new_cells)} new, {len(removed)} "
         f"removed) in {time.perf_counter() - t:.2f} s; mass {m0!r} -> {m1!r}")
+    del g_r._rebuild_incremental, g_r.stop_refining, g_r.remap_state
+    delta = {k: v - counts0.get(k, 0) for k, v in epoch_delta.COUNTS.items()
+             if v != counts0.get(k, 0)}
+    t = time.perf_counter()
+    build_epoch(g_r.mapping, g_r.topology, g_r.leaves, g_r.n_devices, g_r.neighborhoods,
+                uniform_geometry=g_r._uniform_geometry(),
+                shape_hints=epoch_shape_hints(g_r.epoch))
+    full_s = time.perf_counter() - t
+    commit = split["stop_refining"] - split["epoch rebuild"]
+    model = split["adapt_grid"] - split["stop_refining"] - split["remap_state"]
+    log(f"[adapt] host seconds of one adaptation (ROADMAP.md P6: ~3 s at ~200k leaves "
+        f"with the full rebuild): check_for_adaptation {split['check_for_adaptation']!r}, "
+        f"adapt_grid {split['adapt_grid']!r} = commit_adaptation {commit!r} + epoch "
+        f"rebuild {split['epoch rebuild']!r} (epoch_delta counts {delta}) + remap_state "
+        f"{split['remap_state']!r} + the new model, velocities and exchange {model!r}; a "
+        f"full build_epoch of the adapted leaves {full_s!r} s, on {card}")
     # B5 against its twin on the adapted grid's voxel layout (after the
     # drive: these launches compare, they do not count)
     a, kw = flat_args(adv_a, s_a, 50, dt_r, seed=7)
@@ -1838,6 +1955,219 @@ def main() -> int:
         f"({grid8.ctas} CTAs of {p8u.threads} threads): {t_bar!r} ms ({1e3 * t_bar / 120!r} "
         f"us each; median of 3) on {card}")
 
+    # ------------------------------------------------------- 21. balance
+    # phase 17's refined grid on 8 slots: 20 gather steps, the refined cells
+    # weighted 2, balance_load under HSFC, remap_state, a ghost refresh, 20
+    # more steps; against 40 steps without the balance, by cell id
+    cells_b = g_sa.get_cells()
+    refined_b = cells_b[g_sa.mapping.get_refinement_level(cells_b) == 1]
+    adv_ref = Advection(g_sa, dtype=np.float32, allow_dense=False)
+    s_b = adv_ref.initialize_state()
+    dt_b = 0.4 * adv_ref.max_time_step(s_b)
+    ref40 = g_sa.get_cell_data(adv_ref.run(s_b, 40, dt_b), "density", cells_b)
+    g_w = g_sa.copy_structure()
+    t = time.perf_counter()
+    for c in refined_b:
+        g_w.set_cell_weight(int(c), 2.0)
+    log(f"[balance] {len(refined_b)} refined cells of {len(cells_b)} weighted 2 in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def weighted_imbalance(g):
+        w = np.ones(len(g.leaves))
+        w[g.leaves.position(refined_b)] = 2.0
+        load = np.bincount(g.leaves.owner, weights=w, minlength=g.n_devices)
+        return float(load.max() / load.mean())
+
+    def across_balance(staged):
+        """20 steps, the balance (one-shot or staged in chunks of 20,000
+        cells), the ghost refresh, 20 steps on a copy of the weighted grid;
+        returns (grid, state after 40 steps, balance host seconds)."""
+        g = g_w.copy_structure()
+        g.set_partitioning_option("LB_METHOD", "HSFC")
+        a = Advection(g, dtype=np.float32, allow_dense=False)
+        st = a.run(s_b, 20, dt_b)
+        sync()
+        t = time.perf_counter()
+        if staged:
+            g.initialize_balance_load()
+            while g.continue_balance_load(st, max_cells=20_000):
+                pass
+            st = g.finish_balance_load()
+        else:
+            g.balance_load()
+            st = g.remap_state(st)
+        sync()
+        secs = time.perf_counter() - t
+        st = g.update_copies_of_remote_neighbors(st)
+        a = Advection(g, dtype=np.float32, allow_dense=False)
+        return g, a, a.run(st, 20, dt_b), secs
+
+    # 40 eager steps (one B9 launch each) and the refresh (one launch for
+    # all six fields)
+    g_one, a_one, out_one, secs_one = drive("balance", lambda: across_balance(False),
+                                            {"ring_copy": 41})
+    moved = int((g_one.leaves.owner != g_w.leaves.owner).sum())
+    check(moved > 0, "balance: no cell moved")
+    got = g_one.get_cell_data(out_one, "density", cells_b)
+    check(np.array_equal(got.view(np.uint32), ref40.view(np.uint32)),
+          f"balance: 40 steps across the balance != 40 without, max abs diff "
+          f"{np.abs(got - ref40).max()!r}")
+    m_ref = adv_ref.total_mass(s_b)
+    m_one = a_one.total_mass(out_one)
+    check(abs(m_one - m_ref) / m_ref <= 1e-5, f"balance: mass {m_ref} -> {m_one}")
+    log(f"[balance] HSFC moved {moved} of {len(cells_b)} cells; weighted imbalance "
+        f"(max / mean slot load) {weighted_imbalance(g_w)!r} -> "
+        f"{weighted_imbalance(g_one)!r}; balance_load + remap_state {secs_one!r} s; 40 steps "
+        f"across it bitwise equal by cell id to 40 without; mass {m_ref!r} -> {m_one!r}")
+    g_stg, a_stg, out_stg, secs_stg = drive("balance staged", lambda: across_balance(True),
+                                            {"ring_copy": 41})
+    check(np.array_equal(g_stg.leaves.owner, g_one.leaves.owner), "staged: other owners")
+    check(same_bits(out_stg["density"], out_one["density"])
+          and all(same_bits(out_stg[k], out_one[k]) for k in out_one),
+          "balance staged: != the one-shot balance")
+    log(f"[balance staged] chunks of 20,000 cells: initialize + continue + finish "
+        f"{secs_stg!r} s; the state after 40 steps bitwise equal to the one-shot form's")
+    del a_one, out_one, a_stg, out_stg, g_stg
+    # the host seconds of balance_load alone, from the weighted grid, with the
+    # incremental rebuild and with DCCRG_EPOCH_DELTA=0
+    for method in ("HSFC", "RCB", "GRAPH"):
+        for delta_on in (True, False):
+            g = g_w.copy_structure()
+            g.set_partitioning_option("LB_METHOD", method)
+            g._compute_new_owner = timed("partition", g._compute_new_owner)
+            if not delta_on:
+                os.environ["DCCRG_EPOCH_DELTA"] = "0"
+            c0 = dict(epoch_delta.COUNTS)
+            t = time.perf_counter()
+            g.balance_load()
+            secs = time.perf_counter() - t
+            os.environ.pop("DCCRG_EPOCH_DELTA", None)
+            how = [k for k, v in epoch_delta.COUNTS.items() if v != c0.get(k, 0)
+                   and k.startswith(("builds.", "fallback."))]
+            moved = int((g.leaves.owner != g_w.leaves.owner).sum())
+            log(f"[balance] {method}, {'incremental rebuild' if delta_on else 'DCCRG_EPOCH_DELTA=0'}"
+                f": balance_load {secs!r} s host, the partitioner {split.pop('partition')!r} of "
+                f"it (epoch: {how or 'full build'}); "
+                f"{moved} cells moved; weighted imbalance {weighted_imbalance(g_w)!r} -> "
+                f"{weighted_imbalance(g)!r} on {card}")
+            del g
+    # a small repartition from the balanced layout (every 100th cell pinned
+    # to the next slot): the kind of move the incremental rebuild patches
+    sel = cells_b[::100]
+    for delta_on in (True, False):
+        g = g_one.copy_structure()
+        for c, d in zip(sel, g.get_owner(sel)):
+            g.pin(int(c), (int(d) + 1) % g.n_devices)
+        g._compute_new_owner = timed("partition", g._compute_new_owner)
+        if not delta_on:
+            os.environ["DCCRG_EPOCH_DELTA"] = "0"
+        c0 = dict(epoch_delta.COUNTS)
+        t = time.perf_counter()
+        g.balance_load()
+        secs = time.perf_counter() - t
+        os.environ.pop("DCCRG_EPOCH_DELTA", None)
+        how = [k for k, v in epoch_delta.COUNTS.items() if v != c0.get(k, 0)
+               and k.startswith(("builds.", "fallback."))]
+        log(f"[balance] {len(sel)} cells pinned to the next slot after the HSFC balance, "
+            f"{'incremental rebuild' if delta_on else 'DCCRG_EPOCH_DELTA=0'}: balance_load "
+            f"{secs!r} s host, the partitioner {split.pop('partition')!r} of it (epoch: "
+            f"{how or 'full build'}); "
+            f"{int((g.leaves.owner != g_one.leaves.owner).sum())} cells moved on {card}")
+        del g
+    del g_w, g_one, adv_ref
+
+    # -------------------------------------------------------------- 22. pic
+    def cell_order(pc, state):
+        """(count per cell, coordinates per cell in slot order) over the
+        leaves in id order, on the host."""
+        g = pc.grid
+        pos = g.leaves.position(g.get_cells())
+        d, r = g.leaves.owner[pos], g.epoch.row_of[pos]
+        cnt = state["number_of_particles"].cpu().numpy()[d, r]
+        xyz = state["particles"].cpu().numpy()[d, r]
+        xyz[np.arange(pc.P)[None, :] >= cnt[:, None]] = 0
+        return cnt, xyz
+
+    def cell_sets(pc, state):
+        """Counts per cell and each cell's particles sorted by coordinates:
+        the per-cell comparison where slot order depends on the layout."""
+        cnt, xyz = cell_order(pc, state)
+        n = len(cnt)
+        live = np.arange(pc.P)[None, :] < cnt[:, None]
+        cell = np.repeat(np.arange(n), cnt)
+        p = xyz[live]
+        order = np.lexsort((p[:, 2], p[:, 1], p[:, 0], cell))
+        return cnt, p[order]
+
+    def pic_phase(label, pc, pts, vel, dt, n, expect):
+        s0 = pc.new_state(pts)
+        check(pc._dev_rebucket is not None, f"{label}: the device re-bucket did not engage")
+        pc.run(s0, 2, velocity=vel, dt=dt)         # warm-up
+        out = drive(label, lambda: pc.run(s0, 50, velocity=vel, dt=dt), expect)
+        check(pc.count(out) == n, f"{label}: {pc.count(out)} particles, expected {n}")
+        check(int(out["overflow"]) == 0, f"{label}: {int(out['overflow'])} dropped")
+        check(bool(torch.isfinite(out["particles"]).all()), f"{label}: non-finite")
+        # 5 steps on the device re-bucket against the host re-bucket
+        host = Particles(pc.grid, max_particles_per_cell=pc.P, dtype=pc.dtype)
+        host._dev_rebucket = None
+        t = time.perf_counter()
+        hs = host.run(s0, 5, velocity=vel, dt=dt)
+        host_s = time.perf_counter() - t
+        ds = pc.run(s0, 5, velocity=vel, dt=dt)
+        same = cell_order if pc.grid.n_devices == 1 else cell_sets
+        (cd, xd), (ch, xh) = same(pc, ds), same(host, hs)
+        check(np.array_equal(cd, ch) and np.array_equal(xd.view(np.uint32), xh.view(np.uint32)),
+              f"{label}: 5 device re-bucket steps != 5 host steps")
+        log(f"[{label}] {n} particles, P = {pc.P}, {len(pc.grid.get_cells())} leaves on "
+            f"{pc.grid.n_devices} slot(s): run(50) keeps all, none dropped; 5 steps bitwise "
+            f"equal to the host re-bucket ({'slot order' if same is cell_order else 'per cell, sorted'}"
+            f"; the host path {host_s / 5!r} s a step)")
+        rate(label, lambda: pc.run(s0, 50, velocity=vel, dt=dt), n, 50,
+             unit="pushes/s including migration")
+        return s0, out
+
+    t = time.perf_counter()
+    pc_u, pts_u, vel_u = pic_setup(PIC_N, PIC_GRID)
+    log(f"[pic] grid + model (P = {pc_u.P}) in {time.perf_counter() - t:.2f} s")
+    pic_phase("pic", pc_u, pts_u, vel_u, 0.2 / PIC_GRID, PIC_N, {})
+    del pc_u, pts_u
+
+    # --------------------------------------------------- 23. pic_refined_lb
+    # phase 2's refined, HSFC-balanced particle model on 8 slots: two B9
+    # launches a step (counts, then coordinates)
+    dt_lb = 0.1 / PIC_REFINED_GRID
+    s_lb, out_lb = pic_phase("pic_refined_lb", pc_lb, pts_lb, vel_lb, dt_lb,
+                             PIC_REFINED_N, {"ring_copy": 100})
+    # the unbalanced 8-slot run of the same particles: each cell's particles
+    # equal (as sets: slot order follows the layout)
+    pc_nb, _p, vel_nb = pic_setup(PIC_REFINED_N, PIC_REFINED_GRID, max_ref=1,
+                                  refine_ball=0.25, seed=1, n_devices=8)
+    check(not np.array_equal(pc_nb.grid.leaves.owner, pc_lb.grid.leaves.owner),
+          "pic_refined_lb: the balance moved nothing")
+    out_nb = pc_nb.run(pc_nb.new_state(pts_lb), 50, velocity=vel_nb, dt=dt_lb)
+    (c1, x1), (c2, x2) = cell_sets(pc_lb, out_lb), cell_sets(pc_nb, out_nb)
+    check(np.array_equal(c1, c2) and np.array_equal(x1.view(np.uint32), x2.view(np.uint32)),
+          "pic_refined_lb: particles per cell != the unbalanced 8-slot run's")
+    log("[pic_refined_lb] run(50): each cell's particles bitwise equal to the unbalanced "
+        "8-slot run's")
+    # B9 at the particle state's row widths: its counts and its P x 3 f32 rows
+    ex_lb = pc_lb._exchange
+    for field in ("number_of_particles", "particles"):
+        x = out_lb[field]
+        idx = ex_lb._rings.send
+        copies = [x.clone() for _ in range(-(-(128 << 20) // (x.numel() * x.element_size())))]
+        turn_p = iter(range(1 << 30))
+        ms = event_ms(lambda: H.ring_gather([(copies[next(turn_p) % len(copies)], idx)]), 200)
+        plain_ms = event_ms(lambda: H.ring_gather_plain([(x, idx)]), 50)
+        lib_ms = event_ms(lambda: torch.index_select(x.flatten(0, 1), 0, idx), 200)
+        del copies
+        row_bytes = x[0, 0].numel() * x.element_size()
+        b = bound(idx.numel() * (2 * row_bytes + 4), 0)
+        log(f"[timing] ring_copy at pic_refined_lb {field} ({row_bytes} bytes a row, "
+            f"{idx.numel()} rows): kernel {ms!r} ms over copies of the field, twin "
+            f"{plain_ms!r} ms, torch.index_select {lib_ms!r} ms, bound {b[0]!r} ms ({b[1]}), "
+            f"kernel/bound {ms / b[0]!r} on {card}")
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -1861,7 +2191,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

@@ -13,7 +13,7 @@ device unless the caller passes ``device="cpu"``.
 """
 from .geometry import CartesianGeometry, NoGeometry, StretchedCartesianGeometry
 from .grid import CellSpec, Grid
-from .models import Advection, GameOfLife, Poisson, Vlasov
+from .models import Advection, GameOfLife, Particles, Poisson, Vlasov
 
 __all__ = ["Advection", "CartesianGeometry", "CellSpec", "GameOfLife", "Grid",
-           "NoGeometry", "Poisson", "StretchedCartesianGeometry", "Vlasov"]
+           "NoGeometry", "Particles", "Poisson", "StretchedCartesianGeometry", "Vlasov"]

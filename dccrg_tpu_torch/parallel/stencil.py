@@ -70,11 +70,25 @@ class StencilTables:
     (ghost rows included; pad rows hold center 0 and length 1).
     """
 
-    def __init__(self, grid, hood_id=None, with_geometry: bool = False):
+    def __init__(self, grid, hood_id=None, with_geometry: bool = False,
+                 cell_items: dict | None = None,
+                 neighbor_items: dict | None = None):
+        """``cell_items`` / ``neighbor_items``: the reference's
+        Additional_Cell_Items / Additional_Neighbor_Items mixins
+        (``dccrg.hpp:7288-7402``), named callbacks evaluated when the
+        tables are built and placed on the device as extra attributes.
+
+        * ``cell_items[name] = fn(grid, cell_ids) -> (N, ...)`` becomes a
+          ``[D, R, ...]`` attribute (local and ghost rows);
+        * ``neighbor_items[name] = fn(grid, cell_ids, nbr_ids, offsets) ->
+          (E, ...)`` becomes a ``[D, R, K, ...]`` attribute.
+        """
         epoch = grid.epoch
         hood = epoch.hoods[hood_id]
-        put = lambda a, dt=None: torch.as_tensor(
-            np.ascontiguousarray(a), dtype=dt, device=grid.device)
+        # always a copy: on the CPU as_tensor would share the epoch's arrays,
+        # whose hood tables the grid recycles after a structural change
+        put = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt,
+                                              device=grid.device)
         # gather indices as int64, the index type torch's advanced indexing
         # takes without a conversion per step
         self.nbr_rows = put(hood.nbr_rows, torch.int64)
@@ -96,6 +110,34 @@ class StencilTables:
             lengths[pad] = 1.0
             self.center = put(centers)
             self.length = put(lengths)
+
+        leaves = epoch.leaves
+        for name, fn in (cell_items or {}).items():
+            vals = np.asarray(fn(grid, leaves.cells))
+            out = np.zeros((epoch.n_devices, epoch.R) + vals.shape[1:], vals.dtype)
+            for d in range(epoch.n_devices):
+                lp, gp = epoch.local_pos[d], epoch.ghost_pos[d]
+                out[d, : len(lp)] = vals[lp]
+                out[d, len(lp) : len(lp) + len(gp)] = vals[gp]
+            setattr(self, name, put(out))
+
+        if neighbor_items:
+            lists = hood.lists
+            counts = np.diff(lists.start)
+            src = np.repeat(np.arange(len(leaves)), counts)
+            E = int(lists.start[-1])
+            ecol = np.arange(E, dtype=np.int64) - np.repeat(lists.start[:-1], counts)
+            owner = leaves.owner.astype(np.int64)
+            D, R, K = hood.nbr_rows.shape
+            for name, fn in neighbor_items.items():
+                vals = np.asarray(
+                    fn(grid, leaves.cells[src], lists.nbr_cell, lists.offset)
+                )
+                out = np.zeros((D, R, K) + vals.shape[1:], vals.dtype)
+                for d in range(D):
+                    sel = owner[src] == d
+                    out[d, epoch.row_of[src[sel]], ecol[sel]] = vals[sel]
+                setattr(self, name, put(out))
 
 
 def gather_neighbors(x, nbr_rows):
