@@ -177,9 +177,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 two ring_copy launches a step (counts, then coordinates);
                 the same checks, each cell's particles equal to the
                 unbalanced 8-slot run's; pushes/s; B9 timed at the particle
-                state's two row widths.
+                state's two row widths;
+24. boxed     — (run after phase 7, on its grids) the boxed per-level
+                passes of the refined and refined3 grids, 200 steps against
+                the flat kernel (B5 / B6) within 1e-4 of the peak density,
+                mass conserved; leaf-updates/s of each; the edge the card
+                gives (flat voxel-updates/s over boxed) beside the dispatch
+                constant, and which path the dispatch takes;
+25. checkpoint — (run after phase 8) the adapted refined state (six f32
+                fields) saved from the card, quick_validate, reloaded on 1
+                and 8 slots, whole and in chunks of 20,000 cells: rows
+                bitwise equal by cell id; 20 steps after the reload (B5 on
+                one slot, the gather step on 8 after a ghost refresh)
+                bitwise equal to 20 without; bytes written, host seconds to
+                save, validate and load;
+26. vtk       — (after 25) write_vtk_file of the adapted grid with its
+                density: bytes and host seconds;
+27. xla_flat  — (after phase 17) the sharded form on phase 17's 8-slot
+                grid, 200 steps against the eager gather step within 1e-4,
+                and the float64 ml form on refined3 against the float64
+                gather step within 1e-11; leaf-updates/s of each;
+28. c1        — the refined and refined3 grids at neighbourhood length 1:
+                200 gather steps with relative mass drift below 1e-5 (the
+                drift of the classification before the repair logged
+                beside it), run(200) through B5 / B6 against the 200
+                gather steps within 1e-4.
 
-Launch counters are set to 0 just before each of phases 3-19 and 21-23
+Launch counters are set to 0 just before each of phases 3-19 and 21-28
 drives its path and read just after.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -187,6 +211,7 @@ result.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import os
@@ -307,7 +332,11 @@ def main() -> int:
 
     from dccrg_tpu_torch import (Advection, CartesianGeometry, GameOfLife, Grid,
                                  Particles, Poisson, Vlasov, cuda_build)
+    from dccrg_tpu_torch.core import neighbors as NB
+    from dccrg_tpu_torch.io import checkpoint as CK
+    from dccrg_tpu_torch.models import advection as A_mod
     from dccrg_tpu_torch.parallel import epoch_delta
+    from dccrg_tpu_torch.parallel.boxed import build_boxed
     from dccrg_tpu_torch.parallel.epoch import build_epoch
     from dccrg_tpu_torch.parallel.shapes import epoch_shape_hints
     from dccrg_tpu_torch.ops import dense_advection as K
@@ -357,14 +386,15 @@ def main() -> int:
         )
 
     def refined_grid(n, radii, center, max_ref, periodic=(True, True, True),
-                     n_devices=1):
+                     n_devices=1, hood=0):
         """n^3 grid, each ball of ``radii`` around ``center`` refined in turn
         at the finest level so far (bench.py's measure_refined /
-        _ball_refined_grid), on ``n_devices`` slots."""
+        _ball_refined_grid), on ``n_devices`` slots, neighborhood length
+        ``hood``."""
         g = (
             Grid()
             .set_initial_length((n, n, n))
-            .set_neighborhood_length(0)
+            .set_neighborhood_length(hood)
             .set_periodic(*periodic)
             .set_maximum_refinement_level(max_ref)
             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
@@ -584,7 +614,8 @@ def main() -> int:
     t = time.perf_counter()
     g_r = refined_grid(48, (0.3,), (0.3, 0.5, 0.5), 1)
     adv_r = Advection(g_r, dtype=np.float32, allow_dense=False)
-    check(adv_r._flat_kind == "pallas", f"refined dispatch {adv_r._flat_kind}")
+    check(adv_r._flat_kind == "pallas" and not adv_r._prefer_boxed,
+          f"refined dispatch {adv_r._flat_kind}, prefer boxed {adv_r._prefer_boxed}")
     check(adv_r._flat_run.shape == (96, 96, 96), f"refined voxels {adv_r._flat_run.shape}")
     s_r = adv_r.initialize_state()
     dt_r = 0.4 * adv_r.max_time_step(s_r)
@@ -593,7 +624,8 @@ def main() -> int:
     t = time.perf_counter()
     g_m = refined_grid(16, (0.6, 0.55), (0.5, 0.5, 0.5), 2)
     adv_m = Advection(g_m, dtype=np.float32, allow_dense=False)
-    check(adv_m._flat_kind == "ml_pallas", f"refined3 dispatch {adv_m._flat_kind}")
+    check(adv_m._flat_kind == "ml_pallas" and not adv_m._prefer_boxed,
+          f"refined3 dispatch {adv_m._flat_kind}, prefer boxed {adv_m._prefer_boxed}")
     check(adv_m._flat_run.shape == (64, 64, 64), f"refined3 voxels {adv_m._flat_run.shape}")
     s_m = adv_m.initialize_state()
     dt_m = 0.4 * adv_m.max_time_step(s_m)
@@ -1165,8 +1197,10 @@ def main() -> int:
                                              steps, **fr.kwargs))
         check(torch.equal(short["density"], twin["density"]),
               f"{label}: {steps} steps != twin")
-        adv64 = Advection(adv.grid, dtype=np.float64, allow_dense=False)
-        check(adv64._flat_kind is None, f"{label}: f64 took {adv64._flat_kind}")
+        adv64 = Advection(adv.grid, dtype=np.float64, allow_dense=False,
+                          use_kernels=False)
+        check(adv64._flat_kind is None and not adv64._prefer_boxed,
+              f"{label}: f64 took {adv64._flat_kind}")
         s64 = {k: v.double() for k, v in state.items()}
         ref64 = adv64.run(s64, steps, adv._scalar(dt))["density"]
         local = adv.tables.local_mask
@@ -1189,6 +1223,72 @@ def main() -> int:
     flat_checks("refined3", adv_m, s_m, out, dt_m, 200, 1e-4)
     rate("refined3", lambda: adv_m.run(s_m, 1000, dt_m), n_m, 1000,
          unit="leaf-updates/s")
+
+    # 24. boxed: the boxed per-level passes against the flat kernels on the
+    # refined and refined3 grids (neighbourhood length 0), and the edge the
+    # card gives the dispatch (models/advection.py FLAT_BOXED_EDGE,
+    # ML_BOXED_EDGE: prefer boxed when flat voxels > edge x boxed voxels)
+    for label, adv_b, s_b0, dt_b0, kname in (
+            ("refined", adv_r, s_r, dt_r, "flat_amr_run"),
+            ("refined3", adv_m, s_m, dt_m, "flat_ml_run")):
+        check(adv_b._boxed_run is not None, f"boxed {label}: no boxed layout")
+        n_leaf = len(adv_b.grid.get_cells())
+        n_box = sum(int(np.prod(b.shape)) for b in adv_b.boxed.boxes.values())
+        n_flat = adv_b._flat_n_vox
+        out_b = drive(f"boxed {label}", lambda: adv_b._boxed_run(s_b0, 200, dt_b0), {})
+        finite_mass(f"boxed {label}", adv_b, s_b0, out_b, 1e-5)
+        out_f = adv_b._flat_run.run(s_b0, 200, dt_b0)
+        local = adv_b.tables.local_mask
+        rel = float((out_b["density"] - out_f["density"])[local].abs().max()
+                    / out_f["density"][local].abs().max())
+        check(rel <= 1e-4, f"boxed {label}: 200 steps vs {kname}, rel err {rel:.3e}")
+        r_box = rate(f"boxed {label}", lambda: adv_b._boxed_run(s_b0, 50, dt_b0),
+                     n_leaf, 50, unit="leaf-updates/s (boxed passes)")
+        r_flat = rate(f"boxed {label} flat", lambda: adv_b._flat_run.run(s_b0, 500, dt_b0),
+                      n_leaf, 500, unit=f"leaf-updates/s ({kname})")
+
+        def gather20(adv=adv_b, st=s_b0, dt=dt_b0):
+            for _ in range(20):
+                st = adv._general_step(st, adv._scalar(dt))
+            return st
+
+        r_gat = rate(f"boxed {label} gather", gather20, n_leaf, 20,
+                     unit="leaf-updates/s (gather step)")
+        log(f"[boxed {label}] boxed passes over the gather step {r_box / r_gat!r} "
+            f"(leaf-updates/s, f32) on {card}")
+        edge = (r_flat * n_flat) / (r_box * n_box)
+        const = (A_mod.FLAT_BOXED_EDGE if adv_b._flat_kind == "pallas"
+                 else A_mod.ML_BOXED_EDGE[adv_b._flat_kind])
+        check(adv_b._prefer_boxed == (n_flat > const * n_box), f"boxed {label}: dispatch")
+        log(f"[boxed {label}] 200 boxed steps vs {kname}: max err / max density {rel!r} "
+            f"(limit 1e-4); {n_flat} flat voxels, {n_box} boxed voxels; measured edge "
+            f"(flat voxel-updates/s over boxed) {edge!r}, the constant {const}; the "
+            f"dispatch takes {'boxed' if adv_b._prefer_boxed else adv_b._flat_kind} on {card}")
+    del out_b, out_f
+    # where no flat form qualifies (float64 on two levels and one slot) run
+    # is the gather step; the boxed passes timed beside it on the same model
+    adv_64 = Advection(g_r, dtype=np.float64, allow_dense=False)
+    check(adv_64._flat_kind is None and not adv_64._prefer_boxed
+          and adv_64._boxed is A_mod._UNBUILT,
+          f"boxed refined f64: dispatch {adv_64._flat_kind}, prefer {adv_64._prefer_boxed}")
+    s_64 = {k: v.double() for k, v in s_r.items()}
+    out_g = drive("boxed refined f64 run", lambda: adv_64.run(s_64, 20, dt_r), {})
+    t = time.perf_counter()
+    box_64 = adv_64._boxed_run
+    build_s = time.perf_counter() - t
+    out_b = box_64(s_64, 20, dt_r)
+    local = adv_64.tables.local_mask
+    rel = float((out_b["density"] - out_g["density"])[local].abs().max()
+                / out_g["density"][local].abs().max())
+    check(rel <= 1e-12, f"boxed refined f64: boxed vs gather, rel err {rel:.3e}")
+    r_gat = rate("boxed refined f64 run", lambda: adv_64.run(s_64, 20, dt_r), n_r, 20,
+                 unit="leaf-updates/s (run: the gather step, f64)")
+    r_box = rate("boxed refined f64 boxed", lambda: box_64(s_64, 20, dt_r), n_r, 20,
+                 unit="leaf-updates/s (boxed passes, f64)")
+    log(f"[boxed refined f64] run takes the gather step (no flat form); 20 boxed steps "
+        f"vs it: max err / max density {rel!r} (limit 1e-12); boxed passes over the "
+        f"gather step {r_box / r_gat!r}; layout and run built in {build_s!r} s on {card}")
+    del adv_64, s_64, out_g, out_b, box_64
 
     # 8. adapt: one adaptation cycle between two flat runs on the refined
     # grid, then one gather step
@@ -1221,8 +1321,8 @@ def main() -> int:
         new_adv, st, new_cells, removed = adv_r.adapt_grid(st)
         sync()
         split["adapt_grid"] = time.perf_counter() - t
-        check(new_adv._flat_kind == "pallas",
-              f"adapt: the adapted grid took {new_adv._flat_kind}")
+        check(new_adv._flat_kind == "pallas" and new_adv._boxed is A_mod._UNBUILT,
+              f"adapt: the adapted grid took {new_adv._flat_kind} or built a boxed layout")
         return new_adv, new_adv.run(st, 50, dt_r), new_cells, removed
 
     t = time.perf_counter()
@@ -1243,14 +1343,18 @@ def main() -> int:
                 uniform_geometry=g_r._uniform_geometry(),
                 shape_hints=epoch_shape_hints(g_r.epoch))
     full_s = time.perf_counter() - t
+    t = time.perf_counter()
+    check(build_boxed(g_r, None) is not None, "adapt: the adapted grid has no boxed layout")
+    boxed_s = time.perf_counter() - t
     commit = split["stop_refining"] - split["epoch rebuild"]
     model = split["adapt_grid"] - split["stop_refining"] - split["remap_state"]
     log(f"[adapt] host seconds of one adaptation (ROADMAP.md P6: ~3 s at ~200k leaves "
         f"with the full rebuild): check_for_adaptation {split['check_for_adaptation']!r}, "
         f"adapt_grid {split['adapt_grid']!r} = commit_adaptation {commit!r} + epoch "
         f"rebuild {split['epoch rebuild']!r} (epoch_delta counts {delta}) + remap_state "
-        f"{split['remap_state']!r} + the new model, velocities and exchange {model!r}; a "
-        f"full build_epoch of the adapted leaves {full_s!r} s, on {card}")
+        f"{split['remap_state']!r} + the new model, velocities and exchange {model!r} "
+        f"(no boxed layout: B5's voxels are within the edge times the leaves); a full "
+        f"build_epoch of the adapted leaves {full_s!r} s, build_boxed {boxed_s!r} s, on {card}")
     # B5 against its twin on the adapted grid's voxel layout (after the
     # drive: these launches compare, they do not count)
     a, kw = flat_args(adv_a, s_a, 50, dt_r, seed=7)
@@ -1270,6 +1374,91 @@ def main() -> int:
         return st
 
     rate("adapt step", gather_steps, n_a, 20, unit="leaf-updates/s (gather step)")
+
+    # 25. checkpoint: the adapted refined state saved from the card, checked,
+    # and reloaded on 1 and 8 slots, whole and in chunks of 20,000 cells
+    ck_dir = tempfile.mkdtemp(prefix="dccrg_ck_")
+    ck_path = os.path.join(ck_dir, "refined.dc")
+    spec_ck = adv_a.spec
+    cells_a = g_r.get_cells()
+    gat_a = Advection(g_r, dtype=np.float32, allow_dense=False, use_kernels=False)
+
+    def checkpoint_cycle():
+        secs = {}
+        t = time.perf_counter()
+        g_r.save_grid_data(s_a, ck_path, spec_ck, user_header=b"chip_smoke")
+        secs["save"] = time.perf_counter() - t
+        t = time.perf_counter()
+        check(CK.quick_validate(ck_path) == 2, "checkpoint: quick_validate")
+        secs["quick_validate"] = time.perf_counter() - t
+        loaded = {}
+        for n_dev in (1, 8):
+            for chunked in (False, True):
+                t = time.perf_counter()
+                if chunked:
+                    loader = Grid.start_loading_grid_data(ck_path, spec_ck, n_devices=n_dev)
+                    chunks = 1
+                    while loader.continue_loading_grid_data(max_cells=20_000):
+                        chunks += 1
+                    g2, s2, hdr = loader.finish_loading_grid_data()
+                else:
+                    g2, s2, hdr = Grid.load_grid_data(ck_path, spec_ck, n_devices=n_dev)
+                sync()
+                secs[f"load {n_dev} slot{'s' if n_dev > 1 else ''}"
+                     + (f", {chunks} chunks" if chunked else "")] = time.perf_counter() - t
+                check(hdr == b"chip_smoke" and np.array_equal(g2.get_cells(), cells_a),
+                      f"checkpoint: {n_dev} slots, chunked {chunked}: header or leaves")
+                for k in spec_ck:
+                    check(np.array_equal(g2.get_cell_data(s2, k, cells_a).view(np.uint32),
+                                         g_r.get_cell_data(s_a, k, cells_a).view(np.uint32)),
+                          f"checkpoint: {n_dev} slots, chunked {chunked}: {k} != saved")
+                loaded[(n_dev, chunked)] = (g2, s2)
+        # 20 steps after the reload against 20 without: B5 on one slot; the
+        # gather step on 8 (a ghost refresh first: the load fills owned rows)
+        g1, s1 = loaded[(1, False)]
+        a1 = Advection(g1, dtype=np.float32, allow_dense=False)
+        check(a1._flat_kind == "pallas" and not a1._prefer_boxed,
+              f"checkpoint: reloaded dispatch {a1._flat_kind}")
+        r1 = a1.run(s1, 20, dt_r)
+        w1 = adv_a.run(s_a, 20, dt_r)
+        g8, s8 = loaded[(8, True)]
+        a8 = Advection(g8, dtype=np.float32, allow_dense=False, use_kernels=False)
+        r8 = a8.run(g8.update_copies_of_remote_neighbors(s8), 20, dt_r)
+        w8 = gat_a.run(s_a, 20, dt_r)
+        return secs, (g1, r1, w1), (g8, r8, w8)
+
+    secs_ck, run1, run8 = drive("checkpoint", checkpoint_cycle,
+                                {"flat_amr_run": 2, "ring_copy": 21})
+    for label, (g2, got, want) in (("1 slot, B5", run1), ("8 slots, gather step", run8)):
+        a2 = g2.get_cell_data(got, "density", cells_a)
+        b2 = g_r.get_cell_data(want, "density", cells_a)
+        check(np.array_equal(a2.view(np.uint32), b2.view(np.uint32)),
+              f"checkpoint: 20 steps after the reload ({label}) != 20 without")
+    ck_bytes = os.path.getsize(ck_path)
+    log(f"[checkpoint] {len(cells_a)} leaves x {len(spec_ck)} f32 fields: {ck_bytes} bytes "
+        f"written (counters {dict(CK.COUNTS)}); host seconds "
+        f"{ {k: round(v, 4) for k, v in secs_ck.items()} } (unrounded: {secs_ck!r}); "
+        f"reloaded rows bitwise equal by cell id on 1 and 8 slots, whole and chunked; "
+        f"20 steps after the reload bitwise equal to 20 without (1 slot B5, 8 slots "
+        f"gather) on {card}")
+    del run1, run8
+
+    # 26. vtk: the adapted refined grid with its density
+    vtk_path = os.path.join(ck_dir, "refined.vtk")
+    t = time.perf_counter()
+    drive("vtk", lambda: g_r.write_vtk_file(
+        vtk_path, {"density": g_r.get_cell_data(s_a, "density", cells_a)}), {})
+    vtk_s = time.perf_counter() - t
+    vtk_bytes = os.path.getsize(vtk_path)
+    n_c = len(cells_a)
+    head = open(vtk_path, "rb").read(200)
+    check(head.startswith(b"# vtk DataFile Version 2.0\n") and b"BINARY" in head
+          and vtk_bytes > n_c * (8 * 3 * 4 + 9 * 4 + 4 + 4), f"vtk: {vtk_bytes} bytes")
+    log(f"[vtk] write_vtk_file of {n_c} leaves with density: {vtk_bytes} bytes in "
+        f"{vtk_s!r} s host on {card}")
+    for f in os.listdir(ck_dir):
+        os.remove(os.path.join(ck_dir, f))
+    os.rmdir(ck_dir)
 
     # 9. gol: the bench's Game of Life, 20000 turns through B4
     t = time.perf_counter()
@@ -1552,7 +1741,7 @@ def main() -> int:
 
     # 17. split_advection: the refined grid on 8 slots, split against eager
     t = time.perf_counter()
-    adv_e = Advection(g_sa, dtype=np.float32, allow_dense=False)
+    adv_e = Advection(g_sa, dtype=np.float32, allow_dense=False, use_kernels=False)
     adv_s = Advection(g_sa, dtype=np.float32, overlap=True)
     check(adv_e._flat_run is None and adv_s._flat_run is None and adv_s.dense is None,
           "split_advection dispatch")
@@ -1576,6 +1765,51 @@ def main() -> int:
          unit="leaf-updates/s (split step)")
     rate("split_advection eager", lambda: adv_e.run(s_sa, 200, dt_sa), n_sa, 200,
          unit="leaf-updates/s (eager gather step)")
+
+    # 27. xla_flat: the flat XLA forms in torch — the z-slab sharded form on
+    # the refined grid on 8 slots against the eager gather step, and the f64
+    # multi-level pyramid form on refined3 against the f64 gather step
+    adv_x = Advection(g_sa, dtype=np.float32, allow_dense=False)
+    check(adv_x._flat_kind == "sharded" and not adv_x._prefer_boxed,
+          f"xla_flat: 8-slot dispatch {adv_x._flat_kind}")
+    out_x = drive("xla_flat sharded", lambda: adv_x.run(s_sa, 200, dt_sa), {})
+    finite_mass("xla_flat sharded", adv_x, s_sa, out_x, 1e-5)
+    ref_x = adv_e.run(s_sa, 200, dt_sa)
+    loc = adv_x.tables.local_mask
+    rel = float((out_x["density"] - ref_x["density"])[loc].abs().max()
+                / ref_x["density"][loc].abs().max())
+    check(rel <= 1e-4, f"xla_flat sharded: 200 steps vs the gather step, rel err {rel:.3e}")
+    rate("xla_flat sharded", lambda: adv_x.run(s_sa, 200, dt_sa), n_sa, 200,
+         unit="leaf-updates/s (sharded form, 8 slots)")
+    log(f"[xla_flat sharded] 200 steps vs the eager gather step on 8 slots: max err / "
+        f"max density {rel!r} (limit 1e-4)")
+    adv_m64 = Advection(g_m, dtype=np.float64, allow_dense=False)
+    gat_m64 = Advection(g_m, dtype=np.float64, allow_dense=False, use_kernels=False)
+    check(adv_m64._flat_kind == "ml", f"xla_flat: f64 refined3 dispatch {adv_m64._flat_kind}")
+    s_m64 = {k: v.double() for k, v in s_m.items()}
+
+    def gather_m64(n=200):
+        st = s_m64
+        for _ in range(n):
+            st = gat_m64.step(st, dt_m)
+        return st
+
+    out_ml = drive("xla_flat ml", lambda: adv_m64._flat_run.run(s_m64, 200, dt_m), {})
+    finite_mass("xla_flat ml", adv_m64, s_m64, out_ml, 1e-12)
+    ref_ml = gather_m64()
+    loc = adv_m64.tables.local_mask
+    rel = float((out_ml["density"] - ref_ml["density"])[loc].abs().max()
+                / ref_ml["density"][loc].abs().max())
+    check(rel <= 1e-11, f"xla_flat ml: 200 f64 steps vs the gather step, rel err {rel:.3e}")
+    n_m3 = len(g_m.get_cells())
+    rate("xla_flat ml", lambda: adv_m64._flat_run.run(s_m64, 200, dt_m), n_m3, 200,
+         unit="leaf-updates/s (ml form, f64)")
+    rate("xla_flat ml gather", lambda: gather_m64(20), n_m3, 20,
+         unit="leaf-updates/s (gather step, f64)")
+    log(f"[xla_flat ml] 200 f64 steps vs the f64 gather step: max err / max density "
+        f"{rel!r} (limit 1e-11); the dispatch takes "
+        f"{'boxed' if adv_m64._prefer_boxed else adv_m64._flat_kind}")
+    del adv_x, out_x, ref_x, adv_m64, gat_m64, s_m64, out_ml, ref_ml
 
     def side_stream_overlap(label, fn):
         """Profile ``fn`` and log from the trace's kernel events: the ring
@@ -1961,7 +2195,10 @@ def main() -> int:
     # more steps; against 40 steps without the balance, by cell id
     cells_b = g_sa.get_cells()
     refined_b = cells_b[g_sa.mapping.get_refinement_level(cells_b) == 1]
-    adv_ref = Advection(g_sa, dtype=np.float32, allow_dense=False)
+    def gather_model(g):
+        return Advection(g, dtype=np.float32, allow_dense=False, use_kernels=False)
+
+    adv_ref = gather_model(g_sa)
     s_b = adv_ref.initialize_state()
     dt_b = 0.4 * adv_ref.max_time_step(s_b)
     ref40 = g_sa.get_cell_data(adv_ref.run(s_b, 40, dt_b), "density", cells_b)
@@ -1984,7 +2221,7 @@ def main() -> int:
         returns (grid, state after 40 steps, balance host seconds)."""
         g = g_w.copy_structure()
         g.set_partitioning_option("LB_METHOD", "HSFC")
-        a = Advection(g, dtype=np.float32, allow_dense=False)
+        a = gather_model(g)
         st = a.run(s_b, 20, dt_b)
         sync()
         t = time.perf_counter()
@@ -1999,7 +2236,7 @@ def main() -> int:
         sync()
         secs = time.perf_counter() - t
         st = g.update_copies_of_remote_neighbors(st)
-        a = Advection(g, dtype=np.float32, allow_dense=False)
+        a = gather_model(g)
         return g, a, a.run(st, 20, dt_b), secs
 
     # 40 eager steps (one B9 launch each) and the refresh (one launch for
@@ -2167,6 +2404,55 @@ def main() -> int:
             f"{idx.numel()} rows): kernel {ms!r} ms over copies of the field, twin "
             f"{plain_ms!r} ms, torch.index_select {lib_ms!r} ms, bound {b[0]!r} ms ({b[1]}), "
             f"kernel/bound {ms / b[0]!r} on {card}")
+
+    # 28. c1: the refined and refined3 grids at neighbourhood length 1, where
+    # a fine cell lists a coarse face neighbour once for every offset it
+    # covers: 200 gather steps keep mass, and the flat kernels' run equals
+    # the gather step
+    for label, n, radii, center, max_ref, kname in (
+            ("refined", 48, (0.3,), (0.3, 0.5, 0.5), 1, "flat_amr_run"),
+            ("refined3", 16, (0.6, 0.55), (0.5, 0.5, 0.5), 2, "flat_ml_run")):
+        t = time.perf_counter()
+        g_c = refined_grid(n, radii, center, max_ref, hood=1)
+        # one model: step is the gather step, run the flat kernel
+        adv_c = Advection(g_c, dtype=np.float32, allow_dense=False)
+        check(adv_c._flat_kind == ("pallas" if max_ref == 1 else "ml_pallas"),
+              f"c1 {label}: dispatch {adv_c._flat_kind}")
+        s_c = adv_c.initialize_state()
+        dt_c = 0.4 * adv_c.max_time_step(s_c)
+        log(f"[c1 {label}] grid at neighbourhood length 1 ({len(g_c.get_cells())} leaves) "
+            f"+ models + state in {time.perf_counter() - t:.2f} s")
+
+        def gather_c(model, n=200):
+            st = s_c
+            for _ in range(n):
+                st = model.step(st, dt_c)
+            return st
+
+        out_g = drive(f"c1 {label} gather", lambda: gather_c(adv_c), {})
+        finite_mass(f"c1 {label} gather", adv_c, s_c, out_g, 1e-5)
+        out_f = drive(f"c1 {label} flat", lambda: adv_c.run(s_c, 200, dt_c), {kname: 1})
+        loc = adv_c.tables.local_mask
+        rel = float((out_f["density"] - out_g["density"])[loc].abs().max()
+                    / out_g["density"][loc].abs().max())
+        check(rel <= 1e-4, f"c1 {label}: run(200) vs 200 gather steps, rel err {rel:.3e}")
+        # the classification before the repair, for the record: the same
+        # model with every entry of a repeated coarse face priced
+        keep = NB.first_faces
+        NB.first_faces = lambda group, key: np.ones(len(key), dtype=bool)
+        try:
+            raw_c = copy.copy(adv_c)
+            raw_c._dev = A_mod.build_face_tables(g_c, None, adv_c.tables, np.float32)[1]
+        finally:
+            NB.first_faces = keep
+        st = gather_c(raw_c)
+        m0 = adv_c.total_mass(s_c)
+        log(f"[c1 {label}] 200 gather steps: relative mass drift "
+            f"{abs(adv_c.total_mass(out_g) - m0) / m0!r} (limit 1e-5; with every repeated "
+            f"entry priced, as before the repair: {abs(raw_c.total_mass(st) - m0) / m0!r}); "
+            f"run(200) through {kname} vs the gather step: max err / max density {rel!r} "
+            f"(limit 1e-4) on {card}")
+        del g_c, adv_c, raw_c, s_c, out_g, out_f, st
 
     kernels = []
     for r in rows:

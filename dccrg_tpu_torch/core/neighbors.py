@@ -33,6 +33,7 @@ from .topology import Topology
 
 __all__ = [
     "InconsistentGridError",
+    "first_faces",
     "LeafSet",
     "NeighborLists",
     "find_all_neighbors",
@@ -77,6 +78,25 @@ def face_directions(off, clen, nlen):
             (n_overlap == 2) & (off[..., d] == -nlen[..., 0]), -(d + 1), direction
         )
     return direction.astype(np.int8)
+
+
+def first_faces(group, key):
+    """Mask of the face entries to price: True for the first entry, in
+    array order, of each (``group``, ``key``) pair — ``group`` names the
+    cell an entry belongs to, ``key`` its neighbor and signed direction.
+    At neighborhood length n >= 1 a larger face neighbor is listed once for
+    every neighborhood offset it covers; the reference meets each face
+    once (``Grid.get_face_neighbors_of``), so only the first entry of each
+    pair carries the face.  At length 0 every pair is unique already.
+    Shared by the advection face tables (``models/advection.py``) and the
+    boxed layout (``parallel/boxed.py``)."""
+    group = np.asarray(group, dtype=np.int64)
+    key = np.asarray(key, dtype=np.int64)
+    keep = np.zeros(len(key), dtype=bool)
+    if len(key):
+        _, first = np.unique(group * (int(key.max()) + 1) + key, return_index=True)
+        keep[first] = True
+    return keep
 
 
 @dataclass(frozen=True)

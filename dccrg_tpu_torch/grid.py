@@ -25,7 +25,11 @@ split-phase (``start_remote_neighbor_copy_updates`` /
 ``wait_remote_neighbor_copy_updates``), under an optional per-cell payload
 policy (``set_cell_datatype``); see ``parallel/halo.py``.
 
-Checkpoint I/O raises ``NotImplementedError`` until its slice lands.
+Checkpoint I/O (``save_grid_data``, ``load_grid_data``,
+``start_loading_grid_data``; ``io/checkpoint.py``, the JAX package's file
+format) and the VTK writer (``write_vtk_file``) read the state back with
+one ``.cpu()`` a field; a loaded grid is rebuilt from the saved leaf set
+with ``initialize(leaf_set=...)``, which checks the set.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from .amr.refinement import AmrQueues
 from .convert import torch_dtype
 from .core.mapping import Mapping
 from .core.neighborhood import default_neighborhood, validate_neighborhood
-from .core.neighbors import LeafSet
+from .core.neighbors import InconsistentGridError, LeafSet
 from .core.topology import Topology
 from .geometry import CartesianGeometry, NoGeometry
 from .parallel.epoch import build_epoch
@@ -139,10 +143,20 @@ class Grid:
 
     # ---------------------------------------------------------- initialize
 
-    def initialize(self, n_devices: int | None = None, device=None) -> "Grid":
+    def initialize(self, n_devices: int | None = None, device=None,
+                   leaf_set=None) -> "Grid":
         """Create level-0 cells, stripe them over ``n_devices`` slab slots
         (default 1) and build all derived state.  Payloads are allocated on
-        ``device`` (default CUDA; ``"cpu"`` must be asked for)."""
+        ``device`` (default CUDA; ``"cpu"`` must be asked for).
+
+        ``leaf_set``: start from an existing leaf-id array instead of the
+        level-0 grid — the checkpoint loader's path (the saved set is a
+        2:1 forest already, so derived state builds once instead of the
+        reference's level-by-level refinement replay,
+        ``dccrg.hpp:3647-3716``).  The set is checked: duplicate ids,
+        invalid ids, a set that does not tile the domain exactly, a cell
+        listed with its ancestor, and a set that breaks the 2:1 balance
+        all raise ``ValueError``."""
         self._assert_uninitialized()
         self.device = resolve_device(device)
         self.n_devices = 1 if n_devices is None else int(n_devices)
@@ -167,8 +181,14 @@ class Grid:
         self._last_adaptation_delta = None
         self._prev_epoch = None
 
-        n0 = int(np.prod(self._length))
-        cells = np.arange(1, n0 + 1, dtype=np.uint64)
+        if leaf_set is not None:
+            cells = np.unique(np.asarray(leaf_set, dtype=np.uint64))
+            if len(cells) != len(np.asarray(leaf_set)):
+                raise ValueError("leaf_set contains duplicate ids")
+            self._validate_leaf_tiling(cells)
+        else:
+            n0 = int(np.prod(self._length))
+            cells = np.arange(1, n0 + 1, dtype=np.uint64)
         if self._lb_method in ("HSFC", "SFC", "HILBERT"):
             owner = hilbert_partition(self.mapping, cells, self.n_devices)
         elif self._lb_method == "MORTON":
@@ -177,8 +197,58 @@ class Grid:
             owner = block_partition(cells, self.n_devices)
         self.leaves = LeafSet(cells=cells, owner=owner.astype(np.int32))
         self.initialized = True
-        self._rebuild()
+        if leaf_set is None:
+            self._rebuild()
+            return self
+        # the neighbor engine itself rejects many inconsistent sets (no
+        # leaf found for a slot); surface those under the same contract
+        try:
+            self._rebuild()
+        except InconsistentGridError as e:
+            raise ValueError(
+                f"leaf_set is not a consistent 2:1 forest: {e}"
+            ) from e
+        self._validate_two_to_one()
         return self
+
+    def _validate_leaf_tiling(self, cells):
+        """Exact-cover check for a candidate leaf set: the level-weighted
+        volumes must tile the domain exactly, and no cell may be listed
+        with an ancestor (the volume sum alone could be met by an overlap
+        and a hole that compensate)."""
+        lvl = self.mapping.get_refinement_level(cells)
+        if (lvl < 0).any():
+            raise ValueError("leaf_set contains invalid cell ids")
+        L = self.mapping.max_refinement_level
+        counts = np.bincount(lvl.astype(np.int64), minlength=L + 1)
+        total = sum(int(c) << (3 * (L - k)) for k, c in enumerate(counts))
+        expect = int(np.prod(self._length)) << (3 * L)
+        if total != expect:
+            raise ValueError(
+                "leaf_set does not tile the domain (corrupt checkpoint?)"
+            )
+        anc = np.unique(cells[lvl > 0])
+        while len(anc):
+            anc = np.unique(self.mapping.get_parent(anc))
+            if np.isin(anc, cells).any():
+                raise ValueError(
+                    "leaf_set contains both a cell and its ancestor "
+                    "(corrupt checkpoint?)"
+                )
+            anc = anc[self.mapping.get_refinement_level(anc) > 0]
+
+    def _validate_two_to_one(self):
+        """Every neighbor pair's refinement levels differ by at most one
+        (the invariant the neighbor engine assumes), read from the epoch's
+        neighbor tables."""
+        hood = self.epoch.hoods[None]
+        clen = self.epoch.cell_len.astype(np.int64)[..., None]
+        nlen = hood.nbr_len.astype(np.int64)
+        bad = hood.nbr_valid & ((nlen > 2 * clen) | (clen > 2 * nlen))
+        if bad.any():
+            raise ValueError(
+                "leaf_set violates 2:1 balance (corrupt checkpoint?)"
+            )
 
     def _uniform_geometry(self) -> bool:
         """Whether every level-0 cell shares one physical size — the
@@ -461,6 +531,21 @@ class Grid:
         """Host-side gather of per-cell values (verification/I/O path)."""
         dev, row = self._owner_rows(ids, "get_cell_data")
         return state[field].cpu().numpy()[dev, row]
+
+    def state_from_host(self, spec: CellSpec, ids, values: dict, fill=0):
+        """A new state whose fields hold ``values[name]`` (host arrays, one
+        row per id) at ``ids``' owner rows and ``fill`` elsewhere, built on
+        the host and moved to the device once a field."""
+        self._assert_initialized()
+        dev, row = self._owner_rows(ids, "state_from_host")
+        D, R = self.n_devices, self.epoch.R
+        state = {}
+        for name, (shape, dtype) in spec.items():
+            host = np.full((D, R) + tuple(shape), fill, dtype=np.dtype(dtype))
+            if name in values:
+                host[dev, row] = values[name]
+            state[name] = torch.from_numpy(host).to(self.device)
+        return state
 
     # ---------------------------------------------------------------- halo
 
@@ -1328,10 +1413,58 @@ class Grid:
         self._unrefine_cache = None
         return self if st["staged"] is None else st["staged"]
 
-    # ------------------------------------------- not in this slice (ROADMAP)
+    # ------------------------------------------------------------------- IO
 
-    def save_grid_data(self, *args, **kwargs):
-        _not_in_slice("Checkpoint I/O", "11")
+    def save_grid_data(self, state, path: str, spec, user_header: bytes = b"",
+                       ragged=None, version: int | None = None):
+        """Checkpoint grid structure + payloads (reference
+        ``save_grid_data``, ``dccrg.hpp:1089-1716``) in the JAX package's
+        format.  ``ragged`` maps a variable-size field to its count field:
+        only ``count[i]`` rows are written per cell.  ``version=1`` writes
+        the legacy CRC-less layout (default: the v2 format with CRCs)."""
+        from .io.checkpoint import CHECKPOINT_VERSION
+        from .io.checkpoint import save_grid_data as _save
+
+        _save(self, state, path, spec, user_header, ragged=ragged,
+              version=CHECKPOINT_VERSION if version is None else version)
+
+    @staticmethod
+    def load_grid_data(path: str, spec, n_devices=None, device=None,
+                       ragged=None, on_error: str = "raise"):
+        """Recreate a saved grid on ``n_devices`` slots of ``device``
+        (default CUDA); any slot count works (reference
+        ``load_grid_data``, ``dccrg.hpp:1742-2404``).  Returns ``(grid,
+        state, user_header)``; a torn or corrupt file raises
+        :class:`~dccrg_tpu_torch.io.checkpoint.CheckpointError` naming the
+        failing section.  ``on_error="salvage"`` instead recovers every
+        intact cell and returns ``(grid, state, user_header,
+        lost_cells)``."""
+        from .io.checkpoint import load_grid_data as _load
+
+        return _load(path, spec, n_devices=n_devices, device=device,
+                     ragged=ragged, on_error=on_error)
+
+    @staticmethod
+    def start_loading_grid_data(path: str, spec, n_devices=None, device=None,
+                                ragged=None, on_error: str = "raise"):
+        """Chunked load: returns a loader; call
+        ``loader.continue_loading_grid_data(max_cells)`` until it returns
+        False, then ``loader.finish_loading_grid_data()`` (reference
+        ``dccrg.hpp:1742-2404``)."""
+        from .io.checkpoint import start_loading_grid_data as _start
+
+        return _start(path, spec, n_devices=n_devices, device=device,
+                      ragged=ragged, on_error=on_error)
+
+    def write_vtk_file(self, path: str, scalars: dict | None = None,
+                       binary: bool = True):
+        """Dump leaf-cell geometry (+ optional ``{name: per-cell values}``
+        scalars, host arrays in ``get_cells()`` order) as legacy VTK
+        (reference ``dccrg.hpp:3298-3370``); BINARY encoding by default,
+        ``binary=False`` for ASCII."""
+        from .io.vtk import write_vtk_file as _vtk
+
+        _vtk(self, path, scalars, binary=binary)
 
 
 class _SubGridView:

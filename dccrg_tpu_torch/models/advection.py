@@ -19,14 +19,26 @@ Dispatch, with the JAX package's labels.  Dense: float32 with
 — the whole-run kernel for ``run`` on one device when the block fits, the
 blocked step kernel when a z-block size divides ``nz_local``, else the
 plane step kernel; float64 or ``use_kernels=False`` runs the plain step
-body.  General: ``run`` on one device in float32 with ``use_kernels``
-takes a whole-run flat kernel of ``ops/flat_amr.py`` — ``"pallas"`` (leaf
-levels {0, 1}, ``flat_amr_run``) or ``"ml_pallas"`` (3 or more levels,
-``flat_ml_run``) — when the grid fits; every other case, and every
-``step``, runs the gather step.  The JAX package's other flat and boxed
-forms (XLA programs, not kernels) are not ported, and it prefers boxed
-passes over the flat kernel past a TPU-measured cost edge; without a boxed
-run this package takes the flat kernel wherever it qualifies.
+body.  General: ``run`` takes, as the JAX package's ``_build_flat_run``
+does (``_flat_kind``), with ``use_kernels``:
+
+* 3 or more leaf levels: ``"ml_pallas"`` (kernel B6, ``flat_ml_run``) on
+  one slot in float32 when the grid fits, else ``"ml"`` (the multi-level
+  pyramid form in plain torch, any slot count, float32 or float64);
+* levels {0, 1} on D > 1 slots: ``"sharded"`` (the z-slab form in plain
+  torch, float32 or float64);
+* levels {0, 1} on one slot in float32: ``"pallas"`` (kernel B5,
+  ``flat_amr_run``);
+
+and, with ``allow_boxed``, the boxed per-level passes
+(``models/boxed_advection.py``) when a flat form qualifies and its voxel
+count exceeds the edge constant times the boxed volume (``_prefer_boxed``;
+the ``"sharded"`` form is never traded).  Every other case, and every
+``step``, runs the gather step; ``use_kernels=False`` turns off the flat
+forms, so ``run`` is the gather step.  Where no flat form qualifies, the
+JAX package runs the boxed passes; the port keeps the gather step, which
+they beat by 1.1-1.4x on two levels and lose to by 3x on three on an
+H100 (``chip_smoke.py`` phase 24 times both).
 
 ``overlap=True`` pins the general path (no dense path, no flat run) and
 makes ``step`` / ``run`` the split-phase step: start the density halo
@@ -52,6 +64,7 @@ from ..ops.dense_advection import (
     pick_step_block,
 )
 from ..ops.flat_amr import (
+    build_flat_amr_sharded,
     build_flat_amr_tables,
     build_flat_ml_tables,
     compute_flat_ml_weights,
@@ -61,69 +74,102 @@ from ..ops.flat_amr import (
     flat_ml_kernel_fits,
     flat_ml_run,
     flat_ml_run_plain,
+    make_flat_amr_run_sharded,
+    make_flat_ml_run,
 )
 from ..parallel.dense import HaloExtend
 from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum, split_rows
 
-__all__ = ["Advection", "build_face_tables", "build_split_tables"]
+__all__ = ["Advection", "build_face_tables", "build_split_tables",
+           "FLAT_BOXED_EDGE", "ML_BOXED_EDGE"]
+
+#: prefer the boxed passes over kernel B5 when the flat voxel count exceeds
+#: this times the boxed volume: B5's voxel-updates/s over the boxed passes'
+#: on the 48^3 refined grid, 249.7 on an NVIDIA H100 80GB HBM3 at 700 W
+#: (``kernel_probe.py boxed-edge``; ``chip_smoke.py`` phase 24 measures it
+#: again each run, and it swings 2x between runs: 223-426).  The JAX
+#: package's default is 2.0, its chip's ratio; here the boxed passes are
+#: host-launched torch ops, 0.665 ms a step on refined and 2.29 ms on
+#: refined3.  The flat form holds at most 8^(levels - 1) voxels a leaf, so
+#: neither this edge nor the B6 one below can choose the boxed passes on
+#: two or three levels.
+FLAT_BOXED_EDGE = 250.0
+#: the same edge for the multi-level forms, by ``_flat_kind``: B6 over the
+#: boxed passes on the 16^3 three-level grid, 184.7 (phase 24: 249-424),
+#: and the float64 ``ml`` pyramid form over the float64 boxed passes there,
+#: 7.0 (the same card and probe; the JAX package's defaults are 2.0 and
+#: 1.5).
+ML_BOXED_EDGE = {"ml_pallas": 180.0, "ml": 7.0}
+
+#: marks the boxed layout as not yet built (``Advection.boxed``)
+_UNBUILT = object()
 
 
 def build_face_tables(grid, hood_id, tables, dtype):
     """Classify each neighbor entry as a face neighbor with a signed
     direction, reproducing the offset logic of ``solve.hpp:71-123``
     (overlap in exactly 2 dims + contact in 1), plus the physical factors
-    every finite-volume workload prices faces with.  Returns ``(host,
-    dev)``: numpy tables {face_dir, min_area, cell_axis_len, nbr_axis_len,
-    inv_volume} and the same as tensors on the grid's device (float tables
-    in ``dtype``, axis_idx and the direction's sign added)."""
-    from ..core.neighbors import face_directions
+    every finite-volume workload prices faces with.  A neighbor listed more
+    than once across the same face (neighborhood length >= 1) is priced at
+    its first entry only (``core.neighbors.first_faces``); at length 0
+    every face entry is already unique.  Returns ``(host, dev)``: numpy tables
+    {face_dir, min_area, cell_axis_len, nbr_axis_len, inv_volume} and the
+    same as tensors on the grid's device (float tables in ``dtype``,
+    axis_idx and the direction's sign added).
+
+    The classification and the face factors are computed on the valid and
+    the face entries only, then placed in the dense ``[D, R, K]`` tables
+    (a non-face entry reads its x lengths and no area, as the JAX
+    package's dense form gives it): the JAX package's values, at a cost
+    that follows the faces rather than ``K``."""
+    from ..core.neighbors import face_directions, first_faces
 
     epoch = grid.epoch
     hood = epoch.hoods[hood_id]
-    off = hood.nbr_offset.astype(np.int64)             # [D, R, K, 3]
-    nlen = hood.nbr_len.astype(np.int64)               # [D, R, K]
-    clen = epoch.cell_len.astype(np.int64)[..., None]  # [D, R, 1]
-    valid = hood.nbr_valid
-
-    direction = np.where(
-        valid, face_directions(off, clen, nlen), 0
-    ).astype(np.int8)                                # [D, R, K] signed axis or 0
+    nb = hood.nbr_rows
+    D, R, K = nb.shape
+    v = np.nonzero(hood.nbr_valid)
+    direction = np.zeros((D, R, K), dtype=np.int8)    # signed axis or 0
+    direction[v] = face_directions(
+        hood.nbr_offset[v].astype(np.int64),
+        epoch.cell_len[v[0], v[1]].astype(np.int64),
+        hood.nbr_len[v].astype(np.int64),
+    )
+    f = np.nonzero(direction)
+    keep = first_faces(f[0] * R + f[1],
+                       nb[f].astype(np.int64) * 8 + direction[f] + 3)
+    direction[tuple(i[~keep] for i in f)] = 0
 
     # physical areas/volumes from the geometry tables
     length = tables.length.cpu().numpy()             # [D, R, 3]
     vol = length.prod(axis=-1)                       # [D, R]
-    nb = hood.nbr_rows
-    D, R, K = nb.shape
-    nlen_phys = length[np.arange(D)[:, None, None], nb]  # [D, R, K, 3]
-
-    axis_idx = np.abs(direction).astype(np.int64) - 1    # [D, R, K]
-    ai = np.maximum(axis_idx, 0)
-    other = np.stack([(ai + 1) % 3, (ai + 2) % 3], axis=-1)
-    cell_area = np.take_along_axis(
-        np.broadcast_to(length[:, :, None], nlen_phys.shape), other, axis=-1
-    ).prod(axis=-1)
-    nbr_area = np.take_along_axis(nlen_phys, other, axis=-1).prod(axis=-1)
-    min_area = np.minimum(cell_area, nbr_area)
-    is_face = direction != 0
+    ar_d = np.arange(D)[:, None, None]
+    cell_axis_len = np.broadcast_to(length[:, :, None, 0], (D, R, K)).copy()
+    nbr_axis_len = length[ar_d, nb, 0]
+    min_area = np.zeros((D, R, K))
+    f = np.nonzero(direction)
+    ai = np.abs(direction[f]).astype(np.int64) - 1
+    c3, n3 = length[f[0], f[1]], length[f[0], nb[f]]  # [F, 3] each
+    e = np.arange(len(ai))
+    o1, o2 = (ai + 1) % 3, (ai + 2) % 3
+    min_area[f] = np.minimum(c3[e, o1] * c3[e, o2], n3[e, o1] * n3[e, o2])
+    cell_axis_len[f] = c3[e, ai]
+    nbr_axis_len[f] = n3[e, ai]
     host = {
         "face_dir": direction,
-        "min_area": np.where(is_face, min_area, 0.0),
+        "min_area": min_area,
         # axis lengths for face-velocity interpolation
-        "cell_axis_len": np.take_along_axis(
-            np.broadcast_to(length[:, :, None], nlen_phys.shape),
-            ai[..., None], axis=-1,
-        )[..., 0],
-        "nbr_axis_len": np.take_along_axis(
-            nlen_phys, ai[..., None], axis=-1
-        )[..., 0],
+        "cell_axis_len": cell_axis_len,
+        "nbr_axis_len": nbr_axis_len,
         "inv_volume": np.where(vol > 0, 1.0 / vol, 0.0),
     }
+    ai_all = np.maximum(np.abs(direction.astype(np.int64)) - 1, 0)
     tdt = torch_dtype(dtype)
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=grid.device).to(dt)
     dev = {name: put(host[name], tdt)
            for name in ("min_area", "cell_axis_len", "nbr_axis_len", "inv_volume")}
     dev["face_dir"] = put(direction, torch.int8)
-    dev["axis_idx"] = put(ai, torch.int8)
+    dev["axis_idx"] = put(ai_all, torch.int8)
     dev["sign"] = put(np.sign(direction), tdt)
     return host, dev
 
@@ -244,6 +290,15 @@ class _FlatRun:
         return self.write_back(state, out)
 
 
+class _XlaFlatRun:
+    """One of the flat XLA forms (``"ml"``, ``"sharded"``): its
+    ``run(state, steps, dt)`` and per-slot voxel ``shape``."""
+
+    def __init__(self, run, shape):
+        self.run = run
+        self.shape = tuple(shape)
+
+
 class Advection:
     #: the reference's cell (density, velocity, flux, max_diff; lengths
     #: live in the geometry instead of per-cell storage)
@@ -257,14 +312,20 @@ class Advection:
     }
 
     def __init__(self, grid, hood_id=None, dtype=np.float64, use_kernels=True,
-                 allow_dense=True, overlap=False):
+                 allow_dense=True, overlap=False, allow_boxed=True):
         self.grid = grid
         self.hood_id = hood_id
         self.dtype = numpy_dtype(dtype)
         self.torch_dtype = torch_dtype(self.dtype)
         self.use_kernels = bool(use_kernels)
+        self.allow_boxed = bool(allow_boxed)
         self.device = grid.device
         self.spec = {k: (s, self.dtype) for k, (s, _) in self.SPEC.items()}
+        #: the boxed layout and its run, built on first use (``boxed``,
+        #: ``_boxed_run``); ``_UNBUILT`` until then, None without one
+        self._boxed = None
+        self._boxed_fn = None
+        self._prefer_boxed = False
         #: split-phase stepping: ``step`` / ``run`` take the split step of the
         #: general path, which this pins (no dense path, no flat run)
         self.overlap = bool(overlap)
@@ -283,8 +344,8 @@ class Advection:
         host, self._dev = build_face_tables(grid, self.hood_id, self.tables,
                                             self.dtype)
         self.inv_volume = host["inv_volume"]
-        #: which whole-run kernel ``run`` takes: "pallas" (two levels),
-        #: "ml_pallas" (three or more) or None (the gather step) — the JAX
+        #: which flat form ``run`` takes: "pallas" (kernel B5), "ml_pallas"
+        #: (kernel B6), "ml" / "sharded" (plain torch) or None — the JAX
         #: package's labels
         self._flat_kind = None
         self._flat_run = None
@@ -292,29 +353,83 @@ class Advection:
             self._inner, self._outer = build_split_tables(
                 grid, self.hood_id, host, self.dtype)
             self._ar = torch.arange(grid.n_devices, device=self.device)[:, None]
-        else:
-            self._flat_run = self._build_flat_run()
+            return
+        if self.allow_boxed:
+            self._boxed = _UNBUILT
+        self._flat_run = self._build_flat_run()
+        # the JAX package's cost rule: boxed when the flat form's voxel
+        # inflation exceeds its per-voxel rate advantage (the sharded form
+        # keeps the flat preference).  The boxed volume is at least the
+        # leaf count, so a flat form within ``edge`` x leaves never trades
+        # and the layout is not built for the answer.
+        if self._flat_kind in ("pallas", "ml", "ml_pallas") and self.allow_boxed:
+            edge = (FLAT_BOXED_EDGE if self._flat_kind == "pallas"
+                    else ML_BOXED_EDGE[self._flat_kind])
+            if (self._flat_n_vox > edge * len(grid.epoch.leaves)
+                    and self.boxed is not None):
+                boxed_vol = sum(int(np.prod(b.shape))
+                                for b in self.boxed.boxes.values())
+                self._prefer_boxed = self._flat_n_vox > edge * boxed_vol
+
+    @property
+    def boxed(self):
+        """The boxed layout (``parallel/boxed.py``), built on first use;
+        None on the dense or split path, with ``allow_boxed=False``, or
+        where the grid has no layout."""
+        if self._boxed is _UNBUILT:
+            from ..parallel.boxed import build_boxed
+
+            self._boxed = build_boxed(self.grid, self.hood_id)
+        return self._boxed
+
+    @property
+    def _boxed_run(self):
+        """The boxed per-level passes (``models/boxed_advection.py``) on
+        :attr:`boxed`, built on first use; None without a layout."""
+        if self._boxed_fn is None and self.boxed is not None:
+            from .boxed_advection import build_boxed_run
+
+            self._boxed_fn = build_boxed_run(self, self.boxed)
+        return self._boxed_fn
 
     def _build_flat_run(self):
-        """The whole-run flat kernel (a :class:`_FlatRun`) when the grid
-        qualifies (one device, float32, kernels allowed, fits), else None.
-        The JAX package's XLA flat forms for the other cases are not
-        ported (ROADMAP.md A7)."""
+        """The flat whole-run form the grid qualifies for (the JAX
+        package's ``_build_flat_run`` order): kernel B6 on one slot in
+        float32 when it fits, else the ``ml`` pyramid form, for 3 or more
+        levels; the ``sharded`` form on D > 1 slots; kernel B5 on one slot
+        in float32.  None when none qualifies or kernels are off."""
         grid = self.grid
-        if (not self.use_kernels or self.dtype != np.float32
-                or grid.n_devices != 1):
+        if not self.use_kernels:
             return None
         tml = build_flat_ml_tables(grid)
         if tml is not None:
-            if not flat_ml_kernel_fits(int(tml["n_vox"]), tml["vl"]):
-                return None
-            self._flat_kind = "ml_pallas"
-            return _FlatRun.multi_level(tml, self.device)
+            self._flat_n_vox = int(tml["n_vox"])
+            if (tml["n_devices"] == 1 and self.dtype == np.float32
+                    and flat_ml_kernel_fits(self._flat_n_vox, tml["vl"])):
+                self._flat_kind = "ml_pallas"
+                return _FlatRun.multi_level(tml, self.device)
+            self._flat_kind = "ml"
+            return _XlaFlatRun(make_flat_ml_run(grid, tml, self._run_dtype()),
+                               tml["shape"])
+        ts = build_flat_amr_sharded(grid)
+        if ts is not None:
+            self._flat_n_vox = int(np.prod(ts["shape"])) * ts["n_devices"]
+            self._flat_kind = "sharded"
+            return _XlaFlatRun(
+                make_flat_amr_run_sharded(grid, ts, self._run_dtype()),
+                ts["shape"])
+        if self.dtype != np.float32 or grid.n_devices != 1:
+            return None
         t = build_flat_amr_tables(grid)
         if t is None:
             return None
+        self._flat_n_vox = int(np.prod(t["shape"]))
         self._flat_kind = "pallas"
         return _FlatRun.two_level(t, self.device)
+
+    def _run_dtype(self):
+        """The XLA forms' dtype: float32 for a float32 model, else float64."""
+        return torch.float32 if self.dtype == np.float32 else torch.float64
 
     def _general_step(self, state, dt):
         """One gather step (the JAX package's ``_build_step`` body): a
@@ -549,11 +664,14 @@ class Advection:
         """Advance ``steps`` timesteps.  Dense: one whole-run kernel launch
         on one device when the block fits, else one step launch per step
         (the velocity halo planes hoisted out of the loop on the blocked
-        path).  Refined: one flat whole-run kernel launch when the grid
-        qualifies (``_flat_kind``), else the gather step (the split step
-        with ``overlap``) per step."""
+        path).  Refined: the boxed passes when preferred (``_prefer_boxed``),
+        else the flat form the grid qualifies for (``_flat_kind``; one
+        kernel launch for ``"pallas"`` / ``"ml_pallas"``), else the gather
+        step (the split step with ``overlap``) per step."""
         steps, dt = int(steps), self._scalar(dt)
         if self.dense is None:
+            if self._prefer_boxed:
+                return self._boxed_run(state, steps, dt)
             if self._flat_run is not None:
                 return self._flat_run.run(state, steps, dt)
             step = self._split_step if self.overlap else self._general_step
@@ -674,7 +792,7 @@ class Advection:
         )
         adv = Advection(grid, self.hood_id, self.dtype,
                         use_kernels=self.use_kernels, allow_dense=False,
-                        overlap=self.overlap)
+                        overlap=self.overlap, allow_boxed=self.allow_boxed)
         cells = grid.get_cells()
         centers = grid.geometry.get_center(cells)
         state = grid.set_cell_data(state, "vx", cells, -centers[:, 1] + 0.5)

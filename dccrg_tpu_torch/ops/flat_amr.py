@@ -44,6 +44,15 @@ this card has no lanes to align, so the wrappers take unpadded arrays only.
 The fit rules (``flat_amr_fits``, ``flat_ml_kernel_fits``) and the layout
 cost guards are copied from the JAX package, so both packages pick the same
 path; they model the TPU's on-chip memory, not this card's.
+
+The JAX package's two XLA forms of the scheme (XLA programs, no Pallas
+kernel) are plain torch here, over the port's leading slot axis:
+:func:`make_flat_amr_run_sharded` (levels {0, 1}, the voxel domain z-slab
+sharded over D > 1 slots, tables from :func:`build_flat_amr_sharded`) and
+:func:`make_flat_ml_run` (3 or more levels, any slot count, any float
+dtype: the multi-level reshape pyramid).  Their per-step z halo is the
+dense path's slot ring (``parallel/dense.HaloExtend``).  The face weights
+of both forms round in the run's dtype.
 """
 from __future__ import annotations
 
@@ -73,6 +82,9 @@ __all__ = [
     "flat_ml_kernel_fits",
     "flat_ml_run",
     "flat_ml_run_plain",
+    "build_flat_amr_sharded",
+    "make_flat_amr_run_sharded",
+    "make_flat_ml_run",
 ]
 
 # ----------------------------------------------- dispatch thresholds (copied)
@@ -411,6 +423,17 @@ def build_flat_ml_tables(grid):
     lev = lay["leaf_level"]                         # (nzv, nyv, nxv)
     lidx = lay["leaf_idx"].reshape(nzv, nyv, nxv)
 
+    def ringed(a):
+        """Per-slot slab with the z-neighbor slots' edge planes."""
+        return np.stack([
+            np.concatenate([
+                a[(d * nzl - 1) % nzv][None],
+                a[d * nzl:(d + 1) * nzl],
+                a[((d + 1) * nzl) % nzv][None],
+            ])
+            for d in range(D)
+        ])
+
     rows = lay["rows"]
     wb_rows, wb_valid = lay["wb_rows"], lay["wb_valid"]
     if D == 1:
@@ -453,7 +476,9 @@ def build_flat_ml_tables(grid):
         wb_rows=wb_rows,
         wb_valid=wb_valid,
         lev=lev_loc,
+        lev_ext=ringed(lev),
         lidx=lidx.reshape(D, nzl, nyv, nxv),
+        lidx_ext=ringed(lidx),
         updf=updf,
         pool=pool,
         caps=caps,
@@ -469,9 +494,15 @@ def build_flat_ml_tables(grid):
 
 def _iota(shape, axis: int, device):
     """Integer position along ``axis`` broadcast to ``shape``."""
-    view = [1, 1, 1]
+    view = [1] * len(shape)
     view[axis] = shape[axis]
     return torch.arange(shape[axis], device=device).view(view).expand(shape)
+
+
+def _rnd(v, like: torch.Tensor) -> float:
+    """``v`` rounded to ``like``'s float dtype (the JAX forms' ``dtype(v)``
+    constants)."""
+    return float(torch.tensor(v, dtype=torch.float64).to(like.dtype))
 
 
 def _face_weights(vl, vh, fl, fh, pos, area_d, extra_invalid=None):
@@ -479,8 +510,9 @@ def _face_weights(vl, vh, fl, fh, pos, area_d, extra_invalid=None):
     planes, two-level form: the reference's 2:1 length-weighted face
     velocity (``solve.hpp:168-175``), intra-coarse-block pairs (low side
     at even position) carry no face, ``extra_invalid`` masks e.g.
-    non-periodic wrap faces.  Float32, each op rounded on its own."""
-    third = _f32(1.0 / 3.0)
+    non-periodic wrap faces.  In the velocities' dtype, each op rounded on
+    its own."""
+    third = _rnd(1.0 / 3.0, vl)
     vface = torch.where(
         fl == fh,
         0.5 * (vl + vh),                      # same-kind: plain average
@@ -494,7 +526,7 @@ def _face_weights(vl, vh, fl, fh, pos, area_d, extra_invalid=None):
     if extra_invalid is not None:
         valid = valid & ~extra_invalid
     zero = torch.zeros((), dtype=vface.dtype, device=vface.device)
-    w = torch.where(valid, vface * _f32(area_d), zero)
+    w = torch.where(valid, vface * _rnd(area_d, vl), zero)
     wp = torch.where(vface >= 0, w, zero)
     return wp, w - wp
 
@@ -528,8 +560,9 @@ def compute_flat_weights(tables, VX, VY, VZ):
 def _face_weights_ml(va, vb, la, lb, ia, ib, area_d, extra_invalid):
     """Signed upwind weight pair for the multi-level layout: the
     length-weighted face velocity (2:1 balance keeps level differences
-    <= 1), intra-leaf pairs (same leaf on both sides) carry no face."""
-    third = _f32(1.0 / 3.0)
+    <= 1), intra-leaf pairs (same leaf on both sides) carry no face.  In
+    the velocities' dtype."""
+    third = _rnd(1.0 / 3.0, va)
     vface = torch.where(
         la == lb,
         0.5 * (va + vb),
@@ -543,14 +576,14 @@ def _face_weights_ml(va, vb, la, lb, ia, ib, area_d, extra_invalid):
     if extra_invalid is not None:
         valid = valid & ~extra_invalid
     zero = torch.zeros((), dtype=vface.dtype, device=vface.device)
-    w = torch.where(valid, vface * _f32(area_d), zero)
+    w = torch.where(valid, vface * _rnd(area_d, va), zero)
     wp = torch.where(vface >= 0, w, zero)
     return wp, w - wp
 
 
-def compute_flat_ml_weights(tables, VX, VY, VZ):
+def compute_flat_ml_weights(tables, VX, VY, VZ, dtype=torch.float32):
     """Per-voxel-face upwind weights of the multi-level layout on one
-    device (full-domain rolls = periodic wrap), float32."""
+    device (full-domain rolls = periodic wrap), in ``dtype``."""
     nzl, nyv, nxv = tables["shape"]
     if tables["n_devices"] != 1:
         raise ValueError("compute_flat_ml_weights takes a one-device layout")
@@ -563,7 +596,7 @@ def compute_flat_ml_weights(tables, VX, VY, VZ):
     out = []
     for d, vel, n in ((0, VX, nxv), (1, VY, nyv), (2, VZ, nzl)):
         ax = 2 - d
-        v = vel.to(torch.float32)
+        v = vel.to(dtype)
         pos = _iota(shape, ax, dev)
         extra = None if periodic[d] else (pos == n - 1)
         out.append(_face_weights_ml(
@@ -782,3 +815,275 @@ def flat_ml_run(V, wpx, wnx, wpy, wny, wpz, wnz, updf, pool, caps, dt, steps,
     )
     _launched("flat_ml_run", err)
     return out
+
+
+# ------------------------------------------------------- XLA forms (torch)
+
+def _np_dtype(dtype):
+    return np.dtype(str(dtype).replace("torch.", ""))
+
+
+def build_flat_amr_sharded(grid):
+    """Multi-slot flat layout: the level-1-resolution domain z-slab sharded
+    over the slots, one slab per slot — the multi-slot form of the
+    two-level scheme, with the per-step halo two voxel planes (the dense
+    path's ring).
+
+    Requires the shared layout's multi-slot rules (levels {0, 1} with
+    refinement, Cartesian, slabs holding whole coarse blocks, ownership
+    equal to the voxel-slab partition) and the JAX package's cost guards.
+    Returns the static tables dict or None."""
+    epoch = grid.epoch
+    D = epoch.n_devices
+    if D == 1:
+        return None
+    lay = flat_voxel_layout(grid, allow_uniform=False,
+                            allow_multi_device=True)
+    if lay is None or lay["leaf_fine"].all():
+        return None
+    nz1, ny1, nx1 = lay["shape"]
+    nzl1 = nz1 // D
+    n_loc = nzl1 * ny1 * nx1
+    n_vox = nz1 * ny1 * nx1
+    N = len(epoch.leaves)
+    # cost guards (the JAX package's): the 8x inflation within a modest
+    # factor of the real leaf count, ~12 per-slot voxel arrays in 2 GiB
+    if n_vox > max(8 * N, 1 << 22):
+        return None
+    if 12 * n_loc * 4 > (2 << 30):
+        return None
+
+    # ringed leaf mask: the z-neighbor slots' edge planes
+    lf_global = lay["leaf_fine"]
+    leaf_ext = np.stack([
+        np.concatenate([
+            lf_global[(d * nzl1 - 1) % nz1][None],
+            lf_global[d * nzl1:(d + 1) * nzl1],
+            lf_global[((d + 1) * nzl1) % nz1][None],
+        ])
+        for d in range(D)
+    ])
+
+    l1 = np.asarray(grid.geometry.get_level_0_cell_length(), np.float64) / 2.0
+    return dict(
+        shape=(nzl1, ny1, nx1),
+        n_devices=D,
+        rows=lay["rows"],
+        leaf_fine=lf_global.reshape(D, nzl1, ny1, nx1),
+        leaf_ext=leaf_ext,
+        wb_rows=lay["wb_rows"],
+        wb_valid=lay["wb_valid"],
+        area_f=np.array([l1[1] * l1[2], l1[0] * l1[2], l1[0] * l1[1]]),
+        vol_f=float(l1.prod()),
+        vol_c=float(l1.prod() * 8.0),
+        periodic=tuple(bool(grid.topology.is_periodic(d)) for d in range(3)),
+    )
+
+
+class _SlabRun:
+    """What the two XLA forms share: the static row tables on the device,
+    the per-slot voxel gather of a field, the z ring, and the write-back
+    ``where(wb_valid, out[wb_rows], density)``."""
+
+    def __init__(self, grid, tables, dtype):
+        from ..parallel.dense import HaloExtend
+
+        self.device = grid.device
+        self.dtype = dtype
+        self.D = tables["n_devices"]
+        self.shape = tuple(tables["shape"])
+        self.ring = HaloExtend(self.D)
+        self.rows = self.put(tables["rows"], torch.int64)
+        self.wb_rows = self.put(tables["wb_rows"], torch.int64)
+        self.wb_valid = self.put(tables["wb_valid"], torch.bool)
+
+    def put(self, a, dt=None):
+        t = torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        return t if dt is None else t.to(dt)
+
+    def field(self, rows_state):
+        return (torch.gather(rows_state, 1, self.rows)
+                .reshape((self.D,) + self.shape).to(self.dtype))
+
+    def zext(self, v):
+        below, above = self.ring.planes(v)
+        return torch.cat([below, v, above], dim=1)
+
+    def gface(self):
+        """Global z face index ``slot*nzl - 1 + j`` of the nzl+1 faces of
+        each slot's ringed slab, ``[D, nzl+1, 1, 1]``."""
+        nzl = self.shape[0]
+        d = torch.arange(self.D, device=self.device).view(-1, 1, 1, 1)
+        j = torch.arange(nzl + 1, device=self.device).view(1, -1, 1, 1)
+        return d * nzl - 1 + j
+
+    def dt(self, dt) -> float:
+        return float(_np_dtype(self.dtype).type(dt))
+
+    def write_back(self, state, out):
+        rho_rows = state["density"]
+        vals = torch.gather(out.reshape(self.D, -1), 1, self.wb_rows)
+        rho = torch.where(self.wb_valid, vals.to(rho_rows.dtype), rho_rows)
+        return {**state, "density": rho,
+                "flux": torch.zeros_like(state["flux"])}
+
+    @staticmethod
+    def delta(Vc, wpx, wnx, wpy, wny, fz_faces):
+        """Flux divergence in the JAX forms' order: x, y, then the ringed
+        z faces."""
+        fx = Vc * wpx + torch.roll(Vc, -1, 3) * wnx
+        fy = Vc * wpy + torch.roll(Vc, -1, 2) * wny
+        delta = torch.roll(fx, 1, 3) - fx
+        delta = delta + torch.roll(fy, 1, 2) - fy
+        return delta + fz_faces[:, :-1] - fz_faces[:, 1:]
+
+
+def make_flat_amr_run_sharded(grid, tables, dtype=torch.float32):
+    """``run(state, steps, dt) -> state`` of the multi-slot two-level flat
+    form (the JAX package's ``make_flat_amr_run_sharded``, plain torch):
+    per step two ringed voxel planes and one weighted flux pass plus the
+    intra-slab 2x2x2 pool/broadcast (coarse blocks never straddle slabs).
+    The weights are computed once a run from the ringed velocity fields,
+    with ``dt`` premultiplied as in the one-slot kernel's wrapper."""
+    sr = _SlabRun(grid, tables, dtype)
+    D, (nzl1, ny1, nx1) = sr.D, sr.shape
+    px, py, pz = tables["periodic"]
+    area = tables["area_f"]
+    nd = _np_dtype(dtype)
+    inv_vf = float(nd.type(1.0 / tables["vol_f"]))
+    inv_vc = float(nd.type(1.0 / tables["vol_c"]))
+    leaf = sr.put(tables["leaf_fine"])
+    leaf_ext = sr.put(tables["leaf_ext"])
+    full = (D, nzl1, ny1, nx1)
+    updf = leaf.to(dtype) * inv_vf
+    pool = (~leaf).to(dtype)
+    updc = pool * inv_vc
+    even = [_iota(full, a, sr.device) % 2 == 0 for a in (1, 2, 3)]
+    orig = (even[2] & even[1] & even[0]).to(dtype)
+
+    def run(state, steps, dt):
+        V = sr.field(state["density"])
+        VX, VY, VZ = (sr.field(state[k]) for k in ("vx", "vy", "vz"))
+        w_xy = []
+        for d2, vel, n in ((0, VX, nx1), (1, VY, ny1)):
+            ax = 3 - d2
+            pos = _iota(full, ax, sr.device)
+            extra = None if (px, py)[d2] else (pos == n - 1)
+            w_xy.append(_face_weights(
+                vel, torch.roll(vel, -1, ax), leaf, torch.roll(leaf, -1, ax),
+                pos, area[d2], extra,
+            ))
+        (wpx, wnx), (wpy, wny) = w_xy
+        VZe = sr.zext(VZ)
+        gface = sr.gface()
+        extra_z = None if pz else (gface == -1) | (gface == D * nzl1 - 1)
+        wzp, wzn = _face_weights(
+            VZe[:, :-1], VZe[:, 1:], leaf_ext[:, :-1], leaf_ext[:, 1:],
+            gface, area[2], extra_z,
+        )
+        dtc = sr.dt(dt)
+        wpx, wnx, wpy, wny = wpx * dtc, wnx * dtc, wpy * dtc, wny * dtc
+        wzp, wzn = wzp * dtc, wzn * dtc
+
+        Vc = V
+        for _ in range(int(steps)):
+            Ve = sr.zext(Vc)
+            fz_faces = Ve[:, :-1] * wzp + Ve[:, 1:] * wzn
+            delta = sr.delta(Vc, wpx, wnx, wpy, wny, fz_faces)
+            s = delta * pool
+            s = s + torch.roll(s, -1, 3)
+            s = s + torch.roll(s, -1, 2)
+            s = s + torch.roll(s, -1, 1)
+            s = s * orig
+            s = s + torch.roll(s, 1, 3)
+            s = s + torch.roll(s, 1, 2)
+            s = s + torch.roll(s, 1, 1)
+            Vc = Vc + (delta * updf + s * updc)
+        return sr.write_back(state, Vc)
+
+    return run
+
+
+def make_flat_ml_run(grid, tables, dtype=torch.float32):
+    """``run(state, steps, dt) -> state`` of the multi-level flat form (the
+    JAX package's ``make_flat_ml_run``, plain torch, any slot count): per
+    step two ringed voxel planes, one weighted flux pass, and the reshape
+    pyramid — the coarse leaves' block sums pooled down one 2x2x2
+    reduction a doubling, captured at their own resolution, and broadcast
+    back up."""
+    sr = _SlabRun(grid, tables, dtype)
+    D, (nzl, nyv, nxv) = sr.D, sr.shape
+    vl = tables["vl"]
+    px, py, pz = tables["periodic"]
+    area = tables["area_f"]
+    cap_active = tables["cap_active"]
+    kmax = _kmax(cap_active)
+    lev, lev_ext = sr.put(tables["lev"]), sr.put(tables["lev_ext"])
+    lidx, lidx_ext = sr.put(tables["lidx"]), sr.put(tables["lidx_ext"])
+    # volume tables stored in f64, shipped in the run's dtype
+    updf = sr.put(tables["updf"], dtype)
+    pool = sr.put(tables["pool"], dtype)
+    caps = [sr.put(c, dtype) for c in tables["caps"]]
+    full = (D, nzl, nyv, nxv)
+
+    def down2(a):
+        D_, nz_, ny_, nx_ = a.shape
+        return a.reshape(D_, nz_ // 2, 2, ny_ // 2, 2, nx_ // 2, 2).sum(
+            dim=(2, 4, 6))
+
+    def up2(a):
+        D_, nz_, ny_, nx_ = a.shape
+        return a[:, :, None, :, None, :, None].expand(
+            D_, nz_, 2, ny_, 2, nx_, 2).reshape(D_, nz_ * 2, ny_ * 2, nx_ * 2)
+
+    def run(state, steps, dt):
+        V = sr.field(state["density"])
+        VX, VY, VZ = (sr.field(state[k]) for k in ("vx", "vy", "vz"))
+        w_xy = []
+        for d2, vel, n in ((0, VX, nxv), (1, VY, nyv)):
+            ax = 3 - d2
+            pos = _iota(full, ax, sr.device)
+            extra = None if (px, py)[d2] else (pos == n - 1)
+            w_xy.append(_face_weights_ml(
+                vel, torch.roll(vel, -1, ax),
+                lev, torch.roll(lev, -1, ax),
+                lidx, torch.roll(lidx, -1, ax),
+                area[d2], extra,
+            ))
+        (wpx, wnx), (wpy, wny) = w_xy
+        VZe = sr.zext(VZ)
+        gface = sr.gface()
+        extra_z = None if pz else (gface == -1) | (gface == D * nzl - 1)
+        wzp, wzn = _face_weights_ml(
+            VZe[:, :-1], VZe[:, 1:], lev_ext[:, :-1], lev_ext[:, 1:],
+            lidx_ext[:, :-1], lidx_ext[:, 1:], area[2], extra_z,
+        )
+        dtc = sr.dt(dt)
+        wpx, wnx, wpy, wny = wpx * dtc, wnx * dtc, wpy * dtc, wny * dtc
+        wzp, wzn = wzp * dtc, wzn * dtc
+
+        Vc = V
+        for _ in range(int(steps)):
+            Ve = sr.zext(Vc)
+            fz_faces = Ve[:, :-1] * wzp + Ve[:, 1:] * wzn
+            delta = sr.delta(Vc, wpx, wnx, wpy, wny, fz_faces)
+            out_add = delta * updf
+            if kmax >= 0:
+                subs = []
+                cur = delta * pool
+                for _k in range(kmax + 1):
+                    cur = down2(cur)
+                    subs.append(cur)
+                acc = None
+                for k in range(kmax, -1, -1):
+                    if acc is not None:
+                        acc = up2(acc)
+                    if cap_active[k]:
+                        contrib = subs[k] * caps[k]
+                        acc = contrib if acc is None else acc + contrib
+                if acc is not None:
+                    out_add = out_add + up2(acc)
+            Vc = Vc + out_add
+        return sr.write_back(state, Vc)
+
+    return run

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip-side probes of the Vlasov step kernel B7, the BiCG whole-solve
-kernel B8 and the halo gather B9 that ``chip_smoke.py`` does not run.
+kernel B8, the halo gather B9 and the flat-against-boxed dispatch edges
+that ``chip_smoke.py`` does not run.
 
 Run from the repository root on a machine with a CUDA card (an H100):
 
     python3 kernel_probe.py vlasov-sweep    # B7 forms x plans, 32^3 x 512 bins
     python3 kernel_probe.py bicg-profile    # B8 cycles an iteration by phase
     python3 kernel_probe.py ring-sweep [--baseline DIR]   # B9 forms
+    python3 kernel_probe.py boxed-edge      # flat forms against boxed passes
 
 ``vlasov-sweep`` compiles copies of ``csrc/vlasov.cu`` with other tile rows
 (``kMaxRows``), window stages (``kStages``) and CTAs an SM (``kMinCtas``),
@@ -45,6 +47,14 @@ checkout) and times it beside every form at the two payload shapes in
 launch), in turns (baseline, the forms, the forms reversed, baseline),
 and the three-field blocking exchange on that checkout's protocol against
 one launch.
+
+``boxed-edge`` runs the refined grids of ``chip_smoke.py`` (48^3 with one
+ball refined, 96^3 voxels; 16^3 with two, 64^3 voxels) through the flat
+form the dispatch picks (B5, B6, and in float64 the ``ml`` pyramid form)
+and through the boxed per-level passes, and prints each one's voxel-updates
+a second (wall clock, median of 3 runs) and their ratio: the edge
+``models/advection.py`` prefers the boxed passes past
+(``FLAT_BOXED_EDGE``, ``ML_BOXED_EDGE``).
 
 Copies build into ``dccrg_tpu_torch/_build/probe/``.  Without CUDA the
 script exits 1 and prints nothing else.
@@ -337,6 +347,69 @@ def refined_grid(n, radius, center, n_devices):
     return g
 
 
+def boxed_edge(card: str) -> int:
+    """The per-voxel rate of each flat form over the boxed passes' on the
+    refined grids: the dispatch edge the card gives."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid
+
+    def grid(n, radii, max_ref):
+        g = (Grid().set_initial_length((n, n, n)).set_neighborhood_length(0)
+             .set_periodic(True, True, True).set_maximum_refinement_level(max_ref)
+             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                           level_0_cell_length=(1.0 / n,) * 3)
+             .initialize())
+        center = (0.3, 0.5, 0.5) if max_ref == 1 else (0.5, 0.5, 0.5)
+        for rad in radii:
+            ids = g.get_cells()
+            r = np.linalg.norm(g.geometry.get_center(ids) - np.asarray(center), axis=1)
+            lv = g.mapping.get_refinement_level(ids)
+            g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
+            g.stop_refining()
+        return g
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return statistics.median(times)
+
+    for label, g in (("refined", grid(48, (0.3,), 1)),
+                     ("refined3", grid(16, (0.6, 0.55), 2))):
+        for dtype in (np.float32, np.float64):
+            adv = Advection(g, dtype=dtype, allow_dense=False)
+            if adv._flat_run is None or adv._boxed_run is None:
+                print(f"{label} {np.dtype(dtype).name}: flat {adv._flat_kind}, "
+                      f"boxed {adv._boxed_run is not None}: no pair", flush=True)
+                continue
+            s = adv.initialize_state()
+            dt = 0.4 * adv.max_time_step(s)
+            n_flat = adv._flat_n_vox
+            n_box = sum(int(np.prod(b.shape)) for b in adv.boxed.boxes.values())
+            fs, bs = (200, 20) if adv._flat_kind.endswith("pallas") else (20, 20)
+            adv._flat_run.run(s, 2, dt)
+            adv._boxed_run(s, 2, dt)
+            tf = wall(lambda: adv._flat_run.run(s, fs, dt))
+            tb = wall(lambda: adv._boxed_run(s, bs, dt))
+            rf, rb = n_flat * fs / tf, n_box * bs / tb
+            print(f"{label} {np.dtype(dtype).name} {len(g.get_cells())} leaves: "
+                  f"{adv._flat_kind} {n_flat} voxels {rf!r} voxel-updates/s "
+                  f"({fs} steps in {tf!r} s); boxed {n_box} voxels {rb!r} "
+                  f"voxel-updates/s ({bs} steps in {tb!r} s); edge {rf / rb!r}; "
+                  f"the dispatch takes {'boxed' if adv._prefer_boxed else adv._flat_kind}"
+                  f" on {card}", flush=True)
+    return 0
+
+
 def ring_sweep(card: str, baseline) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -492,7 +565,7 @@ def main() -> int:
     if args[1:2] == ["--baseline"] and len(args) == 3:
         baseline = args.pop()
         args.pop()
-    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep")
+    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge")
     if len(args) != 1 or args[0] not in modes \
             or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
@@ -504,6 +577,8 @@ def main() -> int:
     print(card, flush=True)
     if args[0] == "ring-sweep":
         return ring_sweep(card, baseline)
+    if args[0] == "boxed-edge":
+        return boxed_edge(card)
     return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 

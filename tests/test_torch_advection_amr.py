@@ -92,8 +92,11 @@ def test_dispatch_labels_match_jax(levels, kind):
     assert ja._flat_kind == kind + "_interpret"
     assert pa._flat_kind == kind
     assert pa.dense is None and ja.dense is None
-    # float64, or kernels turned off: the gather path
-    assert dccrg_tpu_torch.Advection(pg, dtype=np.float64)._flat_kind is None
+    # float64: no kernel; the JAX package's f64 form (None on two levels,
+    # the "ml" pyramid on three); kernels turned off: the gather path
+    assert (dccrg_tpu_torch.Advection(pg, dtype=np.float64)._flat_kind
+            == JAdvection(jg, dtype=np.float64)._flat_kind
+            == (None if levels == 1 else "ml"))
     assert dccrg_tpu_torch.Advection(pg, dtype=np.float32,
                                      use_kernels=False)._flat_kind is None
     assert JAdvection(jg, dtype=np.float32, use_pallas=False)._flat_kind is None

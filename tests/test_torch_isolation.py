@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package,
-and it never drops to the CPU unless asked."""
+loads no file of the JAX package by path, and it never drops to the CPU
+unless asked."""
 import ast
 import pathlib
 import subprocess
@@ -28,6 +29,35 @@ def test_no_jax_imports(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+#: calls that run or load a source file by path
+_BY_PATH = {"spec_from_file_location", "SourceFileLoader", "SourcelessFileLoader",
+            "run_path", "run_module", "load_source", "exec", "execfile"}
+
+
+def _call_name(func) -> str:
+    return func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_package_files_loaded_by_path(path):
+    """No port file runs a file by path (``importlib.util.
+    spec_from_file_location``, ``runpy``, ``exec``), the way a module of
+    ``dccrg_tpu/`` could be loaded without importing the package, and no
+    ``importlib.import_module`` / ``__import__`` names the JAX package."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(node, ast.Call):
+            continue
+        name = _call_name(node.func)
+        if name in _BY_PATH:
+            bad.append(f"{name}() at line {node.lineno}")
+        elif name in ("import_module", "__import__") and node.args:
+            arg = node.args[0]
+            if not isinstance(arg, ast.Constant) or _forbidden(str(arg.value)):
+                bad.append(f"{name}() at line {node.lineno}")
+    assert not bad, f"{path.name} loads code dynamically: {bad}"
 
 
 _PROBE = """
@@ -98,8 +128,23 @@ for dtype in (np.float64, np.float32):
     assert (p._solve_fast is not None) == (dtype == np.float32)
     s, res, it = p.solve(p.initialize_state(np.sin(2 * np.pi * x)), max_iterations=20)
     assert np.isfinite(res) and it > 0
+# checkpoint round trip, VTK, the boxed passes and the flat XLA forms
+import os, tempfile
+a = P.Advection(g, dtype=np.float64)
+s = a._boxed_run(a.initialize_state(), 2, 0.3 * a.max_time_step(a.initialize_state()))
+with tempfile.TemporaryDirectory() as tmp:
+    g.save_grid_data(s, os.path.join(tmp, "c.dc"), a.spec)
+    g2, s2, _ = P.Grid.load_grid_data(os.path.join(tmp, "c.dc"), a.spec, n_devices=2,
+                                      device="cpu")
+    g2.write_vtk_file(os.path.join(tmp, "c.vtk"),
+                      {"density": g2.get_cell_data(s2, "density", g2.get_cells())})
+a2 = P.Advection(g2, dtype=np.float64)
+assert np.isfinite(a2.total_mass(a2.run(g2.update_copies_of_remote_neighbors(s2), 2, 0.01)))
+root = os.path.realpath("dccrg_tpu") + os.sep
 print(sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")))
+             if m.split(".")[0] in ("jax", "jaxlib", "dccrg_tpu")
+             or os.path.realpath(getattr(sys.modules[m], "__file__", None) or "")
+             .startswith(root)))
 """
 
 

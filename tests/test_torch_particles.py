@@ -361,3 +361,21 @@ def test_float32_default_and_device():
               velocity=(0.1, 0.2, 0.05), dt=0.5)
     assert s["particles"].dtype == torch.float32 and s["particles"].device == g.device
     assert m.count(s) == 50 and int(s["overflow"]) == 0
+
+
+@pytest.mark.parametrize("refined", [False, True], ids=["uniform", "refined"])
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_device_rebucket_at_inexact_dt_matches_jax(n_dev, refined):
+    """The device path through run() at ``dt = 0.3 / max(L)``, where
+    ``v * dt`` is not exact (the other cases' ``dt = 0.5`` makes it exact):
+    counts and coordinates still bitwise equal to the JAX package's run."""
+    kw = (dict(prep=_refined_prep, length=(4, 4, 2), max_ref=2) if refined
+          else dict(length=(8, 8, 4)))
+    jm, tm = both(P=64, periodic=(True, True, True), n_dev=n_dev, **kw)
+    assert tm._dev_rebucket is not None
+    dt = 0.3 / max(kw["length"])
+    pts = np.random.default_rng(13).uniform(0, 1, size=(300, 3))
+    js = jm.run(jm.new_state(pts), 8, velocity=(0.09, -0.04, 0.13), dt=dt)
+    ts = tm.run(tm.new_state(pts), 8, velocity=(0.09, -0.04, 0.13), dt=dt)
+    assert tm.count(ts) == 300
+    assert_same(jm, js, tm, ts)
