@@ -201,10 +201,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 200 gather steps with relative mass drift below 1e-5 (the
                 drift of the classification before the repair logged
                 beside it), run(200) through B5 / B6 against the 200
-                gather steps within 1e-4.
+                gather steps within 1e-4;
+29. obs       — (after phase 17) the observability plane (``obs``):
+                split_advection's 50 steps and the adapted refined grid's
+                run(200) with telemetry on and ``disable()``d in turns (off,
+                on, on, off; five rounds): the median on/off ratio of each,
+                at most 1.10; ``profile_trace`` around 5 split steps and a
+                headline run(50), ``merge_profile``: the merged trace valid,
+                at least 2 clock syncs, device time attributed to
+                ``halo.ring_copy`` and ``fused_run``, the merged
+                ``device.busy_fraction{device=0}`` within 0.02 of the union
+                of the raw trace's kernel, copy and memset intervals over
+                their first start to last end, ``overlap.fraction{phase=
+                halo}`` in [0, 1], the top 5 host gaps with their open host
+                phases, the Kineto categories seen; ``sample_hbm`` after a
+                refined epoch build equal to the allocator's
+                ``memory_allocated`` / ``max_memory_allocated``; a small
+                8-slot workload (exchange, HSFC balance_load, refine,
+                save_grid_data) fires ``halo.exchange``, ``epoch.build``,
+                ``loadbalance.migrate``, ``amr.refine`` and
+                ``checkpoint.write`` with nonzero byte counters, and its
+                ``telemetry.json``, stream, timeline trace and flight
+                recorder dump pass the port's own readers and validators.
 
 Launch counters are set to 0 just before each of phases 3-19 and 21-28
-drives its path and read just after.  Output ends with the card's name and power limit, one
+drives its path and read just after.  Telemetry is on throughout, as it
+is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.
@@ -335,7 +357,7 @@ def main() -> int:
     from dccrg_tpu_torch.core import neighbors as NB
     from dccrg_tpu_torch.io import checkpoint as CK
     from dccrg_tpu_torch.models import advection as A_mod
-    from dccrg_tpu_torch.parallel import epoch_delta
+    from dccrg_tpu_torch import obs
     from dccrg_tpu_torch.parallel.boxed import build_boxed
     from dccrg_tpu_torch.parallel.epoch import build_epoch
     from dccrg_tpu_torch.parallel.shapes import epoch_shape_hints
@@ -372,6 +394,16 @@ def main() -> int:
 
     def sync():
         torch.cuda.synchronize()
+
+    def counters(prefix):
+        """The registry's counter series whose names start with ``prefix``,
+        flat: ``{"name{labels}": value}`` (``"name"`` unlabelled)."""
+        out = {}
+        for name, series in obs.metrics.report()["counters"].items():
+            if name.startswith(prefix):
+                for lab, v in series.items():
+                    out[f"{name}{{{lab}}}" if lab else name] = v
+        return out
 
     def uniform_grid(shape, n_devices=1):
         nx, ny, nz = shape
@@ -1087,6 +1119,171 @@ def main() -> int:
     log(f"[kernels] DCCRG_HALO_VERIFY=1: {ex_v.verify_checks} checks (blocking and "
         f"split), no mismatch")
 
+    def obs_phase(adv_s, s_sa, dt_sa, adv_a, s_a, dt_r, adv_h, s_h, dt_h):
+        """Phase 29: the observability plane's overhead, its profiled and
+        merged device timeline, its memory gauges, and its hooks and files
+        on a small workload (see the module docstring)."""
+        # overhead: telemetry on and disable()d in turns (off, on, on, off),
+        # five rounds; a round's ratio is its two on runs over its two off
+        # runs, so a drift of the card's or the host's speed across the
+        # rounds cancels, and the median of the five is the result
+        for label, fn in (("split_advection 50 steps",
+                           lambda: adv_s.run(s_sa, 50, dt_sa)),
+                          ("refined run(200)", lambda: adv_a.run(s_a, 200, dt_r))):
+            for _ in range(3):
+                fn()
+            times = {True: [], False: []}
+            ratios = []
+            for _ in range(5):
+                got = {True: 0.0, False: 0.0}
+                for on in (False, True, True, False):
+                    (obs.enable if on else obs.disable)()
+                    sync()
+                    t = time.perf_counter()
+                    fn()
+                    sync()
+                    secs = time.perf_counter() - t
+                    got[on] += secs
+                    times[on].append(secs)
+                ratios.append(got[True] / got[False])
+            obs.enable()
+            ratio = statistics.median(ratios)
+            log(f"[obs] overhead, {label}: median on/off {ratio!r} (rounds "
+                f"{[round(r, 5) for r in ratios]}; medians on "
+                f"{statistics.median(times[True])!r} s, off "
+                f"{statistics.median(times[False])!r} s; runs on "
+                f"{[round(t, 6) for t in times[True]]}, off "
+                f"{[round(t, 6) for t in times[False]]}) on {card}")
+            check(ratio <= 1.10, f"obs: {label} on/off ratio {ratio:.4f} > 1.10")
+
+        # a profiled round merged onto the host timeline
+        obs.timeline.clear()
+        with tempfile.TemporaryDirectory() as tmp:
+            log_dir = os.path.join(tmp, "prof")
+            with obs.profile_trace(log_dir):
+                adv_s.run(s_sa, 5, dt_sa)
+                adv_h.run(s_h, 50, dt_h)
+            merged_path = os.path.join(tmp, "merged_trace.json")
+            merged, summ = obs.merge_profile(log_dir, out_path=merged_path)
+            bad = obs.validate_merged_trace(merged_path)
+            check(bad == [], f"obs: merged trace invalid: {bad[:5]}")
+            ing = obs.kineto.ingest(log_dir)
+            log(f"[obs] Kineto categories seen: {ing.plane_names}")
+            n_sync = len(obs.kineto.clock_syncs(ing))
+            check(n_sync >= 2, f"obs: {n_sync} clock syncs")
+            kern = summ["kernels"]
+            check("halo.ring_copy" in kern and "fused_run" in kern,
+                  f"obs: attribution misses halo.ring_copy / fused_run: {list(kern)[:12]}")
+            # the busy share by hand from the raw trace: the union of the
+            # device intervals over their first start to last end
+            (raw_path,) = obs.kineto.find_trace_files(log_dir)
+            with open(raw_path) as fh:
+                raw = [e for e in json.load(fh)["traceEvents"]
+                       if e.get("ph") == "X"
+                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                       and float(e.get("dur", 0)) > 0]
+            ivs = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in raw)
+            union, cur = 0.0, None
+            for a, b in ivs:
+                if cur is None or a > cur[1]:
+                    union += 0.0 if cur is None else cur[1] - cur[0]
+                    cur = [a, b]
+                else:
+                    cur[1] = max(cur[1], b)
+            union += cur[1] - cur[0]
+            span = max(b for _, b in ivs) - ivs[0][0]
+            hand = union / span
+            summed = sum(b - a for a, b in ivs) / span
+            busy = obs.metrics.gauge_value("device.busy_fraction", device=0)
+            check(busy is not None and abs(busy - hand) <= 0.02,
+                  f"obs: merged busy share {busy} vs the hand count {hand}")
+            frac = obs.metrics.gauge_value("overlap.fraction", phase="halo")
+            check(frac is not None and 0.0 <= frac <= 1.0,
+                  f"obs: overlap.fraction{{phase=halo}} {frac}")
+            top = [(k, v["time_us"], v["count"]) for k, v in list(kern.items())[:8]]
+            log(f"[obs] profiled 5 split steps + headline run(50): {summ['device_spans']} "
+                f"device spans, {n_sync} clock syncs (spread "
+                f"{summ['alignment']['spread_ns']!r} ns); busy share {busy!r} "
+                f"(hand count, union {hand!r}; the sum of spans would say "
+                f"{summed!r}); overlap.fraction{{phase=halo}} {frac!r}; window "
+                f"{summ['window_s']!r} s; top kernels (label, us, launches) {top} "
+                f"on {card}")
+            for gap in merged.host_gaps(min_us=20.0, top=5):
+                log(f"[obs] host gap {gap['dur_us']!r} us at {gap['start_us']!r} us: "
+                    f"open host phases {gap['open_host_phases']}")
+
+        # device memory gauges against the allocator
+        g_h = refined_grid(24, (0.3,), (0.3, 0.5, 0.5), 1)
+        got = obs.sample_hbm()
+        alloc, peak = torch.cuda.memory_allocated(0), torch.cuda.max_memory_allocated(0)
+        total = torch.cuda.mem_get_info(0)[1]
+        check(got.get(0) == {"bytes_in_use": alloc, "peak_bytes_in_use": peak,
+                             "bytes_limit": total},
+              f"obs: sample_hbm {got} vs allocator {alloc}, {peak}, {total}")
+        check(obs.metrics.gauge_value("hbm.bytes_in_use", device=0) == alloc,
+              "obs: hbm.bytes_in_use gauge")
+        log(f"[obs] sample_hbm after a refined epoch build ({len(g_h.get_cells())} "
+            f"leaves): {got[0]} == memory_allocated / max_memory_allocated / "
+            f"mem_get_info total")
+        del g_h
+
+        # every instrumented phase fires; the files pass the port's readers
+        before = obs.metrics.report()
+        g_o = refined_grid(16, (0.3,), (0.5, 0.5, 0.5), 1, n_devices=8)
+        g_o.set_partitioning_option("LB_METHOD", "HSFC")
+        s_o = g_o.new_state({"v": ((), np.float32), "w": ((3,), np.float32)})
+        s_o = g_o.update_copies_of_remote_neighbors(s_o)
+        g_o.balance_load()
+        s_o = g_o.update_copies_of_remote_neighbors(g_o.remap_state(s_o))
+        ids_o = g_o.get_cells()
+        g_o.refine_completely_many(ids_o[g_o.mapping.get_refinement_level(ids_o) == 0][:3])
+        g_o.stop_refining()
+        s_o = g_o.update_copies_of_remote_neighbors(g_o.remap_state(s_o))
+        with tempfile.TemporaryDirectory() as tmp:
+            stream_path = os.path.join(tmp, "telemetry.json.stream.jsonl")
+            st = obs.TelemetryStream(stream_path, truncate=True)
+            st.write_snapshot()
+            g_o.save_grid_data(s_o, os.path.join(tmp, "c.dc"),
+                               {"v": ((), np.float32), "w": ((3,), np.float32)})
+            st.write_snapshot()
+            after = obs.metrics.report()
+            fired = {}
+            for ph in ("halo.exchange", "epoch.build", "loadbalance.migrate",
+                       "amr.refine", "checkpoint.write"):
+                fired[ph] = (after["phases"].get(ph, {}).get("count", 0)
+                             - before["phases"].get(ph, {}).get("count", 0))
+                check(fired[ph] > 0, f"obs: phase {ph} did not fire")
+            bytes_ = {}
+            for name in ("halo.bytes_moved", "checkpoint.bytes_written"):
+                bytes_[name] = (sum(after["counters"].get(name, {}).values())
+                                - sum(before["counters"].get(name, {}).values()))
+                check(bytes_[name] > 0, f"obs: {name} did not count")
+            tele = os.path.join(tmp, "telemetry.json")
+            obs.export_json(tele, extra={"workload": "chip_smoke obs"})
+            rep = obs.slo.load_report(tele)
+            check(set(rep) >= {"phases", "counters", "gauges", "histograms"}
+                  and rep["counters"]["halo.bytes_moved"] == after["counters"]["halo.bytes_moved"],
+                  "obs: telemetry.json does not read back")
+            tail = obs.live.StreamTailer(stream_path)
+            lines = tail.poll()
+            check(len(lines) == 2 and tail.seq_gaps == tail.torn_tails == tail.bad_lines == 0
+                  and all({"seq", "ts", "phases", "counters"} <= set(r) for r in lines),
+                  f"obs: stream {len(lines)} lines, gaps {tail.seq_gaps}")
+            trace = os.path.join(tmp, "telemetry.json.trace.json")
+            obs.export_chrome_trace(trace)
+            bad = obs.validate_merged_trace(trace)
+            check(bad == [], f"obs: timeline trace invalid: {bad[:5]}")
+            dump = obs.flight_recorder.dump(os.path.join(tmp, "flightrec.json"),
+                                            reason="chip_smoke")
+            bad = obs.validate_flightrec(dump)
+            check(bad == [], f"obs: flight recorder dump invalid: {bad[:5]}")
+            sizes = {os.path.basename(f): os.path.getsize(f)
+                     for f in (tele, stream_path, trace, dump)}
+        log(f"[obs] 8-slot workload: phases fired {fired}, byte counters {bytes_}; "
+            f"telemetry.json, stream, timeline trace and flight recorder dump "
+            f"valid ({sizes} bytes); epoch.recompiles {counters('epoch.recompiles')}")
+        del g_o, s_o
+
     # ------------------------------------------------ 3-11. the main path
     launches = {}
 
@@ -1153,6 +1350,7 @@ def main() -> int:
     log(f"[headline] 200 steps: bitwise equal to the twin; vs the f64 step "
         f"body max err / max density {rel64!r}")
     rate("headline", lambda: adv.run(state, 5000, dt), 128 * 128 * 64, 5000)
+    adv_h, s_h, dt_h = adv, state, dt   # phase 29 profiles a headline run
 
     # 4. large: 512x512x128, the per-step blocked kernel
     t = time.perf_counter()
@@ -1309,7 +1507,7 @@ def main() -> int:
     g_r._rebuild_incremental = timed("epoch rebuild", g_r._rebuild_incremental)
     g_r.stop_refining = timed("stop_refining", g_r.stop_refining)
     g_r.remap_state = timed("remap_state", g_r.remap_state)
-    counts0 = dict(epoch_delta.COUNTS)
+    counts0 = counters("epoch.delta")
 
     def adapt_cycle():
         st = adv_r.run(s_r, 50, dt_r)
@@ -1336,7 +1534,7 @@ def main() -> int:
     log(f"[adapt] leaves {n_r} -> {n_a} ({len(new_cells)} new, {len(removed)} "
         f"removed) in {time.perf_counter() - t:.2f} s; mass {m0!r} -> {m1!r}")
     del g_r._rebuild_incremental, g_r.stop_refining, g_r.remap_state
-    delta = {k: v - counts0.get(k, 0) for k, v in epoch_delta.COUNTS.items()
+    delta = {k: v - counts0.get(k, 0) for k, v in counters("epoch.delta").items()
              if v != counts0.get(k, 0)}
     t = time.perf_counter()
     build_epoch(g_r.mapping, g_r.topology, g_r.leaves, g_r.n_devices, g_r.neighborhoods,
@@ -1436,7 +1634,7 @@ def main() -> int:
               f"checkpoint: 20 steps after the reload ({label}) != 20 without")
     ck_bytes = os.path.getsize(ck_path)
     log(f"[checkpoint] {len(cells_a)} leaves x {len(spec_ck)} f32 fields: {ck_bytes} bytes "
-        f"written (counters {dict(CK.COUNTS)}); host seconds "
+        f"written (counters {counters('checkpoint.')}); host seconds "
         f"{ {k: round(v, 4) for k, v in secs_ck.items()} } (unrounded: {secs_ck!r}); "
         f"reloaded rows bitwise equal by cell id on 1 and 8 slots, whole and chunked; "
         f"20 steps after the reload bitwise equal to 20 without (1 slot B5, 8 slots "
@@ -1854,6 +2052,10 @@ def main() -> int:
             f"kernel(s), all B9")
     side_stream_overlap("split_advection", lambda: adv_s.run(s_sa, 5, dt_sa))
     del se, sf, out
+
+    # 29. obs: the observability plane on the card
+    obs_phase(adv_s, s_sa, dt_sa, adv_a, s_a, dt_r, adv_h, s_h, dt_h)
+    del adv_h, s_h
 
     # 18. split_vlasov: 512 bins on the refined 16^3 grid, 8 slots
     t = time.perf_counter()
@@ -2274,13 +2476,13 @@ def main() -> int:
             g._compute_new_owner = timed("partition", g._compute_new_owner)
             if not delta_on:
                 os.environ["DCCRG_EPOCH_DELTA"] = "0"
-            c0 = dict(epoch_delta.COUNTS)
+            c0 = counters("epoch.delta")
             t = time.perf_counter()
             g.balance_load()
             secs = time.perf_counter() - t
             os.environ.pop("DCCRG_EPOCH_DELTA", None)
-            how = [k for k, v in epoch_delta.COUNTS.items() if v != c0.get(k, 0)
-                   and k.startswith(("builds.", "fallback."))]
+            how = [k for k, v in counters("epoch.delta").items() if v != c0.get(k, 0)
+                   and "{" in k]
             moved = int((g.leaves.owner != g_w.leaves.owner).sum())
             log(f"[balance] {method}, {'incremental rebuild' if delta_on else 'DCCRG_EPOCH_DELTA=0'}"
                 f": balance_load {secs!r} s host, the partitioner {split.pop('partition')!r} of "
@@ -2298,13 +2500,13 @@ def main() -> int:
         g._compute_new_owner = timed("partition", g._compute_new_owner)
         if not delta_on:
             os.environ["DCCRG_EPOCH_DELTA"] = "0"
-        c0 = dict(epoch_delta.COUNTS)
+        c0 = counters("epoch.delta")
         t = time.perf_counter()
         g.balance_load()
         secs = time.perf_counter() - t
         os.environ.pop("DCCRG_EPOCH_DELTA", None)
-        how = [k for k, v in epoch_delta.COUNTS.items() if v != c0.get(k, 0)
-               and k.startswith(("builds.", "fallback."))]
+        how = [k for k, v in counters("epoch.delta").items() if v != c0.get(k, 0)
+               and "{" in k]
         log(f"[balance] {len(sel)} cells pinned to the next slot after the HSFC balance, "
             f"{'incremental rebuild' if delta_on else 'DCCRG_EPOCH_DELTA=0'}: balance_load "
             f"{secs!r} s host, the partitioner {split.pop('partition')!r} of it (epoch: "

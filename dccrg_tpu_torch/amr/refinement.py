@@ -20,8 +20,8 @@ Where the reference iterates MPI collectives (``all_to_all_set`` rounds,
 vectorized set operations over the replicated host-side leaf directory —
 the single-controller equivalent of "every rank reaches the same answer".
 
-A copy of the JAX package's ``amr/refinement.py`` (numpy only) without its
-telemetry counters.
+A copy of the JAX package's ``amr/refinement.py`` (numpy only), its
+``amr.*`` commit counters included.
 """
 from __future__ import annotations
 
@@ -206,9 +206,15 @@ def commit_adaptation(grid) -> tuple[np.ndarray, np.ndarray, AdaptationDelta]:
     hood = grid.epoch.hoods[None]
     lvl = mapping.get_refinement_level(leaves.cells)
 
+    from ..obs.registry import metrics
+
     adj = _symmetric_adjacency(len(leaves), hood)
     override_refines(leaves, lvl, adj, queues)
+    requested_refines = len(queues.to_refine)
     induce_refines(leaves, lvl, adj, queues)
+    # refines added by the 2:1 fixed point beyond the surviving requests
+    # = balance violations the commit repaired
+    induced_refines = len(queues.to_refine) - requested_refines
     override_unrefines(mapping, grid.topology, leaves, lvl, hood.offsets, queues)
 
     refined = np.fromiter(queues.to_refine, dtype=np.uint64, count=len(queues.to_refine))
@@ -217,6 +223,12 @@ def commit_adaptation(grid) -> tuple[np.ndarray, np.ndarray, AdaptationDelta]:
         queues.to_unrefine, dtype=np.uint64, count=len(queues.to_unrefine)
     )
     unrefined.sort()
+
+    if metrics.enabled:
+        metrics.inc("amr.commits")
+        metrics.inc("amr.cells_refined", len(refined))
+        metrics.inc("amr.families_unrefined", len(unrefined))
+        metrics.inc("amr.induced_refines", induced_refines)
 
     if not len(refined) and not len(unrefined):
         # nothing survived the override passes: the leaf set is untouched,

@@ -6,6 +6,11 @@ happen at first use (or all at once, in parallel, through :func:`build`)
 into ``dccrg_tpu_torch/_build/``; the library's file name carries a hash of
 its source and flags, so a stale build is never loaded.  Nothing here runs
 when the package is imported.
+
+Each library compiled counts one ``epoch.recompiles{kernel=<source stem>}``
+in the metrics registry, and its ``nvcc`` seconds go into the ``compile``
+phase (``parallel/exec_cache.py``); a library already on disk counts
+nothing.
 """
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+from .obs.registry import metrics
+from .parallel.exec_cache import note_trace
 
 __all__ = ["NVCC_FLAGS", "BUILD_LOG", "sources", "build", "load"]
 
@@ -85,6 +93,9 @@ def build(names=None) -> dict:
             os.unlink(tmp)
             continue
         os.replace(tmp, out)
+        metrics.phase_add("compile", secs)
+        metrics.inc("epoch.recompiles", kernel=name)
+        note_trace(name)
         BUILD_LOG[name] = {
             "cmd": " ".join(cmd[:-3] + ["-o", str(out), cmd[-1]]),
             "seconds": secs,

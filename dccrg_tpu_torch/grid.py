@@ -30,8 +30,18 @@ Checkpoint I/O (``save_grid_data``, ``load_grid_data``,
 format) and the VTK writer (``write_vtk_file``) read the state back with
 one ``.cpu()`` a field; a loaded grid is rebuilt from the saved leaf set
 with ``initialize(leaf_set=...)``, which checks the set.
+
+Telemetry (``obs``): each grid stamps its ``grid_id`` onto the timeline
+spans its entry points record; ``balance_load`` is the
+``loadbalance.migrate`` phase (with ``loadbalance.migrations``,
+``cells_migrated`` and the imbalance gauges), ``stop_refining`` the
+``amr.refine`` phase; ``telemetry``, ``events`` and ``report()`` read the
+process-wide registry and timeline.
 """
 from __future__ import annotations
+
+import itertools as _itertools
+from contextlib import nullcontext as _nullcontext
 
 import numpy as np
 import torch
@@ -43,6 +53,8 @@ from .core.neighborhood import default_neighborhood, validate_neighborhood
 from .core.neighbors import InconsistentGridError, LeafSet
 from .core.topology import Topology
 from .geometry import CartesianGeometry, NoGeometry
+from .obs.events import timeline as _timeline
+from .obs.registry import metrics as _metrics
 from .parallel.epoch import build_epoch
 from .parallel.epoch_delta import TablePool, build_epoch_delta
 from .parallel.halo import HaloExchange
@@ -55,6 +67,14 @@ __all__ = ["Grid", "CellSpec", "resolve_device", "HAS_NO_NEIGHBOR",
 
 #: field name -> (per-cell shape tuple, dtype)
 CellSpec = dict
+
+#: source of process-unique ``Grid.grid_id`` values (timeline span
+#: separation for concurrent grids — see ``obs.events``)
+_GRID_IDS = _itertools.count()
+
+#: reusable no-op context (``nullcontext`` keeps no state, so one
+#: instance serves every disabled-timeline dispatch)
+_NULL_CTX = _nullcontext()
 
 #: neighbor-relation criteria bits for ``Grid.get_cells_by_criteria``
 #: (reference ``dccrg.hpp:85-142``)
@@ -180,6 +200,11 @@ class Grid:
         self._last_removed_cells = np.zeros(0, dtype=np.uint64)
         self._last_adaptation_delta = None
         self._prev_epoch = None
+        #: process-unique id stamped (as ``grid_id``) onto every timeline
+        #: span this grid's instrumented seams record, so traces from
+        #: concurrent grids stay separable in one merged timeline
+        self.grid_id = next(_GRID_IDS)
+        self._tl_ctx = None   # cached reusable timeline context frame
 
         if leaf_set is not None:
             cells = np.unique(np.asarray(leaf_set, dtype=np.uint64))
@@ -587,9 +612,25 @@ class Grid:
             self._halo_cache[key] = build()
         return self._halo_cache[key]
 
+    def _span_ctx(self):
+        """Timeline context for this grid's instrumented entry points:
+        every span recorded inside (halo dispatches, rebuild phases...)
+        carries ``grid_id`` — workloads layer ``timeline.context(step=i)``
+        on top — so merged traces from concurrent grids stay separable
+        (see ``obs.events.EventTimeline.context``).  The frame object is
+        cached: the per-dispatch cost is an enabled check plus a list
+        push/pop."""
+        if not _timeline.enabled:
+            return _NULL_CTX
+        ctx = self._tl_ctx
+        if ctx is None:
+            ctx = self._tl_ctx = _timeline.context(grid_id=self.grid_id)
+        return ctx
+
     def update_copies_of_remote_neighbors(self, state, hood_id=None):
         """Blocking ghost refresh (reference ``dccrg.hpp:966-1000``)."""
-        return self.halo(hood_id)(state)
+        with self._span_ctx():
+            return self.halo(hood_id)(state)
 
     def start_remote_neighbor_copy_updates(self, state, hood_id=None):
         """Split-phase start (reference ``dccrg.hpp:5010-5105``): gather the
@@ -597,14 +638,16 @@ class Grid:
         ``HaloHandle``; the state is untouched, so work on inner cells can
         be queued before ``wait_remote_neighbor_copy_updates(state,
         handle)`` merges the payloads."""
-        return self.halo(hood_id).start(state)
+        with self._span_ctx():
+            return self.halo(hood_id).start(state)
 
     def wait_remote_neighbor_copy_updates(self, state, handle=None, hood_id=None):
         """Split-phase wait: merge the ``start`` handle's payloads into the
         ghost rows.  Without a handle this is a blocking ghost refresh."""
-        if handle is None:
-            return self.halo(hood_id)(state)
-        return self.halo(hood_id).finish(state, handle)
+        with self._span_ctx():
+            if handle is None:
+                return self.halo(hood_id)(state)
+            return self.halo(hood_id).finish(state, handle)
 
     # ------------------------------------------------------------------ AMR
 
@@ -969,18 +1012,19 @@ class Grid:
         self._assert_initialized()
         from .amr.refinement import commit_adaptation
 
-        old_epoch = self.epoch
-        new_cells, removed, delta = commit_adaptation(self)
-        self._last_new_cells = new_cells
-        self._last_removed_cells = removed
-        self._last_adaptation_delta = delta
-        if not len(new_cells) and not len(removed):
-            # nothing changed: keep the current epoch
-            self._prev_epoch = None
-            return new_cells.copy()
-        self._rebuild_incremental(old_epoch)
-        self._prev_epoch = _EpochCarry(old_epoch)
-        self._harvest_tables(old_epoch)
+        with self._span_ctx(), _metrics.phase("amr.refine"):
+            old_epoch = self.epoch
+            new_cells, removed, delta = commit_adaptation(self)
+            self._last_new_cells = new_cells
+            self._last_removed_cells = removed
+            self._last_adaptation_delta = delta
+            if not len(new_cells) and not len(removed):
+                # nothing changed: keep the current epoch
+                self._prev_epoch = None
+                return new_cells.copy()
+            self._rebuild_incremental(old_epoch)
+            self._prev_epoch = _EpochCarry(old_epoch)
+            self._harvest_tables(old_epoch)
         return new_cells.copy()
 
     def get_removed_cells(self) -> np.ndarray:
@@ -1190,20 +1234,43 @@ class Grid:
         (``dccrg.hpp:2666-2668``)."""
         self._assert_initialized()
         self._assert_no_staged_lb()
-        owner = self._compute_new_owner(use_zoltan)
-        self._last_new_cells = np.zeros(0, dtype=np.uint64)
-        self._last_removed_cells = np.zeros(0, dtype=np.uint64)
-        self.amr.clear()
-        if np.array_equal(owner, self.leaves.owner):
-            # no cell moved: every derived table still holds
-            self._prev_epoch = None
-            return self
-        old_epoch = self.epoch
-        self.leaves = LeafSet(cells=self.leaves.cells, owner=owner)
-        self._rebuild_incremental(old_epoch)
-        self._prev_epoch = _EpochCarry(old_epoch)
-        self._harvest_tables(old_epoch)
+        with self._span_ctx(), _metrics.phase("loadbalance.migrate"):
+            owner = self._compute_new_owner(use_zoltan)
+            self._lb_telemetry(self.leaves.owner, owner)
+            self._last_new_cells = np.zeros(0, dtype=np.uint64)
+            self._last_removed_cells = np.zeros(0, dtype=np.uint64)
+            self.amr.clear()
+            if np.array_equal(owner, self.leaves.owner):
+                # no cell moved: every derived table still holds
+                self._prev_epoch = None
+                return self
+            old_epoch = self.epoch
+            self.leaves = LeafSet(cells=self.leaves.cells, owner=owner)
+            self._rebuild_incremental(old_epoch)
+            self._prev_epoch = _EpochCarry(old_epoch)
+            self._harvest_tables(old_epoch)
         return self
+
+    def _lb_telemetry(self, old_owner, new_owner):
+        """Record one repartition: cells whose owner changes and the load
+        imbalance (max slot load over the mean) before/after."""
+        if not _metrics.enabled:
+            return
+        _metrics.inc("loadbalance.migrations")
+        _metrics.inc(
+            "loadbalance.cells_migrated",
+            int((np.asarray(old_owner) != np.asarray(new_owner)).sum()),
+        )
+
+        def imbalance(owner):
+            counts = np.bincount(
+                np.asarray(owner, dtype=np.int64), minlength=self.n_devices
+            )
+            avg = counts.mean()
+            return float(counts.max() / avg) if avg > 0 else 1.0
+
+        _metrics.gauge("loadbalance.imbalance_before", imbalance(old_owner))
+        _metrics.gauge("loadbalance.imbalance_after", imbalance(new_owner))
 
     def _hierarchical_partition(self, method, weights, hier, options=None):
         """Multi-level partition over a slot hierarchy (reference HIER,
@@ -1326,26 +1393,29 @@ class Grid:
         chunks."""
         self._assert_initialized()
         self._assert_no_staged_lb()
-        owner = self._compute_new_owner(use_zoltan)
-        self.amr.clear()
-        if np.array_equal(owner, self.leaves.owner):
-            self._staged_lb = {"noop": True}
-            return self
-        new_leaves = LeafSet(cells=self.leaves.cells, owner=owner)
-        # an ownership move off the live epoch: the patch keeps every
-        # neighbor relation and re-derives the owner-dependent tables
-        hints = epoch_shape_hints(self.epoch)
-        new_epoch = build_epoch_delta(
-            self.epoch, new_leaves, self.n_devices, self.neighborhoods,
-            uniform_geometry=self._uniform_geometry(), shape_hints=hints,
-            table_pool=self._table_pool,
-        )
-        if new_epoch is None:
-            new_epoch = build_epoch(
-                self.mapping, self.topology, new_leaves, self.n_devices,
-                self.neighborhoods,
+        with self._span_ctx(), _metrics.phase("loadbalance.migrate"):
+            owner = self._compute_new_owner(use_zoltan)
+            self._lb_telemetry(self.leaves.owner, owner)
+            self.amr.clear()
+            if np.array_equal(owner, self.leaves.owner):
+                self._staged_lb = {"noop": True}
+                return self
+            new_leaves = LeafSet(cells=self.leaves.cells, owner=owner)
+            # an ownership move off the live epoch: the patch keeps every
+            # neighbor relation and re-derives the owner-dependent tables
+            hints = epoch_shape_hints(self.epoch)
+            new_epoch = build_epoch_delta(
+                self.epoch, new_leaves, self.n_devices, self.neighborhoods,
                 uniform_geometry=self._uniform_geometry(), shape_hints=hints,
+                table_pool=self._table_pool,
             )
+            if new_epoch is None:
+                new_epoch = build_epoch(
+                    self.mapping, self.topology, new_leaves, self.n_devices,
+                    self.neighborhoods,
+                    uniform_geometry=self._uniform_geometry(),
+                    shape_hints=hints,
+                )
         self._staged_lb = {"noop": False, "leaves": new_leaves,
                            "epoch": new_epoch, "staged": None, "done": 0}
         return self
@@ -1373,6 +1443,7 @@ class Grid:
         lo = st["done"]
         hi = N if max_cells is None else min(lo + int(max_cells), N)
         if lo < hi:
+            _metrics.inc("loadbalance.staged_rows", hi - lo)
             put = lambda a: torch.as_tensor(a.astype(np.int64), device=self.device)
             d_old, r_old = put(old.leaves.owner[lo:hi]), put(old.row_of[lo:hi])
             d_new, r_new = put(new.leaves.owner[lo:hi]), put(new.row_of[lo:hi])
@@ -1425,8 +1496,9 @@ class Grid:
         from .io.checkpoint import CHECKPOINT_VERSION
         from .io.checkpoint import save_grid_data as _save
 
-        _save(self, state, path, spec, user_header, ragged=ragged,
-              version=CHECKPOINT_VERSION if version is None else version)
+        with self._span_ctx():
+            _save(self, state, path, spec, user_header, ragged=ragged,
+                  version=CHECKPOINT_VERSION if version is None else version)
 
     @staticmethod
     def load_grid_data(path: str, spec, n_devices=None, device=None,
@@ -1465,6 +1537,44 @@ class Grid:
         from .io.vtk import write_vtk_file as _vtk
 
         _vtk(self, path, scalars, binary=binary)
+
+    # -------------------------------------------------------- introspection
+
+    @property
+    def telemetry(self):
+        """The process-wide metrics registry (``obs.metrics``) — the
+        statistics accessor in dccrg's getter style.  Use
+        ``grid.telemetry.report()`` for a raw snapshot, ``grid.report()``
+        for the snapshot annotated with this grid's shape."""
+        return _metrics
+
+    @property
+    def events(self):
+        """The process-wide event timeline (``obs.timeline``): the
+        individual begin/end spans behind the aggregate phase timers.
+        Export with ``obs.export_chrome_trace(path)`` for perfetto."""
+        return _timeline
+
+    def report(self) -> dict:
+        """Telemetry snapshot (phases, counters, gauges, histograms from
+        every instrumented seam) plus this grid's current shape and the
+        event-timeline fill state.  The same structure
+        ``obs.export_json`` writes to ``telemetry.json``."""
+        rep = _metrics.report()
+        rep["events"] = _timeline.summary()
+        if self.initialized:
+            rep["grid"] = {
+                "grid_id": int(self.grid_id),
+                "n_cells": int(len(self.leaves)),
+                "n_devices": int(self.n_devices),
+                "rows_per_device": int(self.epoch.R),
+                "ghost_cells": int(self.epoch.n_ghost.sum()),
+                "neighborhoods": len(self.neighborhoods),
+                "max_refinement_level": int(
+                    self.mapping.max_refinement_level
+                ),
+            }
+        return rep
 
 
 class _SubGridView:

@@ -53,19 +53,22 @@ writes loads in the other.
 
 This package runs in one process, which writes: the JAX package's
 multi-controller fan-in is left out.  Readback from the device is one
-``.cpu()`` a field.  Counters (bytes and cells written and read, CRC
-failures and truncations by section, salvaged and lost cells) go into the
-plain :data:`COUNTS`.
+``.cpu()`` a field.  Telemetry is the JAX package's: the
+``checkpoint.write`` and ``checkpoint.read`` phases, and the counters
+``checkpoint.bytes_written`` / ``cells_written`` / ``bytes_read`` /
+``cells_read``, ``checkpoint.crc_failures{section}``,
+``checkpoint.errors{section}`` (truncations), ``checkpoint.cells_lost`` and
+``checkpoint.cells_salvaged``.
 """
 from __future__ import annotations
 
 import os
 import struct
 import zlib
-from collections import Counter
 
 import numpy as np
 
+from ..obs.registry import metrics
 from ..resilience import inject
 from ..utils.setops import ragged_arange as _ragged_arange
 
@@ -79,13 +82,7 @@ __all__ = [
     "ENDIANNESS_MAGIC",
     "V2_MAGIC",
     "CHECKPOINT_VERSION",
-    "COUNTS",
 ]
-
-#: checkpoint counters: ``bytes_written``, ``cells_written``,
-#: ``bytes_read``, ``cells_read``, ``crc_failures.<section>``,
-#: ``errors.<section>`` (truncations), ``cells_lost``, ``cells_salvaged``
-COUNTS: Counter = Counter()
 
 #: same magic the reference writes (dccrg.hpp:1234-1247)
 ENDIANNESS_MAGIC = 0x1234567890ABCDEF
@@ -124,7 +121,7 @@ def _read_exact(f, n: int, section: str, path: str | None) -> bytes:
     """Read exactly ``n`` bytes or raise a typed truncation error."""
     b = f.read(n)
     if len(b) != n:
-        COUNTS["errors." + section] += 1
+        metrics.inc("checkpoint.errors", section=section)
         raise CheckpointError(
             section,
             f"file truncated: wanted {n} bytes, got {len(b)}",
@@ -134,7 +131,7 @@ def _read_exact(f, n: int, section: str, path: str | None) -> bytes:
 
 
 def _crc_fail(section: str, path: str | None) -> None:
-    COUNTS["crc_failures." + section] += 1
+    metrics.inc("checkpoint.crc_failures", section=section)
     raise CheckpointError(section, "CRC32 mismatch (corrupt bytes)", path)
 
 
@@ -176,15 +173,24 @@ def save_grid_data(grid, state, path: str, spec, user_header: bytes = b"",
     cell ``i`` (reference: runtime-switched ``get_mpi_datatype``,
     ``tests/particles/cell.hpp:50-84``).  ``version=1`` writes the
     legacy CRC-less layout (the default v2 envelope is described in the
-    module docstring); both load transparently.  ``COUNTS["bytes_written"]``
-    counts the payload + cell-table bytes.
+    module docstring); both load transparently.
 
     The file is written to ``path + ".tmp"``, fsync'd, renamed over
     ``path`` and the directory entry fsync'd, so a failed write never
     leaves a truncated checkpoint at the final path.
+
+    Telemetry: the whole save (readbacks + write) is the
+    ``checkpoint.write`` phase; ``checkpoint.bytes_written`` counts the
+    payload + cell-table bytes.
     """
     if version not in (1, 2):
         raise ValueError(f"unknown checkpoint version {version}")
+    with metrics.phase("checkpoint.write"):
+        _save_grid_data(grid, state, path, spec, user_header, ragged, version)
+
+
+def _save_grid_data(grid, state, path, spec, user_header, ragged,
+                    version) -> None:
     cells = grid.get_cells()
     fixed, ragged_fields = _field_layout(spec, ragged)
 
@@ -206,8 +212,9 @@ def save_grid_data(grid, state, path: str, spec, user_header: bytes = b"",
     for name, _, _, _, row_nb in ragged_fields:
         bytes_per_cell += counts[name] * row_nb
     offsets = np.concatenate(([0], np.cumsum(bytes_per_cell[:-1])))
-    COUNTS["bytes_written"] += int(bytes_per_cell.sum()) + len(cells) * 16
-    COUNTS["cells_written"] += len(cells)
+    metrics.inc("checkpoint.bytes_written",
+                int(bytes_per_cell.sum()) + len(cells) * 16)
+    metrics.inc("checkpoint.cells_written", len(cells))
 
     tmp = path + ".tmp"
     _write_checkpoint(tmp, grid, cells, spec, user_header, fixed,
@@ -436,7 +443,7 @@ def quick_validate(path: str) -> int:
             payload_start = f.tell()
             f.seek(0, 2)
             if f.tell() - payload_start < payload_total:
-                COUNTS["errors.payload"] += 1
+                metrics.inc("checkpoint.errors", section="payload")
                 raise CheckpointError(
                     "payload",
                     f"payload truncated: {f.tell() - payload_start} of "
@@ -452,7 +459,7 @@ def quick_validate(path: str) -> int:
             payload_start = f.tell()
             f.seek(0, 2)
             if f.tell() - payload_start < int(offsets[-1]):
-                COUNTS["errors.payload"] += 1
+                metrics.inc("checkpoint.errors", section="payload")
                 raise CheckpointError(
                     "payload", "payload truncated before last cell", path
                 )
@@ -492,8 +499,9 @@ class GridLoader:
                              f"got {on_error!r}")
         self.on_error = on_error
         self._lost_idx: set = set()
-        self._init_impl(path, spec, n_devices, device, ragged,
-                        load_balancing_method)
+        with metrics.phase("checkpoint.read"):
+            self._init_impl(path, spec, n_devices, device, ragged,
+                            load_balancing_method)
 
     def _init_impl(self, path, spec, n_devices, device, ragged,
                    load_balancing_method):
@@ -544,7 +552,7 @@ class GridLoader:
                 self._payload_size = int(payload_total)
                 self._payload_avail = min(int(avail), int(payload_total))
                 if avail < payload_total and self.on_error != "salvage":
-                    COUNTS["errors.payload"] += 1
+                    metrics.inc("checkpoint.errors", section="payload")
                     raise CheckpointError(
                         "payload",
                         f"payload truncated: {avail} of {payload_total} "
@@ -627,19 +635,20 @@ class GridLoader:
         offs = self._offsets
         start = int(offs[lo])
         end = int(offs[hi]) if hi < self._n_cells else self._payload_size
-        with open(self._path, "rb") as f:
-            f.seek(self._payload_start + start)
-            payload = f.read(end - start)
+        with metrics.phase("checkpoint.read"):
+            with open(self._path, "rb") as f:
+                f.seek(self._payload_start + start)
+                payload = f.read(end - start)
         if len(payload) < end - start and self.on_error != "salvage":
-            COUNTS["errors.payload"] += 1
+            metrics.inc("checkpoint.errors", section="payload")
             raise CheckpointError(
                 "payload",
                 f"payload truncated: wanted {end - start} bytes for cells "
                 f"[{lo}, {hi}), got {len(payload)}",
                 self._path,
             )
-        COUNTS["bytes_read"] += len(payload)
-        COUNTS["cells_read"] += n
+        metrics.inc("checkpoint.bytes_read", len(payload))
+        metrics.inc("checkpoint.cells_read", n)
 
         pay = np.frombuffer(payload, dtype=np.uint8)
         # chunk-local [start, end) boundaries per cell — the integrity
@@ -661,9 +670,10 @@ class GridLoader:
         bad = np.flatnonzero(~intact)
         if len(bad):
             if len(bad) > n_trunc:
-                COUNTS["crc_failures.payload"] += int(len(bad) - n_trunc)
+                metrics.inc("checkpoint.crc_failures",
+                            int(len(bad) - n_trunc), section="payload")
             if n_trunc:
-                COUNTS["errors.payload"] += n_trunc
+                metrics.inc("checkpoint.errors", n_trunc, section="payload")
             if self.on_error != "salvage":
                 cell = int(self.saved_cells[lo + int(bad[0])])
                 more = f" (+{len(bad) - 1} more in chunk)" if len(bad) > 1 \
@@ -739,8 +749,8 @@ class GridLoader:
             keep = np.ones(self._n_cells, dtype=bool)
             keep[np.asarray(sorted(self._lost_idx), dtype=np.int64)] = False
             cells = self.saved_cells[keep]
-            COUNTS["cells_lost"] += int((~keep).sum())
-            COUNTS["cells_salvaged"] += int(keep.sum())
+            metrics.inc("checkpoint.cells_lost", int((~keep).sum()))
+            metrics.inc("checkpoint.cells_salvaged", int(keep.sum()))
         else:
             keep = None
             cells = self.saved_cells

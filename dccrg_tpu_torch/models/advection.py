@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..convert import numpy_dtype, torch_dtype
+from ..obs import fused
 from ..ops.dense_advection import (
     dense_step_arith,
     flux_update,
@@ -660,6 +661,22 @@ class Advection:
         )
         return {**state, "density": new_rho}
 
+    def _record_run(self, path: str, steps, state) -> None:
+        """Post-run reconciliation (``obs.fused``), the JAX package's
+        series: one record a ``run`` of ``steps x schedule bytes``, the
+        ghost payload the host seam would have moved for the same steps
+        (the whole-run kernels keep it on the device).  Paths: ``fused``,
+        ``dense``, ``boxed``, ``flat``, ``split`` and ``general``."""
+        if not self.grid.telemetry.enabled:
+            return
+        try:
+            bps = self.grid.halo(None).bytes_moved(
+                {"density": state["density"]}
+            )
+        except Exception:  # noqa: BLE001 — telemetry must never raise
+            bps = 0
+        fused.record_run("advection", path, steps, bps)
+
     def run(self, state, steps: int, dt):
         """Advance ``steps`` timesteps.  Dense: one whole-run kernel launch
         on one device when the block fits, else one step launch per step
@@ -671,14 +688,18 @@ class Advection:
         steps, dt = int(steps), self._scalar(dt)
         if self.dense is None:
             if self._prefer_boxed:
+                self._record_run("boxed", steps, state)
                 return self._boxed_run(state, steps, dt)
             if self._flat_run is not None:
+                self._record_run("flat", steps, state)
                 return self._flat_run.run(state, steps, dt)
+            self._record_run("split" if self.overlap else "general", steps, state)
             step = self._split_step if self.overlap else self._general_step
             for _ in range(steps):
                 state = step(state, dt)
             return state
         rho, vx, vy, vz = (state[k] for k in ("density", "vx", "vy", "vz"))
+        self._record_run("fused" if self.fused else "dense", steps, state)
         if self.fused:
             new = fused_run(
                 rho[0], vx[0], vy[0], vz[0], self._mx, self._my,

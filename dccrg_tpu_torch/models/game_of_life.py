@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..grid import _not_in_slice
+from ..obs import fused
 from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
 from ..parallel.dense import HaloExtend, detect_dense2d
 from ..parallel.stencil import StencilTables, gather_neighbors, split_rows
@@ -217,11 +218,27 @@ class GameOfLife:
         turns = int(turns)
         if self.dense2d is not None and turns > 0:
             if self.fused:
+                self._record_run("fused", turns, state)
                 return self._fused_run(state, turns)
+            self._record_run("dense", turns, state)
             return self._dense_run(state, turns)
         for _ in range(turns):
             state = self.step(state)
         return state
+
+    def _record_run(self, path: str, turns, state) -> None:
+        """Whole-run dispatches keep their ghost traffic on the device —
+        reconcile ``turns x schedule bytes`` on the host (``obs.fused``,
+        the JAX package's series).  Only ``is_alive`` crosses the wire,
+        like the reference's ``get_mpi_datatype``
+        (examples/simple_game_of_life.cpp:20-32)."""
+        if not self.grid.telemetry.enabled:
+            return
+        try:
+            bps = self._exchange.bytes_moved({"is_alive": state["is_alive"]})
+        except Exception:  # noqa: BLE001 — telemetry must never raise
+            bps = 0
+        fused.record_run("game_of_life", path, turns, bps)
 
     def alive_cells(self, state) -> np.ndarray:
         cells = self.grid.get_cells()

@@ -42,6 +42,7 @@ import torch
 
 from ..convert import numpy_dtype, torch_dtype
 from ..grid import _not_in_slice
+from ..obs import fused
 from ..ops.vlasov_kernel import (
     pick_vlasov_block,
     split_scales,
@@ -273,9 +274,37 @@ class Vlasov:
         """Advance ``steps`` timesteps: on the dense float32 path one
         kernel launch a step; on the row layout one halo exchange (one B9
         launch on CUDA with D > 1) a step."""
+        self._record_run(
+            "fused" if self._fused_block else
+            "xla" if self.info is not None else
+            ("split" if self.overlap else "general"),
+            steps, state,
+        )
         for _ in range(int(steps)):
             state = self.step(state, dt)
         return state
+
+    def _record_run(self, path: str, steps, state) -> None:
+        """Post-run reconciliation (``obs.fused``, the JAX package's series
+        and path labels: ``fused`` for the step kernel, ``xla`` for the
+        plain dense step).  Dense layout: each step's slab ring ships two
+        [ny, nx, B] planes per slot (none on a single slot, where the wrap
+        is local); general layout: the full-f halo schedule."""
+        if not self.grid.telemetry.enabled:
+            return
+        try:
+            if self.info is not None:
+                D = self.grid.n_devices
+                itemsize = np.dtype(self.dtype).itemsize
+                bps = (
+                    D * 2 * self.info.ny * self.info.nx * self.B * itemsize
+                    if D > 1 else 0
+                )
+            else:
+                bps = self.grid.halo(None).bytes_moved({"f": state["f"]})
+        except Exception:  # noqa: BLE001 — telemetry must never raise
+            bps = 0
+        fused.record_run("vlasov", path, steps, bps)
 
     def max_time_step(self) -> float:
         if self.info is None:

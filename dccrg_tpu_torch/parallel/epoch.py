@@ -7,8 +7,9 @@ immutable ``Epoch`` object, rebuilt from ``(leaves, neighborhoods)`` after
 ``balance_load``/``stop_refining`` — and every jitted schedule is keyed by
 the epoch so compiled schedules are never rebuilt mid-run.
 
-A copy of the JAX package's ``parallel/epoch.py`` without its telemetry
-(phase timers, table-shape gauges, device-memory samples).
+A copy of the JAX package's ``parallel/epoch.py``, with its telemetry: the
+``epoch.build`` / ``epoch.hood_build`` phases, the table-shape gauges
+(:func:`record_epoch_gauges`) and a device-memory sample after each build.
 
 Row layout per device: rows ``[0, n_local)`` hold the device's own cells in
 ascending id order; rows ``[n_local, n_local + n_ghost)`` hold ghost copies
@@ -25,10 +26,11 @@ import numpy as np
 from ..core.mapping import Mapping
 from ..core.topology import Topology
 from ..core.neighbors import LeafSet, NeighborLists, find_all_neighbors, invert_neighbors
+from ..obs.registry import metrics
 from .dense import detect_dense
 from .shapes import bucket_k, bucket_rows
 
-__all__ = ["HoodState", "Epoch", "build_epoch"]
+__all__ = ["HoodState", "Epoch", "build_epoch", "record_epoch_gauges"]
 
 
 @dataclass
@@ -181,7 +183,54 @@ def build_epoch(
     ...}}`` (``shapes.epoch_shape_hints``) — bucket hysteresis keeps
     those shapes while utilization allows.  Builds handed no hints
     produce the deterministic natural buckets.
+
+    Telemetry: the whole build is the ``epoch.build`` phase (per-hood
+    neighbor searches under ``epoch.hood_build``); the resulting table
+    shapes land as ``epoch.*`` gauges.
     """
+    with metrics.phase("epoch.build"):
+        epoch = _build_epoch_impl(
+            mapping, topology, leaves, n_devices, neighborhoods,
+            uniform_geometry=uniform_geometry, shape_hints=shape_hints,
+        )
+    record_epoch_gauges(epoch)
+    return epoch
+
+
+def record_epoch_gauges(epoch: Epoch) -> None:
+    """The ``epoch.*`` table-shape gauges of a new epoch, and a sample of
+    the device allocator (``obs.sample_hbm``; nothing without CUDA) —
+    the moment memory margins change."""
+    if not metrics.enabled:
+        return
+    metrics.gauge("epoch.n_cells", len(epoch.leaves))
+    metrics.gauge("epoch.rows_per_device", epoch.R)
+    metrics.gauge("epoch.bucket_R", epoch.R)
+    for hid, h in epoch.hoods.items():
+        metrics.gauge("epoch.bucket_K", h.nbr_rows.shape[2],
+                      hood="default" if hid is None else str(hid))
+    metrics.gauge("epoch.ghost_cells", int(epoch.n_ghost.sum()))
+    metrics.gauge("epoch.hoods", len(epoch.hoods))
+    # send/recv schedule size: cells exchanged per full halo update,
+    # summed over hoods (each pair table is symmetric by construction)
+    metrics.gauge("epoch.send_table_cells", sum(
+        int(h.pair_counts.sum()) for h in epoch.hoods.values()
+    ))
+    from ..obs.hbm import sample_hbm
+
+    sample_hbm(metrics)
+
+
+def _build_epoch_impl(
+    mapping: Mapping,
+    topology: Topology,
+    leaves: LeafSet,
+    n_devices: int,
+    neighborhoods: dict,
+    *,
+    uniform_geometry: bool,
+    shape_hints: dict | None = None,
+) -> Epoch:
     hints = shape_hints or {}
 
     N = len(leaves)
@@ -192,9 +241,10 @@ def build_epoch(
     hood_raw = {}
     all_pairs = []
     for hid, offsets in neighborhoods.items():
-        lists, to_start, to_src, pairs, is_outer = _build_hood(
-            mapping, topology, leaves, offsets, D
-        )
+        with metrics.phase("epoch.hood_build"):
+            lists, to_start, to_src, pairs, is_outer = _build_hood(
+                mapping, topology, leaves, offsets, D
+            )
         hood_raw[hid] = (offsets, lists, to_start, to_src, pairs, is_outer)
         all_pairs.append(pairs)
     if all_pairs:

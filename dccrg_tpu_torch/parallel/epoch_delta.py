@@ -29,7 +29,7 @@ every incremental epoch table-by-table against a fresh full build
 (``utils.verify.compare_epochs``).
 
 Fallbacks (the caller then runs ``build_epoch``), each counted in
-``COUNTS["fallback." + reason]``:
+``epoch.delta_fallbacks{reason}``:
 
 * ``fraction`` — the touched closure exceeds
   ``DCCRG_EPOCH_DELTA_MAX_FRACTION`` (default 0.25) of the grid;
@@ -40,18 +40,19 @@ Fallbacks (the caller then runs ``build_epoch``), each counted in
 * ``hoods_changed`` — the registered neighborhood set differs
   (``add_neighborhood``/``remove_neighborhood`` rebuild fully anyway).
 
-Successful patches count ``COUNTS["builds"]`` (and ``"builds.amr"`` /
-``"builds.lb"`` by kind); ``DCCRG_EPOCH_DELTA=0`` disables the path
-entirely.
+Successful patches count ``epoch.delta_builds`` (and
+``epoch.delta_builds{kind=amr|lb}``), the closure sizes
+``epoch.delta_cells_touched``, recycled table buffers
+``epoch.table_pool_reuse``; the patch is the ``epoch.delta_build`` phase
+and records the ``epoch.*`` gauges a full build records.
+``DCCRG_EPOCH_DELTA=0`` disables the path entirely.
 
-A copy of the JAX package's ``parallel/epoch_delta.py`` whose registry
-telemetry (phase timers, gauges, device-memory samples) is replaced by the
-plain ``COUNTS`` above; the registry waits for ROADMAP.md A14.
+A copy of the JAX package's ``parallel/epoch_delta.py``, its telemetry
+included.
 """
 from __future__ import annotations
 
 import os
-from collections import Counter
 
 import numpy as np
 
@@ -69,17 +70,15 @@ from .epoch import (
     _hood_masks,
     _hood_schedule,
     _row_layout,
+    record_epoch_gauges,
 )
+from ..obs.registry import metrics
 from .shapes import bucket_k
 
 __all__ = ["build_epoch_delta", "delta_enabled", "FALLBACK_REASONS",
-           "TablePool", "COUNTS"]
+           "TablePool"]
 
-#: process-wide counts: ``builds`` (and ``builds.amr`` / ``builds.lb``),
-#: ``cells_touched``, ``table_pool_reuse`` and ``fallback.<reason>``
-COUNTS: Counter = Counter()
-
-#: the documented fallback reasons (``COUNTS["fallback.<reason>"]``)
+#: the documented fallback reasons (``epoch.delta_fallbacks{reason}``)
 FALLBACK_REASONS = (
     "fraction", "r_growth", "dense_flip", "device_count", "hoods_changed",
 )
@@ -158,18 +157,22 @@ def build_epoch_delta(
     if not delta_enabled():
         return None
     try:
-        epoch, touched, kind = _build_delta_impl(
-            old, new_leaves, n_devices, neighborhoods,
-            uniform_geometry=uniform_geometry,
-            shape_hints=shape_hints, table_pool=table_pool,
-        )
+        with metrics.phase("epoch.delta_build"):
+            epoch, touched, kind = _build_delta_impl(
+                old, new_leaves, n_devices, neighborhoods,
+                uniform_geometry=uniform_geometry,
+                shape_hints=shape_hints, table_pool=table_pool,
+            )
     except _DeltaFallback as f:
-        COUNTS["fallback." + f.reason] += 1
+        metrics.inc("epoch.delta_fallbacks", reason=f.reason)
         return None
-    # pure ownership migrations (kind=lb) vs leaf-set changes (kind=amr)
-    COUNTS["builds"] += 1
-    COUNTS["builds." + kind] += 1
-    COUNTS["cells_touched"] += touched
+    if metrics.enabled:
+        metrics.inc("epoch.delta_builds")
+        # pure ownership migrations (kind=lb) vs leaf-set changes
+        # (kind=amr) — the two take different thresholds and costs
+        metrics.inc("epoch.delta_builds", kind=kind)
+        metrics.inc("epoch.delta_cells_touched", touched)
+        record_epoch_gauges(epoch)
     if os.environ.get("DCCRG_EPOCH_VERIFY", "0") != "0":
         from ..utils.verify import compare_epochs
         from .epoch import build_epoch
@@ -566,7 +569,7 @@ def _patch_tables(
         nbr_offset.fill(0)
         nbr_len.fill(0)
         nbr_slot.fill(0)
-        COUNTS["table_pool_reuse"] += 1
+        metrics.inc("epoch.table_pool_reuse")
     else:
         nbr_rows = np.full((D, R_new, Kmax), scratch_new, dtype=np.int32)
         nbr_valid = np.zeros((D, R_new, Kmax), dtype=bool)

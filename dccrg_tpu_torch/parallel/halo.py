@@ -38,15 +38,31 @@ schedule's backend too.
 
 ``DCCRG_HALO_VERIFY=1`` replays every non-collective exchange on the
 collective form and compares bytes; checks and mismatches are counted on
-the exchange object (``verify_checks``, ``verify_mismatches``), never
-raised.  The JAX package's registry telemetry is not ported (ROADMAP.md
-A14).
+the exchange object (``verify_checks``, ``verify_mismatches``) and in the
+registry (``halo.verify_checks``, ``halo.verify_mismatches{field}``), never
+raised.
+
+Telemetry is the JAX package's: ``halo.backend_schedules{backend}`` per
+schedule built, the per-slot ``halo.send_cells_per_exchange`` /
+``recv_cells_per_exchange`` gauges (``device`` is the slot index, the JAX
+mesh axis), and per exchange the message and byte counters (``_record``)
+and the ``halo.exchange`` / ``halo.start`` phases.  Every recording is
+host code and never synchronises: the phase seconds are host enqueue
+time, and the device time of the exchange's kernels comes from the
+profiler merge (``obs.merge``, label ``halo.ring_copy``).  Unlike the JAX
+package, whose exchanges inside a jitted step are not recorded, every
+exchange here is launched from the host and recorded.
 """
 from __future__ import annotations
+
+import time
+import weakref
 
 import numpy as np
 import torch
 
+from ..obs.registry import _labels_key
+from ..obs.registry import metrics as _metrics
 from . import halo_dma
 from .shapes import bucket_pairs
 
@@ -79,6 +95,18 @@ class _Rings:
     __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire", "cells")
 
 
+def _flush_record_cache(cache: dict) -> None:
+    """Materialize a schedule's buffered dispatch counts into the
+    registry.  Shared by the registry-driven flush and the GC finalizer —
+    an epoch rebuild drops its halo schedules, and the counts they
+    buffered must land before the object goes away."""
+    for entry in cache.values():
+        pairs, n = entry
+        entry[1] = 0
+        if n:
+            _metrics.inc_batch([(key, v * n) for key, v in pairs])
+
+
 def _same_bytes(a, b) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
@@ -99,6 +127,8 @@ class HaloExchange:
         #: wire transport (``DCCRG_HALO_BACKEND``, resolved at construction
         #: as in the JAX package): "pallas" (kernel B9) or "collective"
         self.backend = halo_dma.resolve_backend(self.device)
+        if _metrics.enabled:
+            _metrics.inc("halo.backend_schedules", backend=self.backend)
         if self.D * self.R >= 2**31:
             raise ValueError("D * R rows exceed the int32 ring tables")
         #: grid-persistent ring-size hysteresis hints {(hood, field, k):
@@ -131,6 +161,19 @@ class HaloExchange:
         self.ring_ks = self._rings.ks
         self.ring_sizes = self._rings.sizes
         self.wire_cells = self._rings.wire
+        #: per-slot cells shipped/received each exchange (telemetry;
+        #: static per schedule, so recorded once here as gauges)
+        self._send_per_dev = hood.pair_counts.sum(axis=1)
+        self._recv_per_dev = hood.pair_counts.sum(axis=0)
+        if _metrics.enabled:
+            hood_label = "default" if hood_id is None else str(hood_id)
+            for d in range(D):
+                _metrics.gauge("halo.send_cells_per_exchange",
+                               int(self._send_per_dev[d]),
+                               device=d, hood=hood_label)
+                _metrics.gauge("halo.recv_cells_per_exchange",
+                               int(self._recv_per_dev[d]),
+                               device=d, hood=hood_label)
         #: verify-oracle counts (``DCCRG_HALO_VERIFY=1``): fields checked,
         #: and mismatching exchanges per field
         self.verify_checks = 0
@@ -280,7 +323,13 @@ class HaloExchange:
                 "got a HaloHandle where a state belongs — pass the handle as "
                 "wait_remote_neighbor_copy_updates(state, handle)"
             )
-        out = self._exchange(state)
+        if _metrics.enabled:
+            self._record(state, "blocking")
+            t0 = time.perf_counter()
+            out = self._exchange(state)
+            _metrics.phase_add("halo.exchange", time.perf_counter() - t0)
+        else:
+            out = self._exchange(state)
         if self._verify_active():
             self._verify_oracle(state, out)
         return out
@@ -301,6 +350,18 @@ class HaloExchange:
         event."""
         if isinstance(state, HaloHandle):
             raise TypeError("start() takes the state, not a HaloHandle")
+        if _metrics.enabled:
+            # timed as its own phase (not halo.exchange): the span from a
+            # halo.start begin to the next halo.exchange (finish) end is
+            # the in-flight window the merge's overlap fraction measures
+            self._record(state, "split")
+            t0 = time.perf_counter()
+            out = self._start_dispatch(state)
+            _metrics.phase_add("halo.start", time.perf_counter() - t0)
+            return out
+        return self._start_dispatch(state)
+
+    def _start_dispatch(self, state) -> HaloHandle:
         moving = self._moving(state)
         if self.device.type != "cuda" or not moving:
             return HaloHandle(self.ring_start(state))
@@ -332,14 +393,22 @@ class HaloExchange:
             raise TypeError("finish() takes the state first, then the HaloHandle")
         if set(handle.payload) != set(state):
             raise ValueError("finish() got a different field set than start()")
-        if handle.event is not None:
-            torch.cuda.current_stream(self.device).wait_event(handle.event)
-        out = self.ring_finish(state, handle.payload)
+        if _metrics.enabled:
+            t0 = time.perf_counter()
+            out = self._finish_dispatch(state, handle)
+            _metrics.phase_add("halo.exchange", time.perf_counter() - t0)
+        else:
+            out = self._finish_dispatch(state, handle)
         if self._verify_active():
             # the handle came from start(state) on this same state, so the
             # blocking oracle on ``state`` is the expected merge
             self._verify_oracle(state, out)
         return out
+
+    def _finish_dispatch(self, state, handle: HaloHandle):
+        if handle.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(handle.event)
+        return self.ring_finish(state, handle.payload)
 
     # --------------------------------------------------- oracle verify
 
@@ -349,15 +418,102 @@ class HaloExchange:
     def _verify_oracle(self, state, out) -> int:
         """Cross-check one exchange against the collective form, byte for
         byte (NaN payloads included).  Mismatching fields are counted in
-        ``verify_mismatches``, never raised; returns their number."""
+        ``verify_mismatches`` and ``halo.verify_mismatches{field}``, never
+        raised; returns their number."""
+        t0 = time.perf_counter()
         mismatches = 0
         ref = self._exchange(state, backend="collective")
         for name in state:
             if not _same_bytes(out[name], ref[name]):
                 mismatches += 1
                 self.verify_mismatches[name] = self.verify_mismatches.get(name, 0) + 1
+                _metrics.inc("halo.verify_mismatches", field=name)
         self.verify_checks += len(state)
+        _metrics.inc("halo.verify_checks", len(state))
+        _metrics.phase_add("halo.verify", time.perf_counter() - t0)
         return mismatches
+
+    # ------------------------------------------------------- telemetry
+
+    def _record(self, state, kind: str) -> None:
+        """Host-side telemetry for one exchange dispatch: message/byte
+        accounting per ring distance and field, the JAX package's series.
+        Every recorded value is a pure function of the schedule and the
+        state's field signature (names, shapes, dtypes), so the prepared
+        batch is cached per signature and a dispatch only bumps its
+        multiplicity — the batch materializes into the registry when a
+        report/export flushes it (``metrics.register_flusher``).  A repeat
+        dispatch costs a signature hash and one integer add.  The bare
+        ``+= 1`` is not atomic across threads; a lost bump under thread
+        races is accepted — this is telemetry, not accounting."""
+        sig = (kind,) + tuple((n, x.shape, x.dtype) for n, x in state.items())
+        cache = getattr(self, "_record_cache", None)
+        if cache is None:
+            cache = self._record_cache = {}
+            _metrics.register_flusher(self)
+            # epoch rebuilds drop their schedules (the grid's halo cache is
+            # cleared); pending buffered counts must not die with them
+            weakref.finalize(self, _flush_record_cache, cache)
+        entry = cache.get(sig)
+        if entry is None:
+            hood = "default" if self.hood_id is None else str(self.hood_id)
+            items = [
+                ("halo.exchanges", 1, {"kind": kind, "hood": hood}),
+                ("halo.cells_moved", self.cells_moved),
+                ("halo.bytes_moved", self.bytes_moved(state)),
+                ("halo.wire_bytes", self.wire_bytes(state)),
+                ("halo.permute_steps", len(self.ring_ks)),
+            ]
+            # per-slot cells per dispatch (schedule rows; under a
+            # cell_datatype policy this counts the full-payload schedule,
+            # field-accurate bytes are in halo.field_bytes)
+            items.extend(
+                ("halo.send_cells", int(self._send_per_dev[d]),
+                 {"device": d, "hood": hood}) for d in range(self.D)
+            )
+            items.extend(
+                ("halo.recv_cells", int(self._recv_per_dev[d]),
+                 {"device": d, "hood": hood}) for d in range(self.D)
+            )
+            if self._cell_datatype is None:
+                per = sum(self._per_cell_bytes(x) for x in state.values())
+                items.extend(
+                    ("halo.ring_bytes", self.D * S * per, {"ring": k})
+                    for k, S in zip(self.ring_ks, self.ring_sizes)
+                )
+                items.extend(
+                    ("halo.field_bytes",
+                     self.cells_moved * self._per_cell_bytes(x),
+                     {"field": n})
+                    for n, x in state.items()
+                )
+            else:
+                items.extend(
+                    ("halo.field_bytes",
+                     self._rings_for_field(n).cells * self._per_cell_bytes(x),
+                     {"field": n})
+                    for n, x in sorted(state.items())
+                )
+            entry = cache[sig] = [
+                [
+                    ((it[0], _labels_key(it[2]) if len(it) > 2 else ()),
+                     int(it[1])) for it in items
+                ],
+                0,
+            ]
+        entry[1] += 1
+
+    def telemetry_flush(self, discard: bool = False) -> None:
+        """Materialize buffered dispatch counts into the registry (or
+        drop them on ``discard`` — a registry reset)."""
+        cache = getattr(self, "_record_cache", None)
+        if not cache:
+            return
+        if discard:
+            for entry in cache.values():
+                entry[1] = 0
+            return
+        _flush_record_cache(cache)
 
     # ------------------------------------------------------- accounting
 

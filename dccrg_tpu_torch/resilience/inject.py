@@ -1,6 +1,5 @@
 """Deterministic, site-addressable fault injection (a copy of the JAX
-package's ``resilience/inject.py``; firings are counted in the plain
-:data:`COUNTS`).
+package's ``resilience/inject.py``).
 
 Every fault has a *site name* (``"checkpoint.bit_flip"``,
 ``"p2p.recv"``, ...).  Production code asks the process-wide
@@ -45,7 +44,8 @@ Sites wired into the codebase:
                            (``resilience/supervisor.py``, ``tools/soak.py``)
 =========================  ====================================================
 
-Every trigger is counted as ``COUNTS["injected." + site]``.  Only the
+Every trigger is counted as ``resilience.injected{site=...}`` in the obs
+registry.  Only the
 two checkpoint sites are wired into this package so far
 (``io/checkpoint.py``); the others are named for the resilience layer that
 arms them.
@@ -54,15 +54,13 @@ from __future__ import annotations
 
 import os
 import threading
-from collections import Counter
 
 import numpy as np
 
-__all__ = ["FaultPlane", "plane", "fires", "maybe_kill", "corrupt_array",
-           "maybe_raise", "maybe_hang", "torn_fraction", "COUNTS"]
+from ..obs.registry import metrics
 
-#: injected faults per site (``"injected.<site>"``)
-COUNTS: Counter = Counter()
+__all__ = ["FaultPlane", "plane", "fires", "maybe_kill", "corrupt_array",
+           "maybe_raise", "maybe_hang", "torn_fraction"]
 
 
 class _Site:
@@ -132,8 +130,7 @@ class FaultPlane:
     def fires(self, site: str, **labels) -> bool:
         """Whether an armed ``site`` fires at this evaluation.  Unarmed
         sites cost one dict lookup.  Each firing is counted as
-        ``COUNTS["injected." + site]``; ``labels`` are accepted for the
-        call sites' sake and not recorded."""
+        ``resilience.injected{site=...}`` in the obs registry."""
         s = self._sites.get(site)
         if s is None:
             return False
@@ -148,7 +145,7 @@ class FaultPlane:
             if s.remaining is not None:
                 s.remaining -= 1
             s.fired += 1
-        COUNTS["injected." + site] += 1
+        metrics.inc("resilience.injected", site=site, **labels)
         return True
 
     def site_rng(self, site: str) -> np.random.Generator:

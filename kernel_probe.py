@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip-side probes of the Vlasov step kernel B7, the BiCG whole-solve
-kernel B8, the halo gather B9 and the flat-against-boxed dispatch edges
-that ``chip_smoke.py`` does not run.
+kernel B8, the halo gather B9, the flat-against-boxed dispatch edges and
+the telemetry's host cost that ``chip_smoke.py`` does not run.
 
 Run from the repository root on a machine with a CUDA card (an H100):
 
@@ -9,6 +9,7 @@ Run from the repository root on a machine with a CUDA card (an H100):
     python3 kernel_probe.py bicg-profile    # B8 cycles an iteration by phase
     python3 kernel_probe.py ring-sweep [--baseline DIR]   # B9 forms
     python3 kernel_probe.py boxed-edge      # flat forms against boxed passes
+    python3 kernel_probe.py telemetry-cost  # obs on / off on the refined run
 
 ``vlasov-sweep`` compiles copies of ``csrc/vlasov.cu`` with other tile rows
 (``kMaxRows``), window stages (``kStages``) and CTAs an SM (``kMinCtas``),
@@ -55,6 +56,13 @@ and through the boxed per-level passes, and prints each one's voxel-updates
 a second (wall clock, median of 3 runs) and their ratio: the edge
 ``models/advection.py`` prefers the boxed passes past
 (``FLAT_BOXED_EDGE``, ``ML_BOXED_EDGE``).
+
+``telemetry-cost`` runs the refined 48^3 grid's ``run(200)`` (B5) with the
+metrics registry on and ``disable()``d in turns (off, on, on, off; three
+rounds of 20 runs each), printing each batch's median wall time (host
+clock around the run and a synchronise) and mean host enqueue time (50
+runs queued, no synchronise between them), then the host time of one
+``fused.*`` run record and of the schedule's ``bytes_moved`` it reads.
 
 Copies build into ``dccrg_tpu_torch/_build/probe/``.  Without CUDA the
 script exits 1 and prints nothing else.
@@ -554,6 +562,60 @@ def ring_sweep(card: str, baseline) -> int:
     return 0 if ok else 1
 
 
+def telemetry_cost(card: str) -> int:
+    """The refined run's wall and host enqueue time with the registry on
+    and off, and the host cost of its one record."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, obs
+
+    g = refined_grid(48, 0.3, (0.3, 0.5, 0.5), 1)
+    adv = Advection(g, dtype=np.float32)
+    state = adv.initialize_state()
+    dt = 0.4 * adv.max_time_step(state)
+    run = lambda: adv.run(state, 200, dt)
+
+    def wall(reps=20):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return statistics.median(out)
+
+    def host(fn, reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        secs = (time.perf_counter() - t) / reps
+        torch.cuda.synchronize()
+        return secs
+
+    print(f"refined run(200): {len(g.get_cells())} leaves, flat form "
+          f"{adv._flat_kind}", flush=True)
+    for _ in range(5):
+        run()
+    for rnd in range(3):
+        for on in (False, True, True, False):
+            (obs.enable if on else obs.disable)()
+            print(f"round {rnd} telemetry {'on ' if on else 'off'}: wall "
+                  f"{wall() * 1e3!r} ms (median of 20), host enqueue "
+                  f"{host(run, 50) * 1e6!r} us (mean of 50) on {card}", flush=True)
+    obs.enable()
+    rec = host(lambda: adv._record_run("flat", 200, state), 2000)
+    moved = host(lambda: g.halo(None).bytes_moved({"density": state["density"]}), 2000)
+    print(f"one run record {rec * 1e6!r} us of host, its bytes_moved {moved * 1e6!r} us "
+          f"(mean of 2000) on {card}", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -565,7 +627,7 @@ def main() -> int:
     if args[1:2] == ["--baseline"] and len(args) == 3:
         baseline = args.pop()
         args.pop()
-    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge")
+    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge", "telemetry-cost")
     if len(args) != 1 or args[0] not in modes \
             or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
@@ -579,6 +641,8 @@ def main() -> int:
         return ring_sweep(card, baseline)
     if args[0] == "boxed-edge":
         return boxed_edge(card)
+    if args[0] == "telemetry-cost":
+        return telemetry_cost(card)
     return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 

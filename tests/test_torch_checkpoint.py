@@ -16,16 +16,21 @@ import pytest
 import dccrg_tpu
 import dccrg_tpu_torch
 from dccrg_tpu_torch import CartesianGeometry, Grid
-from dccrg_tpu_torch.io import checkpoint
 from dccrg_tpu_torch.io.checkpoint import (
     CHECKPOINT_VERSION,
-    COUNTS,
     V2_MAGIC,
     CheckpointError,
     quick_validate,
 )
 from dccrg_tpu_torch.models import Advection, GameOfLife, Particles
+from dccrg_tpu_torch.obs import metrics
 from dccrg_tpu_torch.resilience import inject
+
+
+def count(name, **labels):
+    """A counter of the port's registry (``checkpoint.*``,
+    ``resilience.injected``)."""
+    return metrics.counter_value(name, **labels)
 
 SPEC = {"a": ((), np.float64), "b": ((3,), np.float32)}
 
@@ -352,11 +357,11 @@ def test_bit_flip_detected_per_section(tmp_path):
         flipped = bytearray(raw)
         flipped[(start + end) // 2] ^= 0x20
         open(flip_path, "wb").write(bytes(flipped))
-        before = COUNTS["crc_failures." + name]
+        before = count("checkpoint.crc_failures", section=name)
         with pytest.raises(CheckpointError) as ei:
             _load(flip_path, SPEC, 1)
         assert ei.value.section == name
-        assert COUNTS["crc_failures." + name] > before
+        assert count("checkpoint.crc_failures", section=name) > before
 
 
 def test_salvage_recovers_every_intact_cell(tmp_path):
@@ -373,14 +378,14 @@ def test_salvage_recovers_every_intact_cell(tmp_path):
     open(bad_path, "wb").write(bytes(raw))
     with pytest.raises(CheckpointError, match="payload"):
         _load(bad_path, SPEC, 1)
-    before_lost = COUNTS["cells_lost"]
+    before_lost = count("checkpoint.cells_lost")
     g2, s2, hdr, lost = _load(bad_path, SPEC, 3, on_error="salvage")
     np.testing.assert_array_equal(lost, cells[np.asarray(victims)])
     keep = ~np.isin(cells, lost)
     np.testing.assert_array_equal(g2.get_cell_data(s2, "a", cells[keep]), av[keep])
     np.testing.assert_array_equal(g2.get_cell_data(s2, "b", cells[keep]), bv[keep])
     np.testing.assert_array_equal(g2.get_cell_data(s2, "a", lost), np.zeros(len(lost)))
-    assert COUNTS["cells_lost"] == before_lost + len(victims)
+    assert count("checkpoint.cells_lost") == before_lost + len(victims)
 
 
 def test_salvage_of_truncated_file_recovers_prefix(tmp_path):
@@ -479,13 +484,13 @@ def test_fault_seams_are_detected(tmp_path, site, section):
     counted and the load refuses the file with a typed error."""
     g, state, cells, av, bv = _grid_and_state(n_devices=1)
     path = str(tmp_path / "f.dc")
-    before = inject.COUNTS["injected." + site]
+    before = count("resilience.injected", site=site)
     inject.plane.arm(site, prob=1.0, seed=5, count=1)
     try:
         g.save_grid_data(state, path, SPEC)
     finally:
         inject.plane.disarm(site)
-    assert inject.COUNTS["injected." + site] == before + 1
+    assert count("resilience.injected", site=site) == before + 1
     with pytest.raises(CheckpointError) as ei:
         _load(path, SPEC, 1)
     if section:
@@ -573,14 +578,16 @@ def test_vtk_bytes_equal_jax(tmp_path, binary):
 
 
 def test_counters(tmp_path):
-    """``checkpoint.COUNTS`` counts what a save writes and a load reads."""
+    """The ``checkpoint.*`` counters count what a save writes and a load
+    reads."""
     g, state, cells, av, bv = _grid_and_state(n_devices=1)
-    before = dict(checkpoint.COUNTS)
+    names = ("cells_written", "bytes_written", "cells_read", "bytes_read")
+    before = {n: count("checkpoint." + n) for n in names}
     path = str(tmp_path / "c.dc")
     g.save_grid_data(state, path, SPEC)
-    assert COUNTS["cells_written"] - before.get("cells_written", 0) == len(cells)
-    assert (COUNTS["bytes_written"] - before.get("bytes_written", 0)
-            == len(cells) * (8 + 12 + 16))
+    delta = lambda n: count("checkpoint." + n) - before[n]
+    assert delta("cells_written") == len(cells)
+    assert delta("bytes_written") == len(cells) * (8 + 12 + 16)
     _load(path, SPEC, 1)
-    assert COUNTS["cells_read"] - before.get("cells_read", 0) == len(cells)
-    assert COUNTS["bytes_read"] - before.get("bytes_read", 0) == len(cells) * 20
+    assert delta("cells_read") == len(cells)
+    assert delta("bytes_read") == len(cells) * 20

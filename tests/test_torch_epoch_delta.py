@@ -14,13 +14,18 @@ import dccrg_tpu
 import dccrg_tpu_torch
 from dccrg_tpu_torch.parallel import epoch_delta
 from dccrg_tpu_torch.parallel.epoch import build_epoch
+from dccrg_tpu_torch.obs import metrics
 from dccrg_tpu_torch.parallel.epoch_delta import (
-    COUNTS,
     FALLBACK_REASONS,
     build_epoch_delta,
 )
 from dccrg_tpu_torch.parallel.shapes import epoch_shape_hints
 from dccrg_tpu_torch.utils.verify import compare_epochs, verify_grid
+
+
+def count(name, **labels):
+    """A counter of the port's registry (``epoch.delta_*``)."""
+    return metrics.counter_value(name, **labels)
 
 
 def make_grid(pkg, n=8, max_lvl=2, n_dev=8, method="RCB", hood=1,
@@ -89,11 +94,11 @@ def _check_both(jg, tg):
 
 @pytest.mark.parametrize("n_dev,seed", [(1, 0), (8, 1), (8, 5)])
 def test_churn_identical_to_full_build_and_jax(n_dev, seed):
-    amr, lb = COUNTS["builds.amr"], COUNTS["builds.lb"]
+    amr, lb = count("epoch.delta_builds", kind="amr"), count("epoch.delta_builds", kind="lb")
     _run_churn(n_dev, seed, 6, hood_at=3, check=_check_both)
-    assert COUNTS["builds.amr"] > amr
+    assert count("epoch.delta_builds", kind="amr") > amr
     # one slot: every partition is the current one, nothing to patch
-    assert (COUNTS["builds.lb"] > lb) == (n_dev > 1)
+    assert (count("epoch.delta_builds", kind="lb") > lb) == (n_dev > 1)
 
 
 def test_numpy_path_identical_to_full_build(monkeypatch):
@@ -118,28 +123,28 @@ def test_delta_fast_path_engages():
     ids = g.get_cells()
     g.refine_completely_many(ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5, axis=1) < 0.3])
     g.stop_refining()
-    before, reuse = COUNTS["builds"], COUNTS["table_pool_reuse"]
+    before, reuse = count("epoch.delta_builds"), count("epoch.table_pool_reuse")
     for i in range(2):
         g.refine_completely(int(g.get_cells()[i]))
         g.stop_refining()
-    assert COUNTS["builds"] == before + 2
+    assert count("epoch.delta_builds") == before + 2
     # the second patch reuses the first one's retired tables
-    assert COUNTS["table_pool_reuse"] > reuse
+    assert count("epoch.table_pool_reuse") > reuse
     compare_epochs(g.epoch, oracle(g))
 
 
 def test_fallback_fraction_and_dense_flip():
     g = make_grid(dccrg_tpu_torch, n_dev=8, max_lvl=1)
     assert g.epoch.dense is not None
-    flips = COUNTS["fallback.dense_flip"]
+    flips = count("epoch.delta_fallbacks", reason="dense_flip")
     g.refine_completely(1)
     g.stop_refining()
-    assert COUNTS["fallback.dense_flip"] > flips and g.epoch.dense is None
+    assert count("epoch.delta_fallbacks", reason="dense_flip") > flips and g.epoch.dense is None
     compare_epochs(g.epoch, oracle(g))
-    frac = COUNTS["fallback.fraction"]
+    frac = count("epoch.delta_fallbacks", reason="fraction")
     g.refine_completely_many(g.get_cells())
     g.stop_refining()
-    assert COUNTS["fallback.fraction"] > frac
+    assert count("epoch.delta_fallbacks", reason="fraction") > frac
     compare_epochs(g.epoch, oracle(g))
 
 
@@ -149,10 +154,10 @@ def test_fallback_r_growth(monkeypatch):
     g = make_grid(dccrg_tpu_torch, n_dev=8)
     g.refine_completely(1)
     g.stop_refining()
-    before = COUNTS["fallback.r_growth"]
+    before = count("epoch.delta_fallbacks", reason="r_growth")
     g.refine_completely(int(g.get_cells()[10]))
     g.stop_refining()
-    assert COUNTS["fallback.r_growth"] > before
+    assert count("epoch.delta_fallbacks", reason="r_growth") > before
     compare_epochs(g.epoch, oracle(g))
 
 
@@ -160,15 +165,15 @@ def test_fallback_device_count_and_hoods_changed():
     g = make_grid(dccrg_tpu_torch, n_dev=8)
     g.refine_completely(1)
     g.stop_refining()
-    before = COUNTS["fallback.device_count"]
+    before = count("epoch.delta_fallbacks", reason="device_count")
     assert build_epoch_delta(g.epoch, g.leaves, g.n_devices + 1, g.neighborhoods,
                              uniform_geometry=g._uniform_geometry()) is None
-    assert COUNTS["fallback.device_count"] > before
-    before = COUNTS["fallback.hoods_changed"]
+    assert count("epoch.delta_fallbacks", reason="device_count") > before
+    before = count("epoch.delta_fallbacks", reason="hoods_changed")
     hoods = {**g.neighborhoods, 3: np.array([[1, 0, 0]], dtype=np.int64)}
     assert build_epoch_delta(g.epoch, g.leaves, g.n_devices, hoods,
                              uniform_geometry=g._uniform_geometry()) is None
-    assert COUNTS["fallback.hoods_changed"] > before
+    assert count("epoch.delta_fallbacks", reason="hoods_changed") > before
     assert set(FALLBACK_REASONS) == {"fraction", "r_growth", "dense_flip",
                                      "device_count", "hoods_changed"}
 
@@ -177,14 +182,14 @@ def test_delta_disabled_by_env(monkeypatch):
     """DCCRG_EPOCH_DELTA=0: no patch; the commit rebuilds in full and the
     epoch still equals the JAX package's under the same switch."""
     monkeypatch.setenv("DCCRG_EPOCH_DELTA", "0")
-    before = COUNTS["builds"]
+    before = count("epoch.delta_builds")
     jg, tg = (make_grid(pkg, n_dev=1) for pkg in (dccrg_tpu, dccrg_tpu_torch))
     for g in (jg, tg):
         g.refine_completely(1)
         g.stop_refining()
     assert build_epoch_delta(tg.epoch, tg.leaves, tg.n_devices, tg.neighborhoods,
                              uniform_geometry=tg._uniform_geometry()) is None
-    assert COUNTS["builds"] == before and not epoch_delta.delta_enabled()
+    assert count("epoch.delta_builds") == before and not epoch_delta.delta_enabled()
     compare_epochs(tg.epoch, oracle(tg))
     compare_epochs(tg.epoch, jg.epoch)
 
