@@ -224,8 +224,36 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 ``telemetry.json``, stream, timeline trace and flight
                 recorder dump pass the port's own readers and validators.
 
-Launch counters are set to 0 just before each of phases 3-19 and 21-28
-drives its path and read just after.  Telemetry is on throughout, as it
+30. resilience — (at the end) the resilience layer on the card, in f32 at
+                the bench's widths: the headline (128x128x64) run(300) on one
+                slot (B1) as the reference; a child process runs it in
+                segments of 50 steps with a lineage commit after each (keep
+                3) and ``sigkill.post_commit`` armed, and must die by SIGKILL
+                after its second commit, leaving a valid flight-recorder dump
+                naming the segment in flight and a report of 0
+                ``epoch.recompiles`` (the libraries of phase 1 on disk);
+                the lineage's ``latest_valid`` on 8 slots (``BLOCK``, the
+                z-slabs of the per-step dense kernel), then ``verify_grid``,
+                must find generation 2 at step 100,
+                100 steps there, ``rescale`` to 1 slot, 100 steps through B1:
+                the density bitwise equal to the reference; a commit with
+                ``checkpoint.torn_write`` armed raises
+                ``CheckpointError("lineage")`` and ``latest_valid`` returns
+                the previous generation; the bench's 500x500 board, 300
+                turns rescaled 1 -> 8 -> 1 after turns 100 and 200, equal to
+                one-slot B4's alive set; a supervised child on 8 slots
+                (commits every 25 turns, heartbeat stream, ``step.hang``
+                after turn 60) must be seen stalled (no-progress) and climb
+                warn -> rescale_down, then relaunched on 4 slots from
+                ``latest_valid`` it must finish with the same alive set; a
+                ``halo.nan`` storm through one blocking exchange of phase
+                17's grid leaves ``verify_finite`` raising, the next exchange
+                clean and the input unchanged.  Commit and re-landing seconds
+                of each rescale, the lineage's bytes and the phase's seconds
+                are logged with the card.
+
+Launch counters are set to 0 just before each of phases 3-19, 21-28 and
+each sub-step of 30 drives its path and read just after.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -340,6 +368,450 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+# ------------------------------------------------------ 30. resilience
+#: the headline's lineage carries the four fields a step reads
+HEADLINE_FIELDS = ("density", "vx", "vy", "vz")
+#: phase 30's sizes: the bench's headline (bench.py:39-40) and Game of Life
+#: board (bench.py:48,55), the steps (and turns) of each run, the crash
+#: child's segment of steps (a commit after each), the supervised child's
+#: turns between commits and the supervisor's stall window in seconds
+RES_HEADLINE = (128, 128, 64)
+RES_BOARD = 500
+RES_STEPS = 300
+RES_SEG_STEPS = 50
+RES_GOL_COMMIT_EVERY = 25
+RES_STALL_AFTER_S = 3.0
+
+
+def headline_model(shape, device):
+    """bench.py's headline (an nx x ny x nz periodic grid, f32, the model's
+    initial state, dt at 0.4 of the CFL limit) on one slot of ``device``,
+    partitioned ``BLOCK``: a re-landing on D slots under the same method
+    keeps the id-order z-slabs a dense model needs.  The crash child and
+    this process build it alike."""
+    import numpy as np
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid
+
+    nx, ny, nz = shape
+    g = (Grid().set_initial_length((nx, ny, nz)).set_neighborhood_length(0)
+         .set_periodic(True, True, True).set_load_balancing_method("BLOCK")
+         .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                       level_0_cell_length=(1.0 / nx, 1.0 / ny, 1.0 / nz))
+         .initialize(n_devices=1, device=device))
+    adv = Advection(g, dtype=np.float32)
+    state = adv.initialize_state()
+    return g, adv, state, 0.4 * adv.max_time_step(state)
+
+
+def headline_spec():
+    import numpy as np
+
+    return {k: ((), np.float32) for k in HEADLINE_FIELDS}
+
+
+def land_headline(g, rows):
+    """The dense model of a (re-)landed headline grid, its state set by
+    cell id from the loaded rows."""
+    import numpy as np
+
+    from dccrg_tpu_torch import Advection
+
+    adv = Advection(g, dtype=np.float32)
+    s = adv.initialize_state()
+    ids = g.get_cells()
+    for f in HEADLINE_FIELDS:
+        s = adv.set_cell_data(s, f, ids, g.get_cell_data(rows, f, ids))
+    return adv, s
+
+
+def gol_board(n, n_devices, device):
+    """bench.py's Game of Life board (n x n, open, 30% alive from
+    default_rng(0)) on ``n_devices`` slots; returns (grid, alive cells)."""
+    import numpy as np
+
+    from dccrg_tpu_torch import Grid
+
+    g = (Grid().set_initial_length((n, n, 1)).set_neighborhood_length(1)
+         .initialize(n_devices=n_devices, device=device))
+    cells = g.get_cells()
+    return g, cells[np.random.default_rng(0).random(len(cells)) < 0.3]
+
+
+def _write_json(path, rec):
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(rec, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _child_report(extra):
+    from dccrg_tpu_torch import cuda_build, obs
+    from dccrg_tpu_torch.ops import LAUNCHES
+
+    rep = obs.metrics.report()
+    return {**extra,
+            "recompiles": int(sum(rep["counters"].get("epoch.recompiles", {}).values())),
+            "launches": {k: v for k, v in LAUNCHES.items() if v},
+            "libraries": sorted(cuda_build._libs)}
+
+
+def child_headline(wd, device):
+    """The crash child: the headline in segments of ``RES_SEG_STEPS`` steps
+    on one slot, a lineage commit after each (keep 3).  Armed from the
+    environment (``DCCRG_FAULT``), it dies by SIGKILL after a commit; its
+    report (``report.json``, written before each commit) holds what it
+    compiled and launched, and its flight recorder names the segment in
+    flight."""
+    from dccrg_tpu_torch.obs import flightrec
+    from dccrg_tpu_torch.resilience import CheckpointLineage
+
+    flightrec.recorder.arm(wd, period=0.5)
+    g, adv, state, dt = headline_model(RES_HEADLINE, device)
+    lineage = CheckpointLineage(os.path.join(wd, "lineage"), keep=3)
+    step = 0
+    while step < RES_STEPS:
+        flightrec.recorder.mark_unit(f"headline/{step}", tenant="smoke",
+                                     phase="headline", step=step)
+        flightrec.recorder.checkpoint(force=True)
+        state = adv.run(state, RES_SEG_STEPS, dt)
+        step += RES_SEG_STEPS
+        rows = adv._dense_to_rows(state)
+        _write_json(os.path.join(wd, "report.json"), _child_report({"step": step}))
+        lineage.commit(g, rows, headline_spec(), user_header=str(step).encode())
+    print("HEADLINE_CHILD_DONE", flush=True)
+
+
+def child_gol(wd, device, n_devices, hb):
+    """The supervised child: the board on ``n_devices`` slots, resumed from
+    its lineage when one survives, a commit every ``RES_GOL_COMMIT_EVERY``
+    turns up to ``RES_STEPS``, a 0.5 s
+    heartbeat stream (``hb``) plus a beat with the turn before each turn,
+    and the ``step.hang`` seam armed from the environment.  Writes the
+    final alive set and its report."""
+    import numpy as np
+
+    from dccrg_tpu_torch import GameOfLife, obs
+    from dccrg_tpu_torch.io.checkpoint import CheckpointError
+    from dccrg_tpu_torch.obs import flightrec
+    from dccrg_tpu_torch.resilience import CheckpointLineage, inject
+
+    stream = obs.stream_to(hb, period=0.5, extra={"subsystem": "smoke"})
+    flightrec.recorder.arm(wd, period=0.5)
+    g, alive0 = gol_board(RES_BOARD, n_devices, device)
+    lineage = CheckpointLineage(os.path.join(wd, "gol"), keep=3)
+    try:
+        g, s, hdr, gen = lineage.latest_valid(GameOfLife.SPEC, n_devices=n_devices,
+                                              device=device)
+        step = int(hdr)
+        print(f"RESUMED gen={gen} step={step} n_devices={n_devices}", flush=True)
+    except CheckpointError:
+        s = None
+        step = 0
+        print(f"FRESH n_devices={n_devices}", flush=True)
+    gol = GameOfLife(g)
+    if s is None:
+        s = gol.new_state(alive_cells=alive0)
+    resumed_at = step
+    while step < RES_STEPS:
+        flightrec.recorder.mark_unit(f"gol/{step}", tenant="smoke", phase="gol", step=step)
+        flightrec.recorder.checkpoint(force=True)
+        stream.write_snapshot(phase="gol", step=step)
+        inject.maybe_hang("step.hang", seconds=600.0)
+        s = gol.run(s, 1)
+        step += 1
+        if step % RES_GOL_COMMIT_EVERY == 0:
+            lineage.commit(g, s, GameOfLife.SPEC, user_header=str(step).encode())
+    np.save(os.path.join(wd, "alive.npy"), np.sort(gol.alive_cells(s)))
+    _write_json(os.path.join(wd, "report.json"),
+                _child_report({"resumed_at": resumed_at, "n_devices": n_devices}))
+    print("GOL_CHILD_DONE", flush=True)
+
+
+def child_main(argv) -> int:
+    kind, wd, device = argv[0], argv[1], argv[2]
+    if kind == "headline":
+        child_headline(wd, device)
+    elif kind == "gol":
+        child_gol(wd, device, int(argv[3]), argv[4])
+    else:
+        raise SystemExit(f"unknown child {kind!r}")
+    return 0
+
+
+def launch_child(wd, args, env_extra=None):
+    """``python3 chip_smoke.py --child <args>`` from the checkout, its
+    output into ``wd/child.log`` (a fresh interpreter: no CUDA context is
+    shared with this process)."""
+    env = dict(os.environ)
+    env.pop("DCCRG_FAULT", None)
+    env.update(env_extra or {})
+    log = open(os.path.join(wd, "child.log"), "a")
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", *map(str, args)],
+                         cwd=here, stdout=log, stderr=subprocess.STDOUT, env=env)
+    return p, log
+
+
+def child_log(wd, n=3000):
+    with open(os.path.join(wd, "child.log")) as f:
+        return f.read()[-n:]
+
+
+def resilience_phase(dev, card, drive, refined):
+    """Phase 30: a crash, a resume and rescales of the headline, the board
+    rescaled 1 -> 8 -> 1, a supervised hang, a NaN storm on ``refined``
+    (phase 17's grid, state, spec) and a torn generation, all on ``dev``.
+    ``drive`` runs a path with the launch counts at 0 and checks them;
+    ``card`` names the device in every timing line.  Any failure raises."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import GameOfLife, obs
+    from dccrg_tpu_torch.io.checkpoint import CheckpointError
+    from dccrg_tpu_torch.resilience import CheckpointLineage, plane, rescale
+    from dccrg_tpu_torch.resilience.soak import check_flightrec_dump, supervise
+    from dccrg_tpu_torch.utils.verify import verify_finite, verify_grid
+
+    headline, board, seg_steps = RES_HEADLINE, RES_BOARD, RES_SEG_STEPS
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dccrg_resilience_")
+    spec = headline_spec()
+    shape_s = "x".join(map(str, headline))
+    timings = []
+    children = []    # every child started, killed on the way out if still running
+
+    def child(args, env_extra=None):
+        p, log_f = launch_child(wd, args, env_extra)
+        children.append(p)
+        return p, log_f
+
+    def counter(name, **labels):
+        return obs.metrics.counter_value(name, **labels)
+
+    def lineage_bytes(d):
+        """(the newest generation's bytes, every kept generation's)."""
+        sizes = [int(e["bytes"]) for e in CheckpointLineage(d).generations()]
+        return sizes[-1], sum(sizes)
+
+    try:
+        # --- crash -> resume on 8 slots -> rescale to 1, the headline
+        g, adv, s0, dt = headline_model(headline, dev)
+        check(adv.fused, f"resilience headline: not fused ({adv.dense_kind})")
+        total = RES_STEPS
+        ref = drive("resilience headline reference",
+                    lambda: adv.run(s0, total, dt), {"fused_run": 1})
+        wd = os.path.join(root, "headline")
+        os.makedirs(wd)
+        t = time.perf_counter()
+        p, log_f = child(["headline", wd, dev.type],
+                         {"DCCRG_FAULT": "sigkill.post_commit:1:0:1:1"})
+        rc = p.wait(timeout=600)
+        log_f.close()
+        child_s = time.perf_counter() - t
+        check(rc == -signal.SIGKILL,
+              f"resilience: the crash child exited {rc}, not by SIGKILL:\n{child_log(wd)}")
+        check("HEADLINE_CHILD_DONE" not in child_log(wd), "resilience: the child finished")
+        probs = check_flightrec_dump(wd, "resilience headline child")
+        check(not probs, f"resilience: {probs}")
+        dumps = [f for f in os.listdir(wd) if f.startswith("flightrec_")]
+        with open(os.path.join(wd, dumps[0])) as f:
+            in_flight = sorted(u["id"] for u in json.load(f)["in_flight"])
+        check(in_flight == [f"headline/{seg_steps}"],
+              f"resilience: the postmortem names {in_flight}, not headline/{seg_steps}")
+        with open(os.path.join(wd, "report.json")) as f:
+            child_rep = json.load(f)
+        check(child_rep["recompiles"] == 0,
+              f"resilience: the fresh child compiled {child_rep['recompiles']} libraries")
+        log(f"[resilience] crash child: exit {rc} (SIGKILL) after its second commit, "
+            f"{child_s!r} s wall; postmortem {dumps[0]} valid, in flight {in_flight}; "
+            f"its report: epoch.recompiles {child_rep['recompiles']}, launches "
+            f"{child_rep['launches']}, libraries {child_rep['libraries']}")
+        lin_dir = os.path.join(wd, "lineage")
+        # the scan and load under BLOCK (the z-slabs a dense model needs on
+        # 8 slots), then the invariant oracle Grid.resume_latest runs, timed
+        # apart
+        t = time.perf_counter()
+        g8, rows8, hdr, gen = CheckpointLineage(lin_dir).latest_valid(
+            spec, n_devices=8, device=dev, load_balancing_method="BLOCK", verify=False)
+        load_s = time.perf_counter() - t
+        verify_grid(g8)
+        verify_s = time.perf_counter() - t - load_s
+        check((gen, int(hdr)) == (2, 2 * seg_steps),
+              f"resilience: resumed generation {gen} at step {hdr!r}, not 2 at "
+              f"{2 * seg_steps}")
+        check(g8.device.type == dev.type, f"resilience: resumed onto {g8.device}")
+        adv8, s8 = land_headline(g8, rows8)
+        check(adv8.dense is not None and not adv8.fused,
+              f"resilience: 8-slot dispatch {getattr(adv8, 'dense_kind', None)}")
+        kname = {"blocked_direct": "flux_update_blocked",
+                 "plane": "flux_update"}[adv8.dense_kind[0]]
+        out8 = drive("resilience headline 8 slots",
+                     lambda: adv8.run(s8, 2 * seg_steps, dt), {kname: 2 * seg_steps})
+        t = time.perf_counter()
+        r = rescale(g8, adv8._dense_to_rows(out8), spec, 1, directory=lin_dir)
+        timings.append(("headline 8 -> 1", r.commit_s, r.reland_s, lineage_bytes(lin_dir)))
+        check(r.grid.device.type == dev.type and r.n_devices_after == 1
+              and r.generation == 3, f"resilience: rescale landed {r.grid.device} "
+              f"{r.n_devices_after} slots, generation {r.generation}")
+        adv1, s1 = land_headline(r.grid, r.state)
+        check(adv1.fused, "resilience: the 1-slot re-landing is not fused")
+        out1 = drive("resilience headline 1 slot",
+                     lambda: adv1.run(s1, total - 4 * seg_steps, dt), {"fused_run": 1})
+        diff = int((out1["density"] != ref["density"]).sum())
+        check(diff == 0, f"resilience: 1 -> 8 -> 1 headline differs from the "
+              f"uninterrupted run in {diff} cells (max |d| "
+              f"{float((out1['density'] - ref['density']).abs().max())!r})")
+        log(f"[resilience] headline {shape_s}: resumed generation {gen} at step {hdr.decode()} "
+            f"on 8 slots ({adv8.dense_kind}, {kname}): scan + load {load_s!r} s, "
+            f"verify_grid {verify_s!r} s; "
+            f"{2 * seg_steps} steps, rescaled to 1 slot (generation {r.generation}), "
+            f"{total - 4 * seg_steps} steps through fused_run: density bitwise equal to "
+            f"the uninterrupted run({total}) (-0 == +0)")
+
+        # --- a torn generation on the headline lineage
+        lineage = CheckpointLineage(lin_dir, keep=3)
+        rej0 = sum(obs.metrics.report()["counters"].get("lineage.commit_rejected", {}).values())
+        plane.arm("checkpoint.torn_write", prob=1.0, seed=3, count=1)
+        try:
+            lineage.commit(r.grid, r.state, spec, user_header=b"torn")
+            check(False, "resilience: a torn commit was accepted")
+        except CheckpointError as err:
+            check(err.section == "lineage", f"resilience: torn commit raised {err}")
+        finally:
+            plane.disarm("checkpoint.torn_write")
+        rej = sum(obs.metrics.report()["counters"].get("lineage.commit_rejected", {}).values())
+        # the scan alone is under test: generation 3 was verified by rescale
+        _g, _s, thdr, tgen = lineage.latest_valid(spec, n_devices=1, device=dev,
+                                                  verify=False)
+        check(rej == rej0 + 1 and tgen == 3,
+              f"resilience: torn commit: commit_rejected {rej0} -> {rej}, resumed "
+              f"generation {tgen}")
+        log(f"[resilience] torn generation: commit raised CheckpointError(lineage), "
+            f"lineage.commit_rejected +1, latest_valid returned generation {tgen}")
+        del _g, _s, g, adv, s0, ref, g8, rows8, adv8, s8, out8, r, adv1, s1, out1
+
+        # --- the board rescaled 1 -> 8 -> 1 against one-slot B4
+        gb, alive0 = gol_board(board, 1, dev)
+        gol = GameOfLife(gb)
+        check(gol.fused, "resilience gol: no whole-run kernel")
+        sb = gol.new_state(alive_cells=alive0)
+        want = set(gol.alive_cells(drive("resilience gol reference",
+                                         lambda: gol.run(sb, RES_STEPS),
+                                         {"gol_run": 1})).tolist())
+        gd = os.path.join(root, "gol_rescale")
+        s, gcur, model = sb, gb, gol
+        for turns_done, target in ((100, 8), (200, 1)):
+            s = drive(f"resilience gol {gcur.n_devices} slot(s)",
+                      lambda: model.run(s, 100),
+                      {"gol_run": 1} if gcur.n_devices == 1 else {"ring_copy": 100})
+            r = rescale(gcur, s, GameOfLife.SPEC, target, directory=gd,
+                        user_header=str(turns_done).encode())
+            check(r.grid.device.type == dev.type and r.n_devices_after == target,
+                  f"resilience gol: rescale landed {r.grid.device}, {r.n_devices_after}")
+            timings.append((f"gol {gcur.n_devices} -> {target}", r.commit_s, r.reland_s,
+                            lineage_bytes(gd)))
+            s, gcur, model = r.state, r.grid, GameOfLife(r.grid)
+        s = drive("resilience gol 1 slot, after", lambda: model.run(s, 100), {"gol_run": 1})
+        got = set(model.alive_cells(s).tolist())
+        check(got == want, f"resilience gol: {len(got)} alive after 1 -> 8 -> 1, the "
+              f"one-slot run {len(want)}")
+        log(f"[resilience] gol {board}x{board}: {RES_STEPS} turns rescaled 1 -> 8 -> 1 after "
+            f"turns 100 and 200: alive set ({len(got)} cells) equal to the one-slot "
+            f"gol_run run({RES_STEPS})")
+
+        # --- a supervised hang on 8 slots, restarted on 4 from latest_valid
+        wd = os.path.join(root, "supervised")
+        os.makedirs(wd)
+        for attempt, nd in enumerate((8, 4)):
+            hb = os.path.join(wd, f"heartbeat_{attempt}.jsonl")
+            env = {"DCCRG_FAULT": "step.hang:1:0:1:60"} if attempt == 0 else {}
+            t = time.perf_counter()
+            p, log_f = child(["gol", wd, dev.type, nd, hb], env)
+            esc0 = counter("supervisor.escalations", action="rescale_down")
+            warn0 = counter("supervisor.warnings", reason="no-progress")
+            outcome, rc, actions = supervise(p, hb, RES_STALL_AFTER_S, timeout=300.0)
+            log_f.close()
+            if attempt == 0:
+                check(outcome == "rescale_down"
+                      and [a[:2] for a in actions] == [("warn", "no-progress"),
+                                                       ("rescale_down", "no-progress")],
+                      f"resilience supervised: {outcome}, ladder {actions}:\n{child_log(wd)}")
+                with open(hb) as f:
+                    beats = [json.loads(ln) for ln in f if ln.endswith("\n")]
+                hang_ts = max(b["ts"] for b in beats if b.get("step") == 60)
+                probs = check_flightrec_dump(wd, "resilience supervised child")
+                check(not probs, f"resilience: {probs}")
+                log(f"[resilience] supervised: the hang after turn 60 on 8 slots detected as "
+                    f"no-progress: warn {actions[0][2] - hang_ts!r} s and rescale_down "
+                    f"{actions[1][2] - hang_ts!r} s after the last beat of turn 60 "
+                    f"(stall window {RES_STALL_AFTER_S} s); ladder counters supervisor.warnings"
+                    f"{{reason=no-progress}} +{counter('supervisor.warnings', reason='no-progress') - warn0}, "
+                    f"supervisor.escalations{{action=rescale_down}} "
+                    f"+{counter('supervisor.escalations', action='rescale_down') - esc0}; "
+                    f"child killed after {time.perf_counter() - t!r} s")
+            else:
+                check((outcome, rc) == ("exited", 0) and not actions,
+                      f"resilience supervised restart: {outcome} {rc}, {actions}:\n"
+                      f"{child_log(wd)}")
+        with open(os.path.join(wd, "report.json")) as f:
+            rep = json.load(f)
+        got = set(np.load(os.path.join(wd, "alive.npy")).tolist())
+        check(rep["resumed_at"] == 50 and got == want,
+              f"resilience supervised: resumed at {rep['resumed_at']}, {len(got)} alive vs "
+              f"{len(want)}")
+        log(f"[resilience] supervised: relaunched on 4 slots from latest_valid (turn "
+            f"{rep['resumed_at']}), finished turn {RES_STEPS} with the one-slot alive set; its report: "
+            f"epoch.recompiles {rep['recompiles']}, launches {rep['launches']}")
+
+        # --- a NaN storm through one blocking exchange of the refined grid
+        g_r, s_r, spec_r = refined
+        before = {k: v.clone() for k, v in s_r.items()}
+        inj0 = counter("resilience.injected", site="halo.nan")
+        rows0 = counter("resilience.nan_rows_poisoned")
+        plane.arm("halo.nan", prob=1.0, seed=0, count=1)
+        try:
+            stormed = drive("resilience nan storm",
+                            lambda: g_r.update_copies_of_remote_neighbors(s_r),
+                            {"ring_copy": 1})
+        finally:
+            plane.disarm("halo.nan")
+        caught = None
+        try:
+            verify_finite(g_r, stormed, spec_r)
+        except AssertionError as err:
+            caught = str(err)
+        check(caught is not None, "resilience: verify_finite passed a stormed state")
+        check(counter("resilience.injected", site="halo.nan") == inj0 + 1,
+              "resilience: resilience.injected{site=halo.nan} did not rise by 1")
+        clean = drive("resilience nan storm, disarmed",
+                      lambda: g_r.update_copies_of_remote_neighbors(s_r), {"ring_copy": 1})
+        verify_finite(g_r, clean, spec_r)
+        check(all(torch.equal(v, before[k]) for k, v in s_r.items()),
+              "resilience: the storm changed its input state")
+        log(f"[resilience] nan storm on {len(g_r.get_cells())} leaves, "
+            f"{g_r.n_devices} slots: {counter('resilience.nan_rows_poisoned') - rows0} rows "
+            f"poisoned; verify_finite raised ({caught[:80]}...); the next exchange clean; "
+            f"the input unchanged")
+        del stormed, clean, before
+        for label, commit_s, reland_s, (newest, kept) in timings:
+            log(f"[resilience] rescale {label}: commit_s {commit_s!r}, reland_s {reland_s!r} "
+                f"(verify_grid included), generation bytes {newest}, lineage bytes {kept} "
+                f"on {card}")
+        log(f"[resilience] phase seconds {time.perf_counter() - t_phase!r} on {card}")
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -2656,6 +3128,11 @@ def main() -> int:
             f"(limit 1e-4) on {card}")
         del g_c, adv_c, raw_c, s_c, out_g, out_f, st
 
+    # 30. resilience: crash, resume and rescales of the headline, the board
+    # rescaled and supervised through a hang, a NaN storm on phase 17's grid,
+    # a torn generation
+    resilience_phase(dev, card, drive, (g_sa, s_sa, adv_s.spec))
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -2686,4 +3163,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main())

@@ -1528,6 +1528,35 @@ class Grid:
         return _start(path, spec, n_devices=n_devices, device=device,
                       ragged=ragged, on_error=on_error)
 
+    def save_checkpoint(self, state, directory: str, spec, keep: int = 3,
+                        user_header: bytes = b"", ragged=None) -> int:
+        """Commit one generation into a crash-safe checkpoint lineage
+        (``resilience/manager.py``): fsync'd atomic write, checksummed
+        MANIFEST, oldest generations beyond ``keep`` rotated out.
+        Returns the committed generation number."""
+        from .resilience.manager import CheckpointLineage
+
+        return CheckpointLineage(directory, keep=keep).commit(
+            self, state, spec, user_header=user_header, ragged=ragged
+        )
+
+    @staticmethod
+    def resume_latest(directory: str, spec, n_devices=None, device=None,
+                      ragged=None, verify: bool = True):
+        """Resume from the newest VALID generation in a lineage
+        directory onto ``n_devices`` slots of ``device`` (default CUDA),
+        scanning back past torn/corrupt ones and re-verifying the restored
+        grid with ``utils.verify.verify_grid``.  Returns ``(grid, state,
+        user_header, generation)``; raises
+        :class:`~dccrg_tpu_torch.io.checkpoint.CheckpointError` when nothing
+        in the lineage is recoverable."""
+        from .resilience.manager import CheckpointLineage
+
+        return CheckpointLineage(directory).latest_valid(
+            spec, n_devices=n_devices, device=device, ragged=ragged,
+            verify=verify,
+        )
+
     def write_vtk_file(self, path: str, scalars: dict | None = None,
                        binary: bool = True):
         """Dump leaf-cell geometry (+ optional ``{name: per-cell values}``

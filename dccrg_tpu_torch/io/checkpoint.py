@@ -69,7 +69,6 @@ import zlib
 import numpy as np
 
 from ..obs.registry import metrics
-from ..resilience import inject
 from ..utils.setops import ragged_arange as _ragged_arange
 
 __all__ = [
@@ -262,6 +261,9 @@ def _meta_block(grid, user_header: bytes, n_cells: int) -> bytes:
 def _write_checkpoint(path, grid, cells, spec, user_header, fixed,
                       ragged_fields, per_cell, counts, bytes_per_cell,
                       offsets, fixed_bpc, version) -> None:
+    # imported here: the resilience package's lineage imports this module
+    from ..resilience import inject
+
     n_cells_ = len(cells)
     # payloads: per cell, fixed fields in spec order, then ragged rows.
     # All packing is offset-indexed scatter — no per-cell Python loops

@@ -107,6 +107,39 @@ def _flush_record_cache(cache: dict) -> None:
             _metrics.inc_batch([(key, v * n) for key, v in pairs])
 
 
+def _maybe_nan_storm(state):
+    """Fault-injection seam: when the ``halo.nan`` site is armed and fires,
+    poison a few random rows of every floating field with NaN *before* the
+    exchange, so the storm propagates into ghost copies exactly the way a
+    corrupted payload would (``resilience/inject``).  The rows are drawn in
+    the JAX package's order (fields by sorted name, floating fields of
+    ndim >= 2 only, ``k = min(4, R)`` slots then ``k`` rows), so a seed
+    poisons the same ``(slot, row)`` pairs in both packages.  The rows of a
+    copy are poisoned: the caller's tensors stay as they were.  Unarmed cost
+    is one dict lookup and no device sync."""
+    from ..resilience.inject import plane
+
+    if not plane.armed("halo.nan") or not plane.fires("halo.nan"):
+        return state
+    rng = plane.site_rng("halo.nan")
+    out = dict(state)
+    n_rows = 0
+    for name in sorted(state):
+        x = state[name]
+        if x is None or not x.is_floating_point() or x.ndim < 2:
+            continue
+        k = min(4, x.shape[1])
+        d = rng.integers(x.shape[0], size=k)
+        r = rng.integers(x.shape[1], size=k)
+        y = x.clone()
+        y[torch.from_numpy(d).to(y.device), torch.from_numpy(r).to(y.device)] = float("nan")
+        out[name] = y
+        n_rows += k
+    if n_rows:
+        _metrics.inc("resilience.nan_rows_poisoned", n_rows)
+    return out
+
+
 def _same_bytes(a, b) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
@@ -323,6 +356,7 @@ class HaloExchange:
                 "got a HaloHandle where a state belongs — pass the handle as "
                 "wait_remote_neighbor_copy_updates(state, handle)"
             )
+        state = _maybe_nan_storm(state)
         if _metrics.enabled:
             self._record(state, "blocking")
             t0 = time.perf_counter()

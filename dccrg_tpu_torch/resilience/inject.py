@@ -2,7 +2,7 @@
 package's ``resilience/inject.py``).
 
 Every fault has a *site name* (``"checkpoint.bit_flip"``,
-``"p2p.recv"``, ...).  Production code asks the process-wide
+``"halo.nan"``, ...).  Production code asks the process-wide
 :data:`plane` whether a site *fires* at each potential fault point; an
 unarmed site is a single dict lookup returning False, so the hooks are
 free in normal operation.  Armed sites draw from their own seeded RNG,
@@ -29,11 +29,9 @@ Sites wired into the codebase:
                            checkpoint as it is written (``io/checkpoint.py``)
 ``checkpoint.torn_write``  truncate a checkpoint file to a random fraction
                            after writing — a torn write at the final path
-``p2p.connect``            fail a controller p2p connect (``utils/collectives``)
-``p2p.accept``             fail a controller p2p accept
-``p2p.recv``               fail a controller p2p recv
-``halo.nan``               poison random rows of halo payload fields with NaN
-                           before an exchange (``parallel/halo.py``)
+``halo.nan``               poison random rows of a copy of every floating
+                           field with NaN before a blocking exchange
+                           (``parallel/halo.py``)
 ``sigkill.post_commit``    SIGKILL the process right after a checkpoint
                            lineage commit (``resilience/manager.py``)
 ``device.lost``            raise ``DeviceLostError`` at a device-availability
@@ -41,14 +39,15 @@ Sites wired into the codebase:
                            step boundary — the degraded-rescale trigger
 ``step.hang``              wedge the step loop (:func:`maybe_hang`) so the
                            supervisor's heartbeat watchdog sees a stall
-                           (``resilience/supervisor.py``, ``tools/soak.py``)
+                           (``resilience/supervisor.py``,
+                           ``resilience/soak.py``)
 =========================  ====================================================
 
 Every trigger is counted as ``resilience.injected{site=...}`` in the obs
-registry.  Only the
-two checkpoint sites are wired into this package so far
-(``io/checkpoint.py``); the others are named for the resilience layer that
-arms them.
+registry.  Every site in the table fires on a path of this package.  The
+JAX package's ``p2p.connect`` / ``p2p.accept`` / ``p2p.recv`` sites guard
+its controller sockets (``utils/collectives``), which the port, whose slots
+share one process, does not have.
 """
 from __future__ import annotations
 

@@ -1,0 +1,871 @@
+"""Crash and elastic soak harnesses: the end-to-end proofs of the resilience
+layer (the ``crash`` and ``elastic`` subsystems of the JAX package's soak
+harness, ported).
+
+    python -m dccrg_tpu_torch.resilience.soak crash --seeds 0 5 --device cpu
+    python -m dccrg_tpu_torch.resilience.soak elastic --seeds 0 3 --device cuda
+
+``crash`` (SIGKILL/resume convergence through the checkpoint lineage): a
+child runs Game of Life and then advection on a refined grid with periodic
+lineage commits while being killed — by injected SIGKILLs at commit
+boundaries AND by the parent at random wall-clock times — and every
+resume, possibly on another slot count, must converge to the
+uninterrupted run's final state: Game of Life exactly, advection within
+the cross-layout tolerance (1e-11 relative, f64).
+
+``elastic`` (the supervised-rescale proof): a child runs the same two
+workloads under AMR churn while performing seeded in-process grow/shrink
+rescales (``resilience/elastic.py``), streaming a heartbeat the parent's
+``Supervisor`` tails; an injected ``step.hang`` wedges the step loop (the
+watchdog must detect the stall and escalate to a degraded rescale-down)
+and an injected ``device.lost`` kills the worker (the supervisor relaunches
+it on fewer slots from ``latest_valid()``).  The completed run must
+converge to a fixed-slot reference (Game of Life exact, advection 1e-11),
+and two fresh processes must then resume the lineage with the second
+compiling nothing: ``epoch.recompiles`` sums to 0 in its report once the
+kernel libraries are on disk (``cuda_build``).  On the CPU nothing is ever
+compiled, so there the count is 0 by construction.
+
+Children are this module run with an internal subcommand (``crash-child``,
+``elastic-child``, ``proof-child``) in a fresh interpreter: they import
+only this package, choose their slot count with ``initialize(n_devices=…)``
+and run on ``--device`` (default CUDA; a child asked for CUDA where there
+is none fails, it never falls back to the CPU).  Crash and elastic
+children arm the flight recorder (``obs/flightrec.py``) at their workdir,
+and the harnesses assert that every killed attempt left a schema-valid
+postmortem naming the unit it was serving (:func:`check_flightrec_dump`).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+#: the checkout that holds the package: children run from it
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+#: the advection fields a lineage generation carries
+ADV_FIELDS = ("density", "vx", "vy", "vz")
+ADV_SPEC = {k: ((), np.float64) for k in ADV_FIELDS}
+
+
+# ------------------------------------------------------------ children
+
+
+def _atomic_save(path, arr):
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, arr)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _gol_grid(nd, device):
+    from .. import Grid
+
+    return (Grid().set_initial_length((10, 10, 1)).set_neighborhood_length(1)
+            .set_periodic(True, True, False)
+            .initialize(n_devices=nd, device=device))
+
+
+def _adv_grid(rng, nd, device):
+    """The soak's refined advection grid: 4^3 periodic, a fifth of the
+    cells (drawn from ``rng``) refined once."""
+    from .. import CartesianGeometry, Grid
+
+    n = 4
+    g = (Grid().set_initial_length((n, n, n)).set_neighborhood_length(0)
+         .set_periodic(True, True, True).set_maximum_refinement_level(1)
+         .set_geometry(CartesianGeometry, start=(0., 0., 0.),
+                       level_0_cell_length=(1. / n,) * 3)
+         .initialize(n_devices=nd, device=device))
+    ids0 = np.sort(g.get_cells())
+    for cid in rng.choice(ids0, size=max(1, len(ids0) // 5), replace=False):
+        g.refine_completely(int(cid))
+    g.stop_refining()
+    return g
+
+
+def land_advection(g, spec_state):
+    """(Re)build the model and its full state from a loaded or rescaled
+    ``(grid, spec-field state)`` pair — the one landing path for fresh
+    starts, resumes, rescales and churn rebuilds."""
+    from .. import Advection
+
+    ids = np.sort(g.get_cells())
+    adv = Advection(g)
+    s = adv.initialize_state()
+    for f in ADV_FIELDS:
+        s = adv.set_cell_data(s, f, ids, g.get_cell_data(spec_state, f, ids))
+    return adv, g.update_copies_of_remote_neighbors(s)
+
+
+def _fresh_advection(g, rng):
+    """Seeded initial conditions, regenerated on every launch (``dt`` is
+    taken from them, never from a resumed state)."""
+    from .. import Advection
+
+    ids = np.sort(g.get_cells())
+    dens0 = rng.uniform(1, 2, len(ids))
+    vels0 = {f: rng.uniform(-0.2, 0.2, len(ids)) for f in ("vx", "vy", "vz")}
+    adv = Advection(g)
+    s0 = adv.initialize_state()
+    s0 = adv.set_cell_data(s0, "density", ids, dens0)
+    for f in ("vx", "vy", "vz"):
+        s0 = adv.set_cell_data(s0, f, ids, vels0[f])
+    s0 = g.update_copies_of_remote_neighbors(s0)
+    return adv, s0, 0.3 * adv.max_time_step(s0)
+
+
+def crash_child(wd, seed, nd, total, every, device):
+    """Game of Life, then advection, with a lineage commit every ``every``
+    steps; each phase resumes from its lineage when one survives."""
+    import atexit
+
+    from .. import GameOfLife, obs
+    from ..io.checkpoint import CheckpointError
+    from ..obs import flightrec
+    from .manager import CheckpointLineage
+
+    obs.stream_to(os.path.join(wd, "child_stream.jsonl"), period=2.0,
+                  extra={"subsystem": "crash", "seed": seed, "n_devices": nd})
+    # the ring checkpoints itself to flightrec_<pid>.json in the workdir,
+    # so even a SIGKILL mid-step leaves a postmortem naming the unit in
+    # flight
+    flightrec.recorder.arm(wd, period=0.5)
+    # per-child timeline at exit (a SIGKILLed attempt leaves none)
+    atexit.register(lambda: obs.export_chrome_trace(
+        os.path.join(wd, "child_%d.trace.json" % os.getpid())))
+
+    # ---- phase 1: Game of Life (exact across slot counts) -----------
+    final = os.path.join(wd, "gol_final.npy")
+    if not os.path.exists(final):
+        rng = np.random.default_rng(seed)
+        g = _gol_grid(nd, device)
+        cells = g.get_cells()
+        alive0 = cells[rng.random(len(cells)) < 0.35]
+        lineage = CheckpointLineage(os.path.join(wd, "gol"), keep=3)
+        try:
+            g, s, hdr, gen = lineage.latest_valid(
+                GameOfLife.SPEC, n_devices=nd, device=device)
+            step = int(hdr)
+            gol = GameOfLife(g)
+            print("RESUMED gol gen=%d step=%d" % (gen, step), flush=True)
+        except CheckpointError:
+            gol = GameOfLife(g)
+            s = gol.new_state(alive_cells=alive0)
+            step = 0
+            print("FRESH gol", flush=True)
+        while step < total:
+            flightrec.recorder.mark_unit("gol/%d" % step, tenant="soak",
+                                         phase="gol", step=step)
+            s = gol.run(s, 1)
+            step += 1
+            if step % every == 0:
+                lineage.commit(g, s, GameOfLife.SPEC,
+                               user_header=str(step).encode())
+        _atomic_save(final, np.sort(gol.alive_cells(s)))
+
+    # ---- phase 2: advection (within the cross-layout tolerance) -----
+    final = os.path.join(wd, "adv_final.npy")
+    if not os.path.exists(final):
+        rng = np.random.default_rng(seed + 1)
+        g = _adv_grid(rng, nd, device)
+        ids = np.sort(g.get_cells())
+        adv, s0, dt = _fresh_advection(g, rng)
+        lineage = CheckpointLineage(os.path.join(wd, "adv"), keep=3)
+        try:
+            g2, s2, hdr, gen = lineage.latest_valid(
+                ADV_SPEC, n_devices=nd, device=device)
+            step = int(hdr)
+            g = g2
+            adv, s = land_advection(g, s2)
+            print("RESUMED adv gen=%d step=%d" % (gen, step), flush=True)
+        except CheckpointError:
+            s = s0
+            step = 0
+            print("FRESH adv", flush=True)
+        while step < total:
+            flightrec.recorder.mark_unit("adv/%d" % step, tenant="soak",
+                                         phase="adv", step=step)
+            s = adv.step(s, dt)
+            step += 1
+            if step % every == 0:
+                lineage.commit(g, s, ADV_SPEC, user_header=str(step).encode())
+        _atomic_save(final, np.asarray(g.get_cell_data(s, "density", ids),
+                                       np.float64))
+    print("CRASH_CHILD_DONE", flush=True)
+
+
+def elastic_child(wd, seed, nd, total, every, do_rescale, device):
+    """Game of Life and advection under AMR churn with periodic lineage
+    commits, seeded in-process grow/shrink rescales, a 0.5 s heartbeat and
+    per-step fault hooks (``step.hang`` wedges the loop for the watchdog;
+    ``device.lost`` exits 42 for the supervisor to relaunch degraded).  The
+    churn and rescale schedules are pure functions of (seed, step), so every
+    attempt — and the fixed-slot reference (``do_rescale`` 0, no faults) —
+    walks the same structural history."""
+    from .. import Advection, GameOfLife, obs
+    from ..io.checkpoint import CheckpointError
+    from ..obs import flightrec
+    from . import inject
+    from .elastic import DeviceLostError, rescale
+    from .manager import CheckpointLineage
+
+    hb = os.environ.get("DCCRG_ELASTIC_HEARTBEAT",
+                        os.path.join(wd, "heartbeat.jsonl"))
+    stream = obs.stream_to(hb, period=0.5,
+                           extra={"subsystem": "elastic", "seed": seed})
+    # every killed attempt (watchdog rescue, device loss, SIGKILL) leaves
+    # flightrec_<pid>.json naming the step that was in flight
+    flightrec.recorder.arm(wd, period=0.5)
+
+    def schedules(phase):
+        rng = np.random.default_rng(100_000 + seed * 7 + phase)
+        n_r = min(3, max(1, total // 6))
+        steps = np.sort(rng.choice(np.arange(2, total), size=n_r,
+                                   replace=False))
+        rescales = {int(s): int(rng.choice([1, 2, 4, 8])) for s in steps}
+        churn = {int(s) for s in rng.choice(np.arange(1, total),
+                                            size=min(3, total // 5),
+                                            replace=False)}
+        return rescales, churn
+
+    def step_hooks(phase, step):
+        # the unit is marked and checkpointed FIRST, so whichever fault
+        # fires, the postmortem names this step as the victim (a step here
+        # takes milliseconds, far less than the autodump period)
+        flightrec.recorder.mark_unit("%s/%d" % (phase, step), tenant="soak",
+                                     phase=phase, step=step)
+        flightrec.recorder.checkpoint(force=True)
+        stream.write_snapshot(phase=phase, step=step)
+        inject.maybe_raise("device.lost", DeviceLostError, where="step")
+        inject.maybe_hang("step.hang", seconds=600.0)
+
+    def churn_refine(g, s, rng_tag):
+        # the target comes from the SORTED leaf ids: every layout agrees
+        ids = np.sort(g.get_cells())
+        lvl = g.mapping.get_refinement_level(ids)
+        cand = ids[lvl < g.mapping.max_refinement_level]
+        if not len(cand):
+            return g, s, False
+        g.refine_completely(int(cand[rng_tag % len(cand)]))
+        g.stop_refining()
+        return g, g.remap_state(s), True
+
+    # ---- phase 1: Game of Life (exact across counts and rescales) ----
+    final = os.path.join(wd, "gol_final.npy")
+    if not os.path.exists(final):
+        rescales, _churn = schedules(0)
+        rng = np.random.default_rng(seed)
+        g = _gol_grid(nd, device)
+        cells = g.get_cells()
+        alive0 = cells[rng.random(len(cells)) < 0.35]
+        lineage = CheckpointLineage(os.path.join(wd, "gol"), keep=3)
+        try:
+            g, s, hdr, gen = lineage.latest_valid(
+                GameOfLife.SPEC, n_devices=nd, device=device)
+            step = int(hdr)
+            gol = GameOfLife(g)
+            print("RESUMED gol gen=%d step=%d nd=%d" % (gen, step, nd),
+                  flush=True)
+        except CheckpointError:
+            gol = GameOfLife(g)
+            s = gol.new_state(alive_cells=alive0)
+            step = 0
+            print("FRESH gol nd=%d" % nd, flush=True)
+        while step < total:
+            step_hooks("gol", step)
+            if do_rescale and step in rescales and rescales[step] != g.n_devices:
+                r = rescale(g, s, GameOfLife.SPEC, rescales[step],
+                            lineage=lineage, user_header=str(step).encode())
+                g, s = r.grid, r.state
+                gol = GameOfLife(g)
+                print("RESCALED gol step=%d %d->%d" % (
+                    step, r.n_devices_before, r.n_devices_after), flush=True)
+            s = gol.run(s, 1)
+            step += 1
+            if step % every == 0:
+                lineage.commit(g, s, GameOfLife.SPEC,
+                               user_header=str(step).encode())
+        _atomic_save(final, np.sort(gol.alive_cells(s)))
+
+    # ---- phase 2: advection under AMR churn (1e-11 across layouts) ---
+    final = os.path.join(wd, "adv_final.npy")
+    if not os.path.exists(final):
+        rescales, churn = schedules(1)
+        rng = np.random.default_rng(seed + 1)
+        g = _adv_grid(rng, nd, device)
+        adv, s0, dt = _fresh_advection(g, rng)
+        lineage = CheckpointLineage(os.path.join(wd, "adv"), keep=3)
+        try:
+            g, s2, hdr, gen = lineage.latest_valid(
+                ADV_SPEC, n_devices=nd, device=device)
+            step = int(hdr)
+            adv, s = land_advection(g, s2)
+            print("RESUMED adv gen=%d step=%d nd=%d" % (gen, step, nd),
+                  flush=True)
+        except CheckpointError:
+            s = s0
+            step = 0
+            print("FRESH adv nd=%d" % nd, flush=True)
+        while step < total:
+            step_hooks("adv", step)
+            if step in churn:
+                g, s, did = churn_refine(g, s, 7919 * (step + 1))
+                if did:
+                    s = g.update_copies_of_remote_neighbors(s)
+                    adv = Advection(g)
+            if do_rescale and step in rescales and rescales[step] != g.n_devices:
+                r = rescale(g, s, ADV_SPEC, rescales[step], lineage=lineage,
+                            user_header=str(step).encode())
+                g = r.grid
+                adv, s = land_advection(g, r.state)
+                print("RESCALED adv step=%d %d->%d" % (
+                    step, r.n_devices_before, r.n_devices_after), flush=True)
+            s = adv.step(s, dt)
+            step += 1
+            if step % every == 0:
+                lineage.commit(g, s, ADV_SPEC, user_header=str(step).encode())
+        ids_f = np.sort(g.get_cells())
+        _atomic_save(final, np.asarray(
+            g.get_cell_data(s, "density", ids_f), np.float64))
+    print("ELASTIC_CHILD_DONE", flush=True)
+
+
+def proof_child(wd, nd, out, device):
+    """The warm-start proof: resume the elastic run's advection lineage on
+    ``nd`` slots, step, run one deterministic churn cycle (rebuild, re-land,
+    step), and report the grid's shape signature, the generation and the
+    libraries this process compiled (``epoch.recompiles``) and loaded."""
+    import torch
+
+    from .. import Advection, cuda_build, obs
+    from .manager import CheckpointLineage
+
+    lineage = CheckpointLineage(os.path.join(wd, "adv"), keep=3)
+    g, s2, _hdr, gen = lineage.latest_valid(ADV_SPEC, n_devices=nd,
+                                            device=device)
+    ids = np.sort(g.get_cells())
+    adv, s = land_advection(g, s2)
+    dt = 0.25 * adv.max_time_step(s)
+    s = adv.step(s, dt)
+    lvl = g.mapping.get_refinement_level(ids)
+    cand = ids[lvl < g.mapping.max_refinement_level]
+    if len(cand):
+        g.refine_completely(int(cand[len(cand) // 2]))
+        g.stop_refining()
+        s = g.update_copies_of_remote_neighbors(g.remap_state(s))
+        adv = Advection(g)
+        s = adv.step(s, dt)
+    if s["density"].is_cuda:
+        torch.cuda.synchronize()
+    rep = obs.metrics.report()
+    rec = {
+        "signature": repr(g.shape_signature()),
+        "generation": gen,
+        "device": str(g.device),
+        "recompiles": int(sum(
+            rep["counters"].get("epoch.recompiles", {}).values())),
+        "libraries": sorted(cuda_build._libs),
+    }
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    print("PROOF_CHILD_DONE", json.dumps(rec), flush=True)
+
+
+# ------------------------------------------------------------- harnesses
+
+
+def _launch(workdir, kind, argv, env_extra=None, log_name="child.log"):
+    """Start ``python -m dccrg_tpu_torch.resilience.soak <kind> argv...``
+    from the checkout with its output appended to ``workdir/log_name``."""
+    env = dict(os.environ)
+    env.pop("DCCRG_FAULT", None)
+    env.update(env_extra or {})
+    log = open(os.path.join(workdir, log_name), "a")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "dccrg_tpu_torch.resilience.soak", kind]
+        + [str(a) for a in argv],
+        cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT, env=env,
+    )
+    return p, log
+
+
+def _tail(path, n=2000):
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def check_flightrec_dump(workdir: str, context: str,
+                         require_inflight: bool = True) -> list:
+    """Harness-side black-box assertion: a killed child must have left a
+    parseable ``flightrec_*.json`` postmortem in its workdir naming the
+    unit(s) it had in flight.  Returns failure strings.
+
+    ``require_inflight=False`` relaxes the victim-naming requirement to
+    "only if the dump shows stepping ever began" (any ``unit`` event in
+    the ring) — the crash harness kills at RANDOM wall-clock times that
+    can land in the sliver between arming and the first step."""
+    import glob
+
+    from ..obs.flightrec import validate_flightrec
+
+    files = glob.glob(os.path.join(workdir, "flightrec_*.json"))
+    if not files:
+        return [f"{context}: killed child left no flight-recorder dump"]
+    newest = max(files, key=os.path.getmtime)
+    name = os.path.basename(newest)
+    fails = [f"{context}: {name}: {f}" for f in validate_flightrec(newest)]
+    if fails:
+        return fails
+    with open(newest) as f:
+        rec = json.load(f)
+    stepped = any(ev.get("kind") == "unit" for ev in rec.get("events", []))
+    if (require_inflight or stepped) and not rec.get("in_flight"):
+        return [f"{context}: postmortem {name} names no in-flight request"]
+    return []
+
+
+def _open_stream(stream_dir, name, extra):
+    if not stream_dir:
+        return None
+    from ..obs.stream import TelemetryStream
+
+    os.makedirs(stream_dir, exist_ok=True)
+    return TelemetryStream(os.path.join(stream_dir, name), truncate=True,
+                           extra=extra)
+
+
+def _converged(ref, wd):
+    """Game of Life exactly, advection within 1e-11 relative of the
+    reference's finals; raises AssertionError otherwise."""
+    np.testing.assert_array_equal(np.load(os.path.join(wd, "gol_final.npy")),
+                                  np.load(os.path.join(ref, "gol_final.npy")))
+    np.testing.assert_allclose(np.load(os.path.join(wd, "adv_final.npy")),
+                               np.load(os.path.join(ref, "adv_final.npy")),
+                               rtol=1e-11, atol=0)
+
+
+def run_crash(lo: int, hi: int, stream_dir: str | None = None,
+              total_steps: int = 24, every: int = 3,
+              device: str = "cuda") -> bool:
+    """The crash/resume proof harness.  Per seed:
+
+    1. an uninterrupted reference child runs to completion;
+    2. a crash child runs the same workload with lineage checkpoints
+       while being killed — even attempts arm an injected SIGKILL at a
+       random commit boundary plus occasional torn writes
+       (``DCCRG_FAULT``), odd attempts get SIGKILLed by THIS process at
+       a random wall-clock moment (which can land mid-write or
+       mid-manifest-rewrite — the genuinely torn cases); each relaunch
+       resumes from ``latest_valid()`` on a possibly different slot count;
+    3. once a launch completes, the final states must match the
+       reference: Game of Life exactly, advection to the 1e-11
+       cross-layout tolerance.
+
+    Every attempt's outcome (exit status, kill mode, which generation the
+    resume picked up) is appended to the streaming telemetry JSONL in
+    ``stream_dir``."""
+    stream = _open_stream(stream_dir, f"crash_{lo}_{hi}.jsonl",
+                          {"subsystem": "crash", "seeds": [lo, hi]})
+
+    def record(**kw):
+        if stream is not None:
+            stream.write_snapshot(**kw)
+
+    def launch(workdir, seed, nd, env_extra=None):
+        return _launch(workdir, "crash-child",
+                       [workdir, seed, nd, total_steps, every, device],
+                       env_extra)
+
+    def resumes_of(workdir):
+        return re.findall(r"(?:RESUMED|FRESH) [^\n]*",
+                          _tail(os.path.join(workdir, "child.log"), 1 << 20))[-4:]
+
+    nd_cycle = (2, 1, 4)
+    max_attempts = 8
+    ok_all = True
+    for seed in range(lo, hi):
+        rng = np.random.default_rng(10_000 + seed)
+        tmp = tempfile.mkdtemp(prefix=f"dccrg_crash_{seed}_")
+        try:
+            # 1. uninterrupted reference
+            ref = os.path.join(tmp, "ref")
+            os.makedirs(ref)
+            p, log = launch(ref, seed, int(rng.choice(nd_cycle)))
+            rc = p.wait()
+            log.close()
+            if rc != 0:
+                print(f"crash seed {seed}: reference run failed rc={rc}")
+                print(_tail(os.path.join(ref, "child.log")))
+                record(seed=seed, outcome="reference-failed", exit=rc)
+                ok_all = False
+                continue
+
+            # 2. crash/resume until a launch completes
+            wd = os.path.join(tmp, "crash")
+            os.makedirs(wd)
+            rc = -1
+            for attempt in range(max_attempts):
+                nd = nd_cycle[attempt % len(nd_cycle)]
+                last = attempt == max_attempts - 1
+                env_extra, kill_mode = {}, "none"
+                if not last and attempt % 2 == 0:
+                    kill_mode = "inject-sigkill"
+                    env_extra["DCCRG_FAULT"] = (
+                        f"sigkill.post_commit:0.6:{seed * 97 + attempt}:1"
+                        f":{int(rng.integers(0, 4))}"
+                        f",checkpoint.torn_write:0.07:{seed * 31 + attempt}"
+                    )
+                elif not last:
+                    kill_mode = "parent-kill"
+                p, log = launch(wd, seed, nd, env_extra)
+                if kill_mode == "parent-kill":
+                    try:
+                        p.wait(timeout=float(rng.uniform(2.0, 10.0)))
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                try:
+                    # hang guard: a wedged child is killed and recorded
+                    rc = p.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rc = p.wait()
+                    kill_mode += "+hang-guard"
+                log.close()
+                record(seed=seed, attempt=attempt, n_devices=nd,
+                       kill=kill_mode, exit=rc, resumes=resumes_of(wd))
+                if rc == 0:
+                    break
+                # every killed attempt that reached the workload must have
+                # left its black box (random-time kills can land before
+                # arming — resumes_of is the evidence the child got that far)
+                if resumes_of(wd):
+                    probs = check_flightrec_dump(
+                        wd, f"crash seed {seed} attempt {attempt}",
+                        require_inflight=False)
+                    for msg in probs:
+                        print(f"  FLIGHTREC: {msg}")
+                    if probs:
+                        record(seed=seed, attempt=attempt,
+                               outcome="flightrec-missing")
+                        ok_all = False
+            if rc != 0:
+                print(f"crash seed {seed}: no attempt completed "
+                      f"(last rc={rc})")
+                print(_tail(os.path.join(wd, "child.log")))
+                record(seed=seed, outcome="never-completed", exit=rc)
+                ok_all = False
+                continue
+
+            # 3. convergence against the reference
+            try:
+                _converged(ref, wd)
+            except AssertionError as e:
+                print(f"crash seed {seed}: DIVERGED after resume: "
+                      f"{str(e)[:200]}")
+                record(seed=seed, outcome="diverged")
+                ok_all = False
+                continue
+            record(seed=seed, outcome="ok", attempts=attempt + 1)
+            print(f"crash seed {seed}: OK after {attempt + 1} attempt(s)")
+        finally:
+            if stream_dir:
+                import glob
+
+                for i, t in enumerate(sorted(glob.glob(
+                        os.path.join(tmp, "*", "child_*.trace.json")))):
+                    shutil.copy(t, os.path.join(
+                        stream_dir, f"crash_{seed}_{i}.trace.json"))
+            shutil.rmtree(tmp, ignore_errors=True)
+    if stream is not None:
+        stream.stop(final=True)
+    print(f"{'crash':12s} [{lo},{hi}): {'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
+def wait_first_step_beat(p, hb_path, timeout=300.0) -> bool:
+    """Wait until the child's heartbeat stream holds a line with a ``step``
+    marker (its first step), or it exits, or ``timeout`` passes.  Returns
+    whether a step beat landed.  Start-up (interpreter, CUDA context, grid
+    build) is not a stall: a supervisor's stall window starts here."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout and p.poll() is None:
+        try:
+            with open(hb_path, "rb") as f:
+                for line in f:
+                    if line.endswith(b"\n") and b'"step":' in line:
+                        return True
+        except OSError:
+            pass
+        time.sleep(0.05)
+    return False
+
+
+def supervise(p, hb_path, stall_after, timeout=600.0):
+    """Poll the child's heartbeat from its first step until it exits or
+    the watchdog decides; returns ``(outcome, returncode, actions)`` where
+    outcome is ``exited`` | ``rescale_down`` | ``restart`` | ``timeout`` and
+    ``actions`` lists the ladder's ``(action, reason, unix time)`` decisions.
+    The child is killed (and reaped) on any decision but a warning."""
+    from .supervisor import HeartbeatMonitor, Supervisor
+
+    wait_first_step_beat(p, hb_path)
+    sup = Supervisor(HeartbeatMonitor(hb_path, stall_after_s=stall_after),
+                     child_alive=lambda: p.poll() is None)
+    actions = []
+    t0 = time.monotonic()
+    while True:
+        time.sleep(0.1)
+        if p.poll() is not None:
+            if p.returncode != 0:
+                # count the dead-child escalation in THIS process's
+                # registry (the child's own counters died with it)
+                sup.poll()
+            return "exited", p.returncode, actions
+        act = sup.poll()
+        if act["action"] is not None:
+            actions.append((act["action"], act["reason"], time.time()))
+        if act["action"] in ("rescale_down", "restart"):
+            outcome = act["action"]
+        elif time.monotonic() - t0 > timeout:
+            outcome = "timeout"
+        else:
+            continue
+        p.kill()
+        p.wait()
+        return outcome, None, actions
+
+
+#: seconds without progress after which the elastic harness's watchdog
+#: calls a child stalled: far above an honest step of its small workloads
+#: (milliseconds), and the stall window opens only at the first step beat
+STALL_AFTER_S = 5.0
+
+
+def run_elastic(lo: int, hi: int, stream_dir: str | None = None,
+                total_steps: int = 18, every: int = 3,
+                device: str = "cuda") -> bool:
+    """The elastic-fleet proof harness.  Per seed:
+
+    1. a fixed-slot reference child runs the workload to completion
+       (same seeded AMR-churn schedule, no rescales, no faults);
+    2. an elastic run: the child performs seeded in-process grow/shrink
+       rescales while this process's :class:`Supervisor` tails its 0.5 s
+       heartbeat stream (from its first step; ``STALL_AFTER_S`` seconds
+       without progress is a stall) — attempt 0 arms an injected
+       ``step.hang`` (the watchdog must detect the stall and escalate
+       warn → rescale-down: the child is killed and relaunched DEGRADED on
+       half the slots), attempt 1 arms ``device.lost`` (the child exits
+       42; the supervisor's dead-child path relaunches it on fewer slots
+       from ``latest_valid()``), later attempts run clean; every relaunch
+       resumes from the lineage;
+    3. the completed run's final states must match the reference — Game
+       of Life exactly, advection to the 1e-11 cross-layout tolerance;
+    4. the warm-start proof: two fresh processes resume the final lineage
+       and run one churn cycle; the second must land on the first's shape
+       signature having compiled nothing (``epoch.recompiles`` == 0).
+    """
+    stream = _open_stream(stream_dir, f"elastic_{lo}_{hi}.jsonl",
+                          {"subsystem": "elastic", "seeds": [lo, hi]})
+
+    def record(**kw):
+        if stream is not None:
+            stream.write_snapshot(**kw)
+
+    nd_ref = 2
+    max_attempts = 8
+    ok_all = True
+    for seed in range(lo, hi):
+        tmp = tempfile.mkdtemp(prefix=f"dccrg_elastic_{seed}_")
+        try:
+            # 1. fixed-slot reference (no rescales, no faults)
+            ref = os.path.join(tmp, "ref")
+            os.makedirs(ref)
+            p, log = _launch(ref, "elastic-child",
+                             [ref, seed, nd_ref, total_steps, every, 0, device])
+            rc = p.wait()
+            log.close()
+            if rc != 0:
+                print(f"elastic seed {seed}: reference failed rc={rc}")
+                print(_tail(os.path.join(ref, "child.log")))
+                record(seed=seed, outcome="reference-failed", exit=rc)
+                ok_all = False
+                continue
+
+            # 2. supervised elastic run with injected hang + device loss
+            wd = os.path.join(tmp, "elastic")
+            os.makedirs(wd)
+            nd = 4
+            rc = -1
+            for attempt in range(max_attempts):
+                hb = os.path.join(wd, f"heartbeat_{attempt}.jsonl")
+                env_extra = {"DCCRG_ELASTIC_HEARTBEAT": hb}
+                fault = "none"
+                if attempt == 0:
+                    # wedge the step loop a few steps in: only the
+                    # heartbeat watchdog can see this failure
+                    fault = "step.hang"
+                    env_extra["DCCRG_FAULT"] = \
+                        f"step.hang:1:{seed}:1:{2 + seed % 3}"
+                elif attempt == 1:
+                    fault = "device.lost"
+                    env_extra["DCCRG_FAULT"] = \
+                        f"device.lost:1:{seed}:1:{3 + seed % 4}"
+                p, log = _launch(wd, "elastic-child",
+                                 [wd, seed, nd, total_steps, every, 1, device],
+                                 env_extra)
+                outcome, rc, actions = supervise(p, hb, STALL_AFTER_S)
+                log.close()
+                for action, reason, _t in actions:
+                    print(f"    watchdog: {action} ({reason})", flush=True)
+                record(seed=seed, attempt=attempt, n_devices=nd,
+                       fault=fault, outcome=outcome, exit=rc)
+                print(f"  attempt {attempt} nd={nd} fault={fault}: "
+                      f"{outcome} rc={rc}", flush=True)
+                if outcome == "exited" and rc == 0:
+                    break
+                # a killed/faulted attempt must leave its black box naming
+                # the step it was serving — the hang wedges AFTER the unit
+                # is marked and the checkpoint ticks every 0.5 s
+                probs = check_flightrec_dump(
+                    wd, f"elastic seed {seed} attempt {attempt}")
+                for msg in probs:
+                    print(f"  FLIGHTREC: {msg}")
+                if probs:
+                    record(seed=seed, attempt=attempt,
+                           outcome="flightrec-missing")
+                    ok_all = False
+                # degraded relaunch on fewer slots after a watchdog
+                # rescale-down or a device loss (exit 42); a restart keeps
+                # the count
+                if outcome == "rescale_down" or rc == 42:
+                    nd = max(1, nd // 2)
+            if rc != 0:
+                print(f"elastic seed {seed}: no attempt completed "
+                      f"(last rc={rc})")
+                print(_tail(os.path.join(wd, "child.log")))
+                record(seed=seed, outcome="never-completed", exit=rc)
+                ok_all = False
+                continue
+
+            # 3. convergence against the fixed-slot reference
+            try:
+                _converged(ref, wd)
+            except AssertionError as e:
+                print(f"elastic seed {seed}: DIVERGED from fixed-slot "
+                      f"reference: {str(e)[:300]}")
+                record(seed=seed, outcome="diverged")
+                ok_all = False
+                continue
+
+            # 4. fresh-process warm start: the second compiles nothing
+            proofs = []
+            proof_ok = True
+            for i in range(2):
+                out = os.path.join(wd, f"proof_{i}.json")
+                p, log = _launch(wd, "proof-child", [wd, nd, out, device],
+                                 log_name=f"proof_{i}.log")
+                prc = p.wait()
+                log.close()
+                if prc != 0:
+                    print(f"elastic seed {seed}: proof child {i} rc={prc}")
+                    print(_tail(os.path.join(wd, f"proof_{i}.log"), 1500))
+                    proof_ok = False
+                    break
+                with open(out) as f:
+                    proofs.append(json.load(f))
+            if proof_ok:
+                a, b = proofs
+                if b["signature"] != a["signature"]:
+                    print(f"elastic seed {seed}: warm-start signature "
+                          f"drifted: {a['signature']} -> {b['signature']}")
+                    proof_ok = False
+                elif b["recompiles"] != 0:
+                    print(f"elastic seed {seed}: warm start NOT warm: "
+                          f"recompiles={b['recompiles']} "
+                          f"libraries={b['libraries']}")
+                    proof_ok = False
+            record(seed=seed,
+                   outcome="ok" if proof_ok else "warm-start-failed",
+                   attempts=attempt + 1, proofs=proofs)
+            if not proof_ok:
+                ok_all = False
+                continue
+            print(f"elastic seed {seed}: OK after {attempt + 1} "
+                  f"attempt(s); warm start recompiles=0 "
+                  f"(libraries loaded: {proofs[1]['libraries']})")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if stream is not None:
+        stream.stop(final=True)
+    print(f"{'elastic':12s} [{lo},{hi}): {'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
+# ---------------------------------------------------------------- CLI
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m dccrg_tpu_torch.resilience.soak",
+        description="Crash and elastic soak harnesses of the port.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name in ("crash", "elastic"):
+        sp = sub.add_parser(name)
+        sp.add_argument("--seeds", type=int, nargs=2, default=(0, 5),
+                        metavar=("LO", "HI"))
+        sp.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+        sp.add_argument("--stream-dir", default=None,
+                        help="write per-attempt telemetry JSONL here")
+    sp = sub.add_parser("crash-child")
+    for a in ("wd", "seed", "nd", "total", "every", "device"):
+        sp.add_argument(a)
+    sp = sub.add_parser("elastic-child")
+    for a in ("wd", "seed", "nd", "total", "every", "do_rescale", "device"):
+        sp.add_argument(a)
+    sp = sub.add_parser("proof-child")
+    for a in ("wd", "nd", "out", "device"):
+        sp.add_argument(a)
+    args = ap.parse_args(argv)
+    if args.cmd == "crash":
+        return 0 if run_crash(*args.seeds, stream_dir=args.stream_dir,
+                              device=args.device) else 1
+    if args.cmd == "elastic":
+        return 0 if run_elastic(*args.seeds, stream_dir=args.stream_dir,
+                                device=args.device) else 1
+    if args.cmd == "crash-child":
+        crash_child(args.wd, int(args.seed), int(args.nd), int(args.total),
+                    int(args.every), args.device)
+        return 0
+    if args.cmd == "elastic-child":
+        from .elastic import DeviceLostError
+
+        try:
+            elastic_child(args.wd, int(args.seed), int(args.nd),
+                          int(args.total), int(args.every),
+                          int(args.do_rescale), args.device)
+        except DeviceLostError as e:
+            print("DEVICE_LOST:", e, flush=True)
+            return 42
+        return 0
+    proof_child(args.wd, int(args.nd), args.out, args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

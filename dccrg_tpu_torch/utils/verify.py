@@ -9,7 +9,11 @@ the *internal* consistency of every derived structure against the leaf set,
 plus ghost-copy correctness of user data.  Call after mutations in tests or
 debugging sessions; it is pure host-side numpy.  A copy of the JAX
 package's ``utils/verify.py``; payloads are read back with
-``collectives.fetch``.
+``collectives.fetch``, and ``verify_grid`` compares the neighbour pairs as
+sorted integer keys and sums the leaves' volume over their distinct edge
+lengths, where the JAX package builds Python sets and sums cell by cell
+(the same invariants; a re-landing of a million cells verifies in about a
+second instead of about twenty).
 """
 from __future__ import annotations
 
@@ -119,9 +123,11 @@ def verify_grid(grid, check_two_to_one: bool = True) -> None:
     lvl = grid.mapping.get_refinement_level(leaves.cells)
     assert (lvl >= 0).all(), "non-existing id in leaf set"
 
-    # leaves must partition the domain: total index-volume matches
-    ln = grid.mapping.get_cell_length_in_indices(leaves.cells).astype(object)
-    vol = int(sum(int(v) ** 3 for v in ln))
+    # leaves must partition the domain: total index-volume matches (exact
+    # Python ints over the distinct edge lengths: a volume may pass 2**63)
+    ln, n_ln = np.unique(grid.mapping.get_cell_length_in_indices(leaves.cells),
+                         return_counts=True)
+    vol = sum(int(v) ** 3 * int(c) for v, c in zip(ln, n_ln))
     nx, ny, nz = grid.mapping.length_in_indices
     assert vol == nx * ny * nz, "leaves do not tile the domain"
 
@@ -135,6 +141,14 @@ def verify_grid(grid, check_two_to_one: bool = True) -> None:
 
     for hid, hood in epoch.hoods.items():
         _verify_hood(grid, hood, lvl, check_two_to_one, hid)
+
+
+def _distinct(keys):
+    """The distinct values of ``keys``, ascending: a sort and a mask of
+    first occurrences (newer numpy's ``np.unique`` hashes, which at millions
+    of keys can be many times slower than the sort)."""
+    keys = np.sort(keys)
+    return keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
 
 
 def _verify_hood(grid, hood, lvl, check_two_to_one, hid):
@@ -153,11 +167,14 @@ def _verify_hood(grid, hood, lvl, check_two_to_one, hid):
         diff = np.abs(lvl[src] - lvl[lists.nbr_pos])
         assert diff.max() <= 1, f"2:1 violation in hood {hid}"
 
-    # neighbors_to is the exact inverse of neighbors_of
-    pairs_of = set(zip(src.tolist(), lists.nbr_pos.tolist()))
+    # neighbors_to is the exact inverse of neighbors_of: the same set of
+    # (cell, neighbour) pairs, each pair a key cell * N + neighbour
+    pairs_of = _distinct(src * N + lists.nbr_pos.astype(np.int64))
     src_to = np.repeat(np.arange(N), np.diff(hood.to_start))
-    pairs_to = set(zip(hood.to_src.tolist(), src_to.tolist()))
-    assert pairs_to == pairs_of, f"neighbors_to not inverse in hood {hid}"
+    to_src = hood.to_src.astype(np.int64)
+    pairs_to = _distinct(to_src * N + src_to)
+    assert ((to_src >= 0) & (to_src < N)).all() and np.array_equal(
+        pairs_to, pairs_of), f"neighbors_to not inverse in hood {hid}"
 
     # send/recv schedules pairwise consistent (remote-info symmetry)
     D = grid.n_devices
