@@ -252,8 +252,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 of each rescale, the lineage's bytes and the phase's seconds
                 are logged with the card.
 
+31. serve     — (before 30) the serving tier (``dccrg_tpu_torch.serve``) on
+                the card at the bench's widths: dense advection cohorts of
+                the headline member (128x128x64, one slot, W = 1, 4, 16,
+                per-member dt = max_time_step x (0.3 + 0.02 w), k =
+                16, 64 steps: B2 with its member axis, one launch a step),
+                the plane kernel's cohort (B3, 128x128x63 on 3 slots, W = 4,
+                10 steps), the Vlasov member (32^3 x 512 bins, B7, W = 4,
+                k = 10, 20 steps) and the split advection cohort on phase
+                17's grid (B9 on member-offset ring tables, W = 4, k = 4, 20
+                steps: two launches a step for all members), each member
+                bitwise equal to its own solo steps; the member-axis
+                launches timed beside W x one member's bound; the bench's
+                ensemble sweep (Game of Life on 4^3, cohorts of 1, 64 and
+                256, k = 1, 4, 16: scenario-steps/s, amortization over solo,
+                bytes a member shared and stacked, the verify oracle at each
+                k with no mismatch) and wide-halo sweep (6^3 on 2 slots at
+                neighbourhood length 2 and 4, 16 members, k = 4 and 16,
+                against the exchange-every-step body: exchanges a step,
+                rates, owned rows bitwise equal); the fleet gateway (two
+                workers of one slot, 24 seeded Game of Life and advection
+                scenarios, a worker and then the gateway SIGKILLed and the
+                gateway relaunched over its journal: every scenario retired
+                exactly once, equal to the solo oracle, a postmortem naming
+                the lost worker, no kernel built in any worker).
+
 Launch counters are set to 0 just before each of phases 3-19, 21-28 and
-each sub-step of 30 drives its path and read just after.  Telemetry is on throughout, as it
+each sub-step of 30 and 31 drives its path and read just after.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -812,6 +837,430 @@ def resilience_phase(dev, card, drive, refined):
                 p.kill()
                 p.wait()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------------------- 31. serve
+
+#: phase 31's sizes: the bench's widths (bench.py's headline, its Vlasov,
+#: microbench.py's ensemble and wide-halo sweeps); steps are what the
+#: phase's time allows
+SERVE_DENSE_WIDTHS = (1, 4, 16)
+SERVE_DENSE_K, SERVE_DENSE_STEPS = 16, 64
+SERVE_PLANE_W, SERVE_PLANE_STEPS = 4, 10
+SERVE_VLASOV_W, SERVE_VLASOV_K, SERVE_VLASOV_STEPS = 4, 10, 20
+SERVE_SPLIT_W, SERVE_SPLIT_K, SERVE_SPLIT_STEPS = 4, 4, 20
+SERVE_SWEEP_SIZES, SERVE_SWEEP_KS, SERVE_SWEEP_STEPS = (1, 64, 256), (1, 4, 16), 16
+SERVE_WIDE_B, SERVE_WIDE_GS, SERVE_WIDE_KS, SERVE_WIDE_STEPS = 16, (2, 4), (4, 16), 16
+SERVE_FLEET_SPECS = 24
+
+
+def serve_phase(dev, card, drive, g_sa, s_sa, adv_s, event_ms, bound):
+    """Phase 31: the serving tier on the card.  Returns the member-axis
+    timing rows (B2, B3, B7) for the log."""
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import CartesianGeometry, GameOfLife, Grid, Vlasov, obs
+    from dccrg_tpu_torch.ops import dense_advection as K
+    from dccrg_tpu_torch.ops import vlasov_kernel as V
+    from dccrg_tpu_torch.parallel import halo as H
+    from dccrg_tpu_torch.resilience.soak import run_fleet
+    from dccrg_tpu_torch.serve import Scenario, Scheduler
+
+    t_phase = time.perf_counter()
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def bits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    def owned(x, local):
+        """``x``'s owned rows (CUDA has no boolean indexing of uint32:
+        the same bits as int32)."""
+        return (x.view(torch.int32) if x.dtype == torch.uint32 else x)[local]
+
+    def counter(name):
+        return sum(obs.metrics.report()["counters"].get(name, {}).values())
+
+    def serve(sched, label, expect):
+        """Admit, then step every cohort to the end under ``drive``; the
+        member-steps a second."""
+        sched.admit()
+        served = {}
+
+        def go():
+            t = time.perf_counter()
+            n = 0
+            while True:
+                s = sched.step_once()
+                if s == 0:
+                    break
+                n += s
+            sync()
+            served.update(n=n, s=time.perf_counter() - t)
+        drive(label, go, expect)
+        return served["n"], served["s"]
+
+    def solo(model, state, steps, dt):
+        for _ in range(steps):
+            state = model.step(state, dt) if dt is not None else model.step(state)
+        return state
+
+    rows = []
+
+    def member_row(name, shape, fn, plain, b):
+        """Time the member-axis launch ``fn`` beside its twin ``plain`` (on
+        the same inputs on the card) and hold the two bitwise."""
+        check(bits(fn(), plain()), f"serve {name} member axis {shape}: != its twin")
+        ms, plain_ms = event_ms(fn, 20), event_ms(plain, 3)
+        rows.append((name, shape, ms, b))
+        log(f"[serve] {name} member axis at {shape}: {ms!r} ms (twin {plain_ms!r} ms, "
+            f"bitwise equal), bound {b[0]!r} ms ({b[1]}; W x one member's), kernel/bound "
+            f"{ms / b[0]!r} on {card}")
+
+    # 1. dense advection cohorts on the headline grid (B2 with a member axis)
+    _, adv_h, s_h, dt_h = headline_model((128, 128, 64), dev)
+    check(adv_h.dense_kind[0] == "blocked_direct", f"serve dense: {adv_h.dense_kind}")
+    mts = adv_h.max_time_step(s_h)
+    rng = np.random.default_rng(31)
+    for W in SERVE_DENSE_WIDTHS:
+        members = []
+        for w in range(W):
+            rho = torch.tensor(rng.uniform(0.1, 1.0, (1, 64, 128, 128)).astype(np.float32),
+                               device=dev)
+            members.append(({**s_h, "density": rho}, mts * (0.3 + 0.02 * w)))
+        sched = Scheduler(steps_per_dispatch=SERVE_DENSE_K)
+        tickets = [sched.submit(Scenario(adv_h, s, SERVE_DENSE_STEPS, dt=dt))
+                   for s, dt in members]
+        n, secs = serve(sched, f"serve dense W={W}",
+                        {"flux_update_blocked": SERVE_DENSE_STEPS})
+        cohort = next(iter(sched.cohorts.values()))
+        check(cohort.W == W, f"serve dense: width {cohort.W} != {W}")
+        for (s, dt), t in zip(members, tickets):
+            ref = solo(adv_h, s, SERVE_DENSE_STEPS, dt)
+            check(bits(t.result["density"], ref["density"]),
+                  f"serve dense W={W}: member != its solo step loop")
+        log(f"[serve] dense advection 128x128x64 cohort W={W}: {n / secs!r} member-steps/s "
+            f"({n} member-steps in {secs!r} s, k={SERVE_DENSE_K}), "
+            f"{SERVE_DENSE_K} flux_update_blocked launches a dispatch (one a step), "
+            f"member_hbm_bytes {cohort.member_hbm_bytes()} (stacked-tables equivalent "
+            f"{cohort.member_hbm_bytes_stacked_tables()}); every member bitwise equal to "
+            f"its solo step loop; on {card}")
+        del sched, tickets, members, cohort
+    # the member-axis launch (the wrapper on ready inputs) against its bound
+    # (W x one member's), W = 16
+    W = SERVE_DENSE_WIDTHS[-1]
+    x = {k: torch.stack([v] * W) for k, v in s_h.items()}
+    dts = torch.tensor([mts * (0.3 + 0.02 * w) for w in range(W)], dtype=torch.float32,
+                       device=dev)
+    ext = adv_h._extend
+    a2 = (x["density"], *(p.contiguous() for p in ext.planes(x["density"], True)),
+          x["vx"], x["vy"], x["vz"], *(p.contiguous() for p in ext.planes(x["vz"], True)),
+          adv_h._mx, adv_h._my, adv_h._mz_up, adv_h._mz_dn, dts)
+    kw2 = dict(block=adv_h.dense_kind[1], area=adv_h._area, inv_vol=adv_h._inv_vol)
+    n2 = 64 * 128 * 128 * W
+    member_row("flux_update_blocked", f"W={W} x 128x128x64, B=16, one step",
+               lambda: K.flux_update_blocked(*a2, **kw2),
+               lambda: K.flux_update_blocked_plain(*a2, **kw2),
+               bound(5 * n2 * 4, STEP_FLOPS_PER_CELL * n2))
+    del x, a2
+
+    # 2. the plane kernel's cohort (B3): 128x128x63 on 3 slots
+    g3 = (Grid().set_initial_length((128, 128, 63)).set_neighborhood_length(0)
+          .set_periodic(True, True, True).set_load_balancing_method("BLOCK")
+          .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                        level_0_cell_length=(1 / 128, 1 / 128, 1 / 63))
+          .initialize(n_devices=3, device=dev))
+    from dccrg_tpu_torch import Advection
+
+    adv3 = Advection(g3, dtype=np.float32)
+    check(adv3.dense_kind == ("plane",), f"serve plane: {adv3.dense_kind}")
+    s3 = adv3.initialize_state()
+    dt3 = 0.4 * adv3.max_time_step(s3)
+    members = [({**s3, "density": s3["density"] * (1 + 0.01 * w)}, dt3 * (0.3 + 0.02 * w))
+               for w in range(SERVE_PLANE_W)]
+    sched = Scheduler(steps_per_dispatch=SERVE_PLANE_STEPS)
+    tickets = [sched.submit(Scenario(adv3, s, SERVE_PLANE_STEPS, dt=dt)) for s, dt in members]
+    n, secs = serve(sched, f"serve plane W={SERVE_PLANE_W}", {"flux_update": SERVE_PLANE_STEPS})
+    for (s, dt), t in zip(members, tickets):
+        check(bits(t.result["density"], solo(adv3, s, SERVE_PLANE_STEPS, dt)["density"]),
+              "serve plane: member != its solo step loop")
+    log(f"[serve] plane cohort 128x128x63 on 3 slots, W={SERVE_PLANE_W}: {n / secs!r} "
+        f"member-steps/s, bitwise equal to solo; on {card}")
+    x = {k: torch.stack([v] * SERVE_PLANE_W) for k, v in s3.items()}
+    dts = torch.tensor([dt3] * SERVE_PLANE_W, dtype=torch.float32, device=dev)
+    a3 = (adv3._extend(x["density"], True), x["vx"], x["vy"], adv3._extend(x["vz"], True),
+          adv3._mx, adv3._my, adv3._mz_up, adv3._mz_dn, dts)
+    kw3 = dict(area=adv3._area, inv_vol=adv3._inv_vol)
+    n3 = 63 * 128 * 128 * SERVE_PLANE_W
+    member_row("flux_update", f"W={SERVE_PLANE_W} x 128x128x63 on 3 slots, one step",
+               lambda: K.flux_update(*a3, **kw3), lambda: K.flux_update_plain(*a3, **kw3),
+               bound((3 * n3 + 2 * (21 + 2) * 3 * 128 * 128 * SERVE_PLANE_W) * 4,
+                     STEP_FLOPS_PER_CELL * n3))
+    del sched, tickets, members, x, a3, g3, adv3, s3
+
+    # 3. the Vlasov dense cohort (B7): 32^3 x 8^3 bins
+    gv = (Grid().set_initial_length((32, 32, 32)).set_neighborhood_length(0)
+          .set_periodic(True, True, True)
+          .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                        level_0_cell_length=(1 / 32,) * 3)
+          .initialize(n_devices=1, device=dev))
+    vl = Vlasov(gv, nv=8, dtype=np.float32)
+    check(vl._fused_block > 0, "serve vlasov: no kernel path")
+    sv = vl.initialize_state()
+    dtv = 0.4 * vl.max_time_step()
+    members = [({"f": sv["f"] * (1 + 0.01 * w)}, dtv * (0.3 + 0.02 * w))
+               for w in range(SERVE_VLASOV_W)]
+    sched = Scheduler(steps_per_dispatch=SERVE_VLASOV_K)
+    tickets = [sched.submit(Scenario(vl, s, SERVE_VLASOV_STEPS, dt=dt)) for s, dt in members]
+    n, secs = serve(sched, f"serve vlasov W={SERVE_VLASOV_W}",
+                    {"vlasov_step": SERVE_VLASOV_STEPS})
+    for (s, dt), t in zip(members, tickets):
+        check(bits(t.result["f"], solo(vl, s, SERVE_VLASOV_STEPS, dt)["f"]),
+              "serve vlasov: member != its solo step loop")
+    log(f"[serve] Vlasov 32^3 x 512 cohort W={SERVE_VLASOV_W}, k={SERVE_VLASOV_K}: "
+        f"{n * 32 ** 3 * 512 / secs!r} phase-space cell-updates/s ({n / secs!r} "
+        f"member-steps/s), bitwise equal to solo; on {card}")
+    f4 = torch.stack([sv["f"]] * SERVE_VLASOV_W)
+    dts = torch.tensor([dtv * (0.3 + 0.02 * w) for w in range(SERVE_VLASOV_W)],
+                       dtype=torch.float32, device=dev)
+    kw7 = dict(block=vl._fused_block, inv_dx=vl._inv_dx, periodic=vl._periodic)
+    a7 = (f4, None, None, vl._vx, vl._vy, vl._vz, dts)
+    n7 = 32 ** 3 * 512 * SERVE_VLASOV_W
+    # the wrapper: each member's scales (one small multiply) and the launch
+    member_row("vlasov_step", f"W={SERVE_VLASOV_W} x 32^3 x 512 bins, one step",
+               lambda: V.vlasov_step(*a7, **kw7),
+               lambda: V.vlasov_step_blocked_plain(*a7, **kw7),
+               bound((2 * n7 + 3 * 512) * 4,
+                     VLASOV_FLOPS_PER_CELL * n7 + 2 * 10 * 32 * 32 * 512 * SERVE_VLASOV_W))
+    del sched, tickets, members, f4, a7, sv, vl, gv
+
+    # 3b. members of more than one slot: W = 3 members of D = 2 slabs each,
+    # distinct data and dt.  B2 and B3 read their z masks at slot % D (random
+    # masks here, so a wrong slot shows), B7 wraps each member's slab ring
+    # (open and periodic z).  Each member-axis launch is held bitwise against
+    # its twin and against three one-member launches with a scalar dt.
+    Wm, Dm = 3, 2
+    rng = np.random.default_rng(313)
+
+    def rand(lo, hi, *shape):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=dev)
+
+    def members_vs_one(name, shape, member, plain, one):
+        got = member()
+        check(bits(got, plain()), f"serve {name} at {shape}: member axis != its twin")
+        check(bits(got, torch.stack([one(w) for w in range(Wm)])),
+              f"serve {name} at {shape}: member axis != one-member launches")
+
+    nzl, ny, nx = 32, 128, 128
+    fld = lambda: rand(-1.0, 1.0, Wm, Dm, nzl, ny, nx)
+    pln = lambda: rand(-1.0, 1.0, Wm, Dm, 1, ny, nx)
+    mask = lambda n: torch.tensor((rng.random(n) < 0.7).astype(np.float32), device=dev)
+    masks = (mask(nx), mask(ny), mask(Dm * nzl), mask(Dm * nzl))
+    dtm = rand(0.5, 1.0, Wm) * float(mts)
+    rho, e_lo, e_hi, vx, vy, vz, v_lo, v_hi = (fld(), pln(), pln(), fld(), fld(), fld(),
+                                               pln(), pln())
+    kwb = dict(block=K.pick_step_block(nzl, ny, nx), area=adv_h._area,
+               inv_vol=adv_h._inv_vol)
+    ab = lambda w: tuple(t[w] for t in (rho, e_lo, e_hi, vx, vy, vz, v_lo, v_hi))
+    members_vs_one(
+        "flux_update_blocked", f"W={Wm} x D={Dm} x {nzl}x{ny}x{nx}",
+        lambda: K.flux_update_blocked(*ab(slice(None)), *masks, dtm, **kwb),
+        lambda: K.flux_update_blocked_plain(*ab(slice(None)), *masks, dtm, **kwb),
+        lambda w: K.flux_update_blocked(*ab(w), *masks, float(dtm[w]), **kwb))
+    r_ext = torch.cat([e_lo, rho, e_hi], dim=2)
+    v_ext = torch.cat([v_lo, vz, v_hi], dim=2)
+    kwp = dict(area=adv_h._area, inv_vol=adv_h._inv_vol)
+    ap = lambda w: (r_ext[w], vx[w], vy[w], v_ext[w])
+    members_vs_one(
+        "flux_update", f"W={Wm} x D={Dm} x {nzl}x{ny}x{nx}",
+        lambda: K.flux_update(*ap(slice(None)), *masks, dtm, **kwp),
+        lambda: K.flux_update_plain(*ap(slice(None)), *masks, dtm, **kwp),
+        lambda w: K.flux_update(*ap(w), *masks, float(dtm[w]), **kwp))
+    del rho, e_lo, e_hi, vx, vy, vz, v_lo, v_hi, r_ext, v_ext
+    fm = rand(0.0, 1.0, Wm, Dm, 16, 32, 32, 512)
+    vb = [rand(-1.0, 1.0, 512) for _ in range(3)]
+    dt7 = rand(0.5, 1.0, Wm) * float(dtv)
+    for per in ((True, False, True), (True, False, False)):
+        kwv = dict(block=4, inv_dx=np.full(3, 32.0), periodic=per)
+        members_vs_one(
+            "vlasov_step", f"W={Wm} x D={Dm} x 16x32x32 x 512 bins, periodic {per}",
+            lambda: V.vlasov_step(fm, None, None, *vb, dt7, **kwv),
+            lambda: V.vlasov_step_blocked_plain(fm, None, None, *vb, dt7, **kwv),
+            lambda w: V.vlasov_step(fm[w], None, None, *vb, float(dt7[w]), **kwv))
+    del fm
+    log(f"[serve] member axis at W={Wm}, D={Dm} (distinct data and dt, random z masks): "
+        f"B2 and B3 at {nzl}x{ny}x{nx} a slab, B7 at 16x32x32 x 512 bins a slab with "
+        f"open and periodic z, each bitwise equal to its twin and to {Wm} one-member "
+        f"launches with a scalar dt; on {card}")
+
+    # 4. the split advection cohort on phase 17's grid (B9 on member tables)
+    dt_sa = 0.4 * adv_s.max_time_step(s_sa)
+    members = [({**s_sa, "density": s_sa["density"] * (1 + 0.01 * w)},
+                dt_sa * (0.3 + 0.02 * w)) for w in range(SERVE_SPLIT_W)]
+    sched = Scheduler(steps_per_dispatch=SERVE_SPLIT_K)
+    tickets = [sched.submit(Scenario(adv_s, s, SERVE_SPLIT_STEPS, dt=dt)) for s, dt in members]
+    # a step: the payload gather and the merge, one B9 launch each
+    n, secs = serve(sched, f"serve split W={SERVE_SPLIT_W}",
+                    {"ring_copy": 2 * SERVE_SPLIT_STEPS})
+    for (s, dt), t in zip(members, tickets):
+        check(bits(t.result["density"], solo(adv_s, s, SERVE_SPLIT_STEPS, dt)["density"]),
+              "serve split: member != its solo split steps")
+    n_sa = len(g_sa.get_cells())
+    log(f"[serve] split advection cohort, {n_sa} leaves on 8 slots, W={SERVE_SPLIT_W}, "
+        f"k={SERVE_SPLIT_K}: {n * n_sa / secs!r} leaf-updates/s ({n / secs!r} "
+        f"member-steps/s), {2 * SERVE_SPLIT_K} ring_copy launches a dispatch (two a step "
+        f"for all members), bitwise equal to solo split steps; on {card}")
+    del sched, tickets, members
+
+    # 5. the bench's ensemble sweep (microbench.py's ensemble_summary)
+    t5 = time.perf_counter()
+    g5 = (Grid().set_initial_length((4, 4, 4)).set_neighborhood_length(0)
+          .set_periodic(True, True, True)
+          .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                        level_0_cell_length=(1 / 4,) * 3)
+          .initialize(n_devices=1, device=dev))
+    gol = GameOfLife(g5, allow_dense=False)
+    cells = g5.get_cells()
+    rng = np.random.default_rng(0)
+
+    def fresh():
+        return gol.new_state(alive_cells=cells[rng.random(len(cells)) < 0.3])
+
+    st = fresh()
+    gol.step(st)
+    sync()
+    t = time.perf_counter()
+    for _ in range(SERVE_SWEEP_STEPS):
+        st = gol.step(st)
+    sync()
+    solo_rate = SERVE_SWEEP_STEPS / (time.perf_counter() - t)
+    log(f"[serve] ensemble sweep (GoL 4^3, gather step): solo {solo_rate!r} "
+        f"scenario-steps/s on {card}")
+    for B in SERVE_SWEEP_SIZES:
+        for k in SERVE_SWEEP_KS:
+            sched = Scheduler(steps_per_dispatch=k)
+            iters = max(1, SERVE_SWEEP_STEPS // k)
+            for i in range(B):
+                sched.submit(Scenario(gol, fresh(), k * (iters + 1), tenant=f"t{i}"))
+            sched.admit()
+            sched.step_once()
+            sync()
+            t = time.perf_counter()
+            for _ in range(iters):
+                sched.step_once()
+            sync()
+            el = time.perf_counter() - t
+            cohort = next(iter(sched.cohorts.values()))
+            r = B * k * iters / el
+            log(f"[serve] ensemble B={B} k={k}: {r!r} scenario-steps/s per chip, "
+                f"amortization over solo {r / solo_rate!r}, hbm_bytes_per_member "
+                f"{cohort.member_hbm_bytes()} shared / "
+                f"{cohort.member_hbm_bytes_stacked_tables()} stacked, shared tables "
+                f"{cohort.shared_args}")
+    for k in SERVE_SWEEP_KS:
+        c0, m0 = counter("ensemble.verify_checks"), counter("ensemble.verify_mismatches")
+        sched = Scheduler(steps_per_dispatch=k, verify=True)
+        for i in range(2):
+            sched.submit(Scenario(gol, fresh(), 2 * k, tenant=f"v{i}"))
+        sched.run()
+        c1, m1 = counter("ensemble.verify_checks"), counter("ensemble.verify_mismatches")
+        check(c1 > c0 and m1 == m0, f"serve ensemble oracle k={k}: checks {c1 - c0}, "
+              f"mismatches {m1 - m0}")
+        log(f"[serve] ensemble oracle k={k}: {c1 - c0} checks, 0 mismatches")
+    log(f"[serve] ensemble sweep in {time.perf_counter() - t5:.2f} s")
+
+    # 6. the bench's wide-halo sweep (microbench.py's wide_halo_summary), on
+    # 2 slots so that ghost rows exist
+    t6 = time.perf_counter()
+    moore = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)
+             if (i, j, k) != (0, 0, 0)]
+    prev = os.environ.get("DCCRG_ENSEMBLE_WIDE")
+    for gdepth in SERVE_WIDE_GS:
+        gw = (Grid().set_initial_length((6, 6, 6)).set_neighborhood_length(gdepth)
+              .set_periodic(True, True, True)
+              .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                            level_0_cell_length=(1 / 6,) * 3)
+              .initialize(n_devices=2, device=dev))
+        gw.add_neighborhood(7, moore)
+        cells = gw.get_cells()
+        local = torch.as_tensor(gw.epoch.local_mask, device=dev)
+        res = {}
+        try:
+            for mode in ("wide", "legacy"):
+                if mode == "wide":
+                    os.environ.pop("DCCRG_ENSEMBLE_WIDE", None)
+                else:
+                    os.environ["DCCRG_ENSEMBLE_WIDE"] = "0"
+                golw = GameOfLife(gw, hood_id=7, allow_dense=False)
+                for k in SERVE_WIDE_KS:
+                    iters = max(1, SERVE_WIDE_STEPS // k)
+                    starts = [golw.new_state(alive_cells=cells[rng.random(len(cells)) < 0.3])
+                              for _ in range(SERVE_WIDE_B)]
+                    sched = Scheduler()
+                    tickets = [sched.submit(Scenario(golw, s, k * (iters + 1)))
+                               for s in starts]
+                    sched.admit()
+                    cohort = next(iter(sched.cohorts.values()))
+                    check((cohort._wide is not None) == (mode == "wide"),
+                          f"serve wide g={gdepth}: {mode} cohort engaged "
+                          f"{cohort._wide is not None}")
+                    cohort.step(k)
+                    sync()
+                    H._amortization.clear()
+                    t = time.perf_counter()
+                    for _ in range(iters):
+                        cohort.step(k)
+                    sync()
+                    el = time.perf_counter() - t
+                    eps = H._amortization[golw.batch_step_spec().kind]
+                    res[(mode, k)] = (SERVE_WIDE_B * k * iters / el, eps[0] / eps[1])
+                    if mode == "wide":
+                        # owned rows == an exchange every step (the legacy
+                        # member program, alone)
+                        for slot, s0 in enumerate(starts):
+                            ref = solo(golw, s0, k * (iters + 1), None)
+                            got = cohort.member_state(slot)
+                            for f in ref:
+                                check(bits(owned(got[f], local), owned(ref[f], local)),
+                                      f"serve wide g={gdepth} k={k}: owned rows of "
+                                      f"{f} != stepping with an exchange every step")
+                    del sched, tickets, cohort
+        finally:
+            if prev is None:
+                os.environ.pop("DCCRG_ENSEMBLE_WIDE", None)
+            else:
+                os.environ["DCCRG_ENSEMBLE_WIDE"] = prev
+        budget = GameOfLife(gw, hood_id=7, allow_dense=False)._wide_spec().budget
+        for k in SERVE_WIDE_KS:
+            (rw, ew), (rl, el_) = res[("wide", k)], res[("legacy", k)]
+            log(f"[serve] wide halo hood {gdepth} (budget {budget}) B={SERVE_WIDE_B} k={k}: "
+                f"halo.exchanges_per_step {ew!r} wide / {el_!r} legacy, {rw!r} / {rl!r} "
+                f"scenario-steps/s per chip (wide over legacy {rw / rl!r}); owned rows "
+                f"bitwise equal to an exchange every step")
+        del gw
+    log(f"[serve] wide-halo sweep in {time.perf_counter() - t6:.2f} s")
+
+    # 7. the fleet gateway: 2 workers of one slot on the card, a worker and
+    # then the gateway SIGKILLed, the gateway relaunched over its journal
+    t7 = time.perf_counter()
+    rep = {}
+    ok = run_fleet(0, 1, n_workers=2, n_devices=1, device="cuda",
+                   n_specs=SERVE_FLEET_SPECS, report=rep)
+    r = rep.get(0, {})
+    check(ok and r.get("retired") == SERVE_FLEET_SPECS,
+          f"serve fleet: {r.get('failures')}")
+    log(f"[serve] fleet: {r['retired']} of {r['accepted']} accepted scenarios retired "
+        f"exactly once (GoL bitwise, advection within 1e-11 of the solo oracle) across "
+        f"a gateway SIGKILL and {r['kills'] + 1} worker kills; postmortems name "
+        f"{r['lost_named']}; generations {r['generations']}, redispatches "
+        f"{r['redispatches']}, epoch.recompiles by worker {r['recompiles']}, fleet p99 "
+        f"{r['fleet_p99_s']!r} s; (p50, p99) s of the merged worker streams "
+        f"{r['latency_p50_p99_s']}; {time.perf_counter() - t7:.2f} s on {card}")
+    log(f"[serve] phase 31 in {time.perf_counter() - t_phase:.2f} s")
+    return rows
 
 
 def main() -> int:
@@ -1452,11 +1901,12 @@ def main() -> int:
     p7 = V.vlasov_step_plan(1, 32, 32, 32, 512, *limits)
     a7, _ = vlasov_shape_args((1, 32, 4, 4, 27), (True, True, True), 5)
     out7 = torch.empty_like(a7[0])
+    ones7 = torch.ones((1, 3), device=dev)
     refused("B7 vlasov_step: 32^3 x 512's plan on 32 x 4 x 4 x 27",
             V._kernels().vlasov_step(
                 a7[0].data_ptr(), None, None, *(x.data_ptr() for x in a7[3:6]),
-                out7.data_ptr(), 1, 32, 4, 4, 27, 1, 1, 1, 1, 1.0, 1.0, 1.0,
-                *V._plan_args(p7), torch.cuda.current_stream().cuda_stream))
+                out7.data_ptr(), 1, 1, 32, 4, 4, 27, 1, 1, 1, 1, ones7.data_ptr(),
+                0.0, 0.0, 0.0, *V._plan_args(p7), torch.cuda.current_stream().cuda_stream))
     p8 = B.bicg_solve_plan(64, 64, 64, True, *limits)
     a8 = bicg_synth((66, 64, 64), True, 6)
     o8, r8 = torch.empty_like(a8[0]), torch.empty(1, device=dev)
@@ -3127,6 +3577,10 @@ def main() -> int:
             f"run(200) through {kname} vs the gather step: max err / max density {rel!r} "
             f"(limit 1e-4) on {card}")
         del g_c, adv_c, raw_c, s_c, out_g, out_f, st
+
+    # 31. serve: cohorts on B2, B3, B7 and B9, the ensemble and wide-halo
+    # sweeps, the fleet gateway
+    serve_phase(dev, card, drive, g_sa, s_sa, adv_s, event_ms, bound)
 
     # 30. resilience: crash, resume and rescales of the headline, the board
     # rescaled and supervised through a hang, a NaN storm on phase 17's grid,

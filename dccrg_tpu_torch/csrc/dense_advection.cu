@@ -58,6 +58,17 @@ constexpr int kStepThreads = 256;
 //     read at z offsets 0 / 1 / 2; the edge pointers are unused.
 // vx, vy, out are [D, nzl, ny, nx]; mx [nx], my [ny]; mzu, mzd [D, nzl].
 //
+// Member axis (MEMBERS): the launch covers n_slots = W * D slots, W members
+// of D z-slab slots each, stacked [W, D, ...] (blockIdx.z is the slot).
+// Member w's time step is dts[w], read on the card, so every member advances
+// by its own dt in the one launch; the z masks are a member's, read at slot
+// blockIdx.z % D; the edge planes are [W * D, 1, ny, nx], each member's from
+// its own slab ring.  Without MEMBERS (one scenario given a scalar dt) the
+// slot is the z slab and dt the argument: the member instantiation's load
+// and division cost the 512x512x128 step 11.6% on an H100 (chip_smoke.py's
+// phase 20 shape), so one scenario keeps the scalar form.  The two
+// instantiations do the same arithmetic, so they agree bitwise.
+//
 // Bound on this card: device-memory bytes.  A step must read rho, vx, vy,
 // vz and write the new rho: 5 arrays (20 bytes a cell) against ~31 flops a
 // cell.  The design reads every array once from device memory: the z
@@ -66,7 +77,7 @@ constexpr int kStepThreads = 256;
 // have just loaded.  Each thread recomputes its - faces' flux (the + face
 // flux of its - neighbours) rather than exchanging it, which costs flops,
 // not bytes.
-template <bool EXT>
+template <bool EXT, bool MEMBERS>
 __global__ void __launch_bounds__(kStepThreads)
 dense_step_kernel(const float* __restrict__ rho, const float* __restrict__ e_lo,
                   const float* __restrict__ e_hi, const float* __restrict__ vx,
@@ -74,12 +85,16 @@ dense_step_kernel(const float* __restrict__ rho, const float* __restrict__ e_lo,
                   const float* __restrict__ ve_lo, const float* __restrict__ ve_hi,
                   const float* __restrict__ mx, const float* __restrict__ my,
                   const float* __restrict__ mzu, const float* __restrict__ mzd,
-                  float* __restrict__ out, int nzl, int ny, int nx, int zchunk,
-                  float dt, float ax, float ay, float az, float inv_vol) {
+                  float* __restrict__ out, int n_dev, int nzl, int ny, int nx,
+                  int zchunk, const float* __restrict__ dts, float dt0, float ax,
+                  float ay, float az, float inv_vol) {
   const long long P = (long long)ny * nx;
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= P) return;
+  // slot d of the W * D stacked slots: member d / n_dev, z slab d % n_dev
   const int d = blockIdx.z;
+  const int dz = MEMBERS ? d % n_dev : d;
+  const float dt = MEMBERS ? dts[d / n_dev] : dt0;
   const int z0 = blockIdx.y * zchunk;
   const int z1 = min(z0 + zchunk, nzl);
   const int x = (int)(col % nx);
@@ -97,8 +112,8 @@ dense_step_kernel(const float* __restrict__ rho, const float* __restrict__ e_lo,
   const float* VX = vx + d * (long long)nzl * P;
   const float* VY = vy + d * (long long)nzl * P;
   float* O = out + d * (long long)nzl * P;
-  const float* mzu_d = mzu + (long long)d * nzl;
-  const float* mzd_d = mzd + (long long)d * nzl;
+  const float* mzu_d = mzu + (long long)dz * nzl;
+  const float* mzd_d = mzd + (long long)dz * nzl;
   const float mx_c = mx[x], mx_m = mx[xm], my_c = my[y], my_m = my[ym];
 
   auto r_at = [&](int z) -> float {
@@ -407,16 +422,24 @@ int launch_step(const float* rho, const float* e_lo, const float* e_hi,
                 const float* vx, const float* vy, const float* vz,
                 const float* ve_lo, const float* ve_hi, const float* mx,
                 const float* my, const float* mzu, const float* mzd, float* out,
-                int n_dev, int nzl, int ny, int nx, int zchunk, float dt,
-                float ax, float ay, float az, float inv_vol, void* stream) {
+                int n_slots, int n_dev, int nzl, int ny, int nx, int zchunk,
+                const float* dts, float dt, float ax, float ay, float az,
+                float inv_vol, void* stream) {
   const long long P = (long long)ny * nx;
-  if (n_dev < 1 || nzl < 1 || ny < 1 || nx < 1 || zchunk < 1 || n_dev > 65535)
+  if (n_slots < 1 || n_dev < 1 || n_slots % n_dev != 0 || nzl < 1 || ny < 1 ||
+      nx < 1 || zchunk < 1 || n_slots > 65535 ||
+      (dts == nullptr && n_slots != n_dev))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((P + kStepThreads - 1) / kStepThreads),
-                  (unsigned)((nzl + zchunk - 1) / zchunk), (unsigned)n_dev);
-  dense_step_kernel<EXT><<<grid, kStepThreads, 0, (cudaStream_t)stream>>>(
-      rho, e_lo, e_hi, vx, vy, vz, ve_lo, ve_hi, mx, my, mzu, mzd, out, nzl, ny,
-      nx, zchunk, dt, ax, ay, az, inv_vol);
+                  (unsigned)((nzl + zchunk - 1) / zchunk), (unsigned)n_slots);
+  if (dts != nullptr)
+    dense_step_kernel<EXT, true><<<grid, kStepThreads, 0, (cudaStream_t)stream>>>(
+        rho, e_lo, e_hi, vx, vy, vz, ve_lo, ve_hi, mx, my, mzu, mzd, out, n_dev,
+        nzl, ny, nx, zchunk, dts, dt, ax, ay, az, inv_vol);
+  else
+    dense_step_kernel<EXT, false><<<grid, kStepThreads, 0, (cudaStream_t)stream>>>(
+        rho, e_lo, e_hi, vx, vy, vz, ve_lo, ve_hi, mx, my, mzu, mzd, out, n_dev,
+        nzl, ny, nx, zchunk, dts, dt, ax, ay, az, inv_vol);
   return (int)cudaGetLastError();
 }
 
@@ -428,22 +451,23 @@ int dense_step_blocked(const float* rho, const float* e_lo, const float* e_hi,
                        const float* vx, const float* vy, const float* vz,
                        const float* ve_lo, const float* ve_hi, const float* mx,
                        const float* my, const float* mzu, const float* mzd,
-                       float* out, int n_dev, int nzl, int ny, int nx,
-                       int block, float dt, float ax, float ay, float az,
-                       float inv_vol, void* stream) {
+                       float* out, int n_slots, int n_dev, int nzl, int ny,
+                       int nx, int block, const float* dts, float dt, float ax,
+                       float ay, float az, float inv_vol, void* stream) {
   return launch_step<false>(rho, e_lo, e_hi, vx, vy, vz, ve_lo, ve_hi, mx, my,
-                            mzu, mzd, out, n_dev, nzl, ny, nx, block, dt, ax,
-                            ay, az, inv_vol, stream);
+                            mzu, mzd, out, n_slots, n_dev, nzl, ny, nx, block,
+                            dts, dt, ax, ay, az, inv_vol, stream);
 }
 
 int dense_step_plane(const float* rho_ext, const float* vx, const float* vy,
                      const float* vz_ext, const float* mx, const float* my,
-                     const float* mzu, const float* mzd, float* out, int n_dev,
-                     int nzl, int ny, int nx, int zchunk, float dt, float ax,
-                     float ay, float az, float inv_vol, void* stream) {
+                     const float* mzu, const float* mzd, float* out,
+                     int n_slots, int n_dev, int nzl, int ny, int nx, int zchunk,
+                     const float* dts, float dt, float ax, float ay, float az,
+                     float inv_vol, void* stream) {
   return launch_step<true>(rho_ext, nullptr, nullptr, vx, vy, vz_ext, nullptr,
-                           nullptr, mx, my, mzu, mzd, out, n_dev, nzl, ny, nx,
-                           zchunk, dt, ax, ay, az, inv_vol, stream);
+                           nullptr, mx, my, mzu, mzd, out, n_slots, n_dev, nzl,
+                           ny, nx, zchunk, dts, dt, ax, ay, az, inv_vol, stream);
 }
 
 // The whole run on the plan's pz x py x px bricks (ops/dense_advection.py::

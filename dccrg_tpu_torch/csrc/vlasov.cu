@@ -4,11 +4,13 @@
 //
 //   vlasov_step  <- make_vlasov_step_blocked  (dccrg_tpu/ops/vlasov_kernel.py)
 //
-// f is [D, nzl, ny, nx, B] float32 (B = nv^3 velocity bins, minor); the
-// device-edge planes below and above each slab are the slab ring's: read
-// from the neighbouring slabs of f (vacuum past an open z end), or given
-// as e_lo / e_hi [D, 1, ny, nx, B]; vx, vy, vz are the per-bin velocities
-// [B].  Each split is the XLA body's
+// f is [W, D, nzl, ny, nx, B] float32: W members of D slab slots each
+// (W = 1 for one scenario; B = nv^3 velocity bins, minor); the device-edge
+// planes below and above each slab are the member's slab ring's: read from
+// the member's neighbouring slabs of f (vacuum past an open z end), or
+// given as e_lo / e_hi [W * D, 1, ny, nx, B]; vx, vy, vz are the per-bin
+// velocities [B]; scales [W, 3] each member's (sx, sy, sz), or null for one
+// scenario whose (sx, sy, sz) come by value.  Each split is the XLA body's
 //   flux_hi = (v >= 0 ? f : hi) * v,  flux_lo = (v >= 0 ? lo : f) * v
 //   f' = f - s * (flux_hi - flux_lo),  s = dt * inv_d (rounded once, f32)
 // applied x, then y (plane-local; on an open axis the wrapped neighbour is
@@ -108,8 +110,9 @@ vlasov_tile_kernel(const float* __restrict__ f, const float* __restrict__ e_lo,
                    const float* __restrict__ e_hi, const float* __restrict__ vx,
                    const float* __restrict__ vy, const float* __restrict__ vz,
                    float* __restrict__ out, int D, int nzl, int ny, int nx,
-                   int B, int px, int py, int pz, int ring, float sx, float sy,
-                   float sz, Plan p) {
+                   int B, int px, int py, int pz, int ring,
+                   const float* __restrict__ scales, float sx0, float sy0,
+                   float sz0, Plan p) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.chunk;
   // the CTA's chunk, tile, z run and slab: chunk fastest
@@ -121,7 +124,12 @@ vlasov_tile_kernel(const float* __restrict__ f, const float* __restrict__ e_lo,
   const int tiy = idx % p.n_ty;
   idx /= p.n_ty;
   const int zp = idx % p.z_parts;
+  // slot d of the W * D stacked slots: member d / D, slab dl of its ring
   const int d = idx / p.z_parts;
+  const int dl = d % D;
+  const float* sc = scales + 3 * (d / D);
+  const float sx = scales ? sc[0] : sx0, sy = scales ? sc[1] : sy0,
+              sz = scales ? sc[2] : sz0;
   int y0, h, x0, w, z0, zl;
   part(ny, p.n_ty, tiy, &y0, &h);
   part(nx, p.n_tx, tix, &x0, &w);
@@ -140,8 +148,9 @@ vlasov_tile_kernel(const float* __restrict__ f, const float* __restrict__ e_lo,
     if (z >= 0 && z < nzl) return F + (long long)z * PB;
     if (!ring) return (z < 0 ? e_lo : e_hi) + (long long)d * PB;
     const bool below = z < 0;
-    const int dn = below ? (d == 0 ? D - 1 : d - 1) : (d == D - 1 ? 0 : d + 1);
-    *vacuum = !pz && (below ? d == 0 : d == D - 1);
+    const int dn = below ? (dl == 0 ? d + D - 1 : d - 1)
+                         : (dl == D - 1 ? d - D + 1 : d + 1);
+    *vacuum = !pz && (below ? dl == 0 : dl == D - 1);
     return f + ((long long)dn * nzl + (below ? nzl - 1 : 0)) * PB;
   };
 
@@ -238,24 +247,28 @@ vlasov_tile_kernel(const float* __restrict__ f, const float* __restrict__ e_lo,
 
 extern "C" {
 
-// One step over D slab slots under a launch plan (vlasov_step_plan): tiles
+// One step over n_slots = W * D slab slots (W members of n_dev slabs, each
+// member on its own slab ring and scales) under a launch plan (vlasov_step_plan): tiles
 // of at most ty x tx cells (n_ty x n_tx of them, cut as `part` cuts), bin
 // chunks of `chunk` (n_ch of them), `vec` floats a copy, z_parts runs a
 // slab, `threads` a CTA, smem_bytes of dynamic shared memory.  The launcher
 // recomputes what the largest tile needs and returns cudaErrorInvalidValue
 // for a plan that does not cover this shape or falls short of it.  sx, sy,
-// sz are dt * inv_dx per axis, rounded to float32 by the caller.  With
-// `ring` the planes beyond each slab's ends are read from the neighbouring
-// slabs of f (vacuum past an open z end, pz = 0) and e_lo / e_hi are not
-// read; otherwise they are [n_dev, 1, ny, nx, B].
+// sz of member w are scales[3w .. 3w+2], dt * inv_dx per axis rounded to
+// float32 by the caller; with scales null there is one member (n_slots =
+// n_dev) and they are the arguments sx, sy, sz.  With `ring` the planes beyond each slab's ends are
+// read from the member's neighbouring slabs of f (vacuum past an open z
+// end, pz = 0) and e_lo / e_hi are not read; otherwise they are
+// [n_slots, 1, ny, nx, B].
 int vlasov_step(const float* f, const float* e_lo, const float* e_hi,
                 const float* vx, const float* vy, const float* vz, float* out,
-                int n_dev, int nzl, int ny, int nx, int B, int px, int py,
-                int pz, int ring, float sx, float sy, float sz, int ty, int tx,
-                int chunk,
-                int vec, int z_parts, int threads, int smem_bytes,
+                int n_slots, int n_dev, int nzl, int ny, int nx, int B, int px,
+                int py, int pz, int ring, const float* scales, float sx,
+                float sy, float sz, int ty, int tx,
+                int chunk, int vec, int z_parts, int threads, int smem_bytes,
                 void* stream) {
-  if (n_dev < 1 || nzl < 1 || ny < 1 || nx < 1 || B < 1 ||
+  if (n_slots < 1 || n_dev < 1 || n_slots % n_dev != 0 || nzl < 1 || ny < 1 ||
+      nx < 1 || B < 1 || (scales == nullptr && n_slots != n_dev) ||
       (!ring && (e_lo == nullptr || e_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
   Plan p{ty, tx, chunk, vec, z_parts, 0, 0, 0};
@@ -273,7 +286,7 @@ int vlasov_step(const float* f, const float* e_lo, const float* e_hi,
   part(nx, p.n_tx, 0, &s, &lx);
   if (ly > ty || lx > tx || 4 * smem_floats(p) > (long long)smem_bytes)
     return (int)cudaErrorInvalidValue;
-  const long long ctas = (long long)n_dev * z_parts * p.n_ty * p.n_tx * p.n_ch;
+  const long long ctas = (long long)n_slots * z_parts * p.n_ty * p.n_tx * p.n_ch;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const void* kernel = vec == 4 ? (const void*)vlasov_tile_kernel<4>
                                 : (const void*)vlasov_tile_kernel<1>;
@@ -284,12 +297,12 @@ int vlasov_step(const float* f, const float* e_lo, const float* e_hi,
     vlasov_tile_kernel<4><<<(unsigned)ctas, threads, smem_bytes,
                             (cudaStream_t)stream>>>(
         f, e_lo, e_hi, vx, vy, vz, out, n_dev, nzl, ny, nx, B, px, py, pz, ring,
-        sx, sy, sz, p);
+        scales, sx, sy, sz, p);
   else
     vlasov_tile_kernel<1><<<(unsigned)ctas, threads, smem_bytes,
                             (cudaStream_t)stream>>>(
         f, e_lo, e_hi, vx, vy, vz, out, n_dev, nzl, ny, nx, B, px, py, pz, ring,
-        sx, sy, sz, p);
+        scales, sx, sy, sz, p);
   return (int)cudaGetLastError();
 }
 

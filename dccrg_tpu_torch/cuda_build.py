@@ -24,7 +24,7 @@ import tempfile
 import time
 
 from .obs.registry import metrics
-from .parallel.exec_cache import note_trace
+from .parallel.exec_cache import note_persistent, note_trace
 
 __all__ = ["NVCC_FLAGS", "BUILD_LOG", "sources", "build", "load"]
 
@@ -93,6 +93,7 @@ def build(names=None) -> dict:
             os.unlink(tmp)
             continue
         os.replace(tmp, out)
+        note_persistent(False)
         metrics.phase_add("compile", secs)
         metrics.inc("epoch.recompiles", kernel=name)
         note_trace(name)
@@ -111,7 +112,9 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         path = _lib_path(name)
-        if not path.exists():
+        if path.exists():
+            note_persistent(True)
+        else:
             build([name])
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib

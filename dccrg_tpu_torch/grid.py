@@ -57,6 +57,7 @@ from .obs.events import timeline as _timeline
 from .obs.registry import metrics as _metrics
 from .parallel.epoch import build_epoch
 from .parallel.epoch_delta import TablePool, build_epoch_delta
+from .parallel.exec_cache import ExecutableCache
 from .parallel.halo import HaloExchange
 from .parallel.partition import block_partition, hilbert_partition, morton_partition
 from .parallel.shapes import epoch_shape_hints, signature_of
@@ -95,12 +96,6 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
-
-
-def _not_in_slice(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item {item})"
-    )
 
 
 class Grid:
@@ -188,6 +183,9 @@ class Grid:
         self.geometry = factory(self.mapping, self.topology)
         self.neighborhoods = {None: default_neighborhood(self._hood_length)}
         self._ring_hints = {}
+        # built cohort bodies (``serve/ensemble.py``): they survive every
+        # epoch rebuild, as the JAX Grid's executable cache does
+        self.exec_cache = ExecutableCache()
         self._cell_datatype = None
         self.amr = AmrQueues()
         # load-balance weights and pins (commit_adaptation hands them from

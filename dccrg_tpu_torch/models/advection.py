@@ -79,7 +79,8 @@ from ..ops.flat_amr import (
     make_flat_ml_run,
 )
 from ..parallel.dense import HaloExtend
-from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum, split_rows
+from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
+                                member_rows, ordered_sum, split_rows)
 
 __all__ = ["Advection", "build_face_tables", "build_split_tables",
            "FLAT_BOXED_EDGE", "ML_BOXED_EDGE"]
@@ -106,11 +107,14 @@ ML_BOXED_EDGE = {"ml_pallas": 180.0, "ml": 7.0}
 _UNBUILT = object()
 
 
-def build_face_tables(grid, hood_id, tables, dtype):
+def build_face_tables(grid, hood_id, tables, dtype, hood_arrays=None):
     """Classify each neighbor entry as a face neighbor with a signed
     direction, reproducing the offset logic of ``solve.hpp:71-123``
     (overlap in exactly 2 dims + contact in 1), plus the physical factors
-    every finite-volume workload prices faces with.  A neighbor listed more
+    every finite-volume workload prices faces with.  ``hood_arrays`` =
+    ``(nbr_offset, nbr_len, nbr_rows, nbr_valid)`` replaces the
+    neighborhood's own tables (the wide-halo plan's, which cover every row
+    of every slot).  A neighbor listed more
     than once across the same face (neighborhood length >= 1) is priced at
     its first entry only (``core.neighbors.first_faces``); at length 0
     every face entry is already unique.  Returns ``(host, dev)``: numpy tables
@@ -127,14 +131,16 @@ def build_face_tables(grid, hood_id, tables, dtype):
 
     epoch = grid.epoch
     hood = epoch.hoods[hood_id]
-    nb = hood.nbr_rows
+    nbr_offset, nbr_len, nb, nbr_valid = (
+        (hood.nbr_offset, hood.nbr_len, hood.nbr_rows, hood.nbr_valid)
+        if hood_arrays is None else hood_arrays)
     D, R, K = nb.shape
-    v = np.nonzero(hood.nbr_valid)
+    v = np.nonzero(nbr_valid)
     direction = np.zeros((D, R, K), dtype=np.int8)    # signed axis or 0
     direction[v] = face_directions(
-        hood.nbr_offset[v].astype(np.int64),
+        nbr_offset[v].astype(np.int64),
         epoch.cell_len[v[0], v[1]].astype(np.int64),
-        hood.nbr_len[v].astype(np.int64),
+        nbr_len[v].astype(np.int64),
     )
     f = np.nonzero(direction)
     keep = first_faces(f[0] * R + f[1],
@@ -547,31 +553,37 @@ class Advection:
     def _scalar(self, v) -> float:
         return float(self.dtype.type(v))
 
-    def _blocked_step(self, rho, vx, vy, vz, v_lo, v_hi, dt):
-        r_lo, r_hi = self._extend.planes(rho)
+    def _blocked_step(self, rho, vx, vy, vz, v_lo, v_hi, dt, members=False):
+        r_lo, r_hi = self._extend.planes(rho, members)
         return flux_update_blocked(
             rho, r_lo, r_hi, vx, vy, vz, v_lo, v_hi, self._mx, self._my,
             self._mz_up, self._mz_dn, dt, block=self.dense_kind[1],
             area=self._area, inv_vol=self._inv_vol,
         )
 
-    def _step_density(self, rho, vx, vy, vz, dt):
+    def _step_density(self, rho, vx, vy, vz, dt, members=False):
+        """One dense step of the density.  With ``members`` the fields are
+        member stacks ``[W, D, nzl, ny, nx]`` and ``dt`` a ``[W]`` tensor:
+        the step kernels take them in one launch (each member on its own
+        slab ring), the plain body broadcasts ``dt`` per member."""
         kind = self.dense_kind[0]
         if kind == "blocked_direct":
-            v_lo, v_hi = self._extend.planes(vz)
-            return self._blocked_step(rho, vx, vy, vz, v_lo, v_hi, dt)
-        rho_e = self._extend(rho)
-        vz_e = self._extend(vz)
+            v_lo, v_hi = self._extend.planes(vz, members)
+            return self._blocked_step(rho, vx, vy, vz, v_lo, v_hi, dt, members)
+        rho_e = self._extend(rho, members)
+        vz_e = self._extend(vz, members)
         if kind == "plane":
             return flux_update(
                 rho_e, vx, vy, vz_e, self._mx, self._my, self._mz_up,
                 self._mz_dn, dt, area=self._area, inv_vol=self._inv_vol,
             )
         D, nzl = self.dense.n_devices, self.dense.nz_local
+        if members:
+            dt = dt.view(-1, 1, 1, 1, 1)
         return dense_step_arith(
-            rho, rho_e[:, :-2], rho_e[:, 2:], vx, vy, vz, vz_e[:, :-2],
-            vz_e[:, 2:], self._mx, self._my.reshape(-1, 1),
-            self._mz_up.reshape(D, nzl, 1, 1),
+            rho, rho_e[..., :-2, :, :], rho_e[..., 2:, :, :], vx, vy, vz,
+            vz_e[..., :-2, :, :], vz_e[..., 2:, :, :], self._mx,
+            self._my.reshape(-1, 1), self._mz_up.reshape(D, nzl, 1, 1),
             self._mz_dn.reshape(D, nzl, 1, 1), dt, self._area, self._inv_vol,
         )
 
@@ -660,6 +672,172 @@ class Advection:
             self._scalar(dt),
         )
         return {**state, "density": new_rho}
+
+    # ---------------------------------------------------- cohort batching
+
+    def _wide_spec(self):
+        """The exchange-amortized step split (the JAX package's
+        ``_wide_spec``): one full-depth default-hood density exchange funds
+        ``budget`` interior steps.  Stencil relevance is ``"face"``; ghost
+        velocities stay valid (``initialize_state`` ends with a full-state
+        exchange and the velocity fields are static), so density staleness
+        alone meters the budget.  The wide face tables price each
+        (neighbor, direction) once (``build_face_tables``).  None on the
+        dense path, with ``DCCRG_ENSEMBLE_WIDE=0`` or a budget under 2."""
+        from ..parallel.halo import MemberExchange, ring_args
+        from ..parallel.wide_halo import get_wide_plan, wide_enabled
+
+        if not wide_enabled() or self.dense is not None:
+            return None
+        cached = getattr(self, "_wide_cached", None)
+        if cached is not None and cached[0] is self.grid.epoch:
+            return cached[1]
+        grid = self.grid
+        plan = get_wide_plan(grid, self.hood_id, relevance="face")
+        spec = None
+        if plan.budget >= 2:
+            from ..parallel.exec_cache import WideStepSpec
+
+            wex = grid.halo(None)
+            _, wdev = build_face_tables(
+                grid, self.hood_id, self.tables, self.dtype,
+                hood_arrays=(plan.nbr_offset, plan.nbr_len, plan.nbr_rows,
+                             plan.nbr_valid))
+            put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
+                                                device=self.device).to(dt)
+            wt = {f"w.{k}": v for k, v in wdev.items()}
+            wt["w.nbr_rows"] = put(plan.nbr_rows, torch.int64)
+            wt["w.steps_ok"] = put(plan.steps_ok, torch.int32)
+            wt.update(ring_args(wex, ["density"]))
+
+            def bind(args, wargs, W):
+                mex = MemberExchange(wex, wargs, W)
+                t = {k[2:]: v for k, v in wargs.items() if k.startswith("w.")}
+
+                def exchange(state):
+                    return {**state, **mex({"density": state["density"]})}
+
+                def interior(state, dts, j):
+                    rho = state["density"]
+                    nbr = t["nbr_rows"]
+                    v = tuple(state[k] for k in ("vx", "vy", "vz"))
+                    new = _face_update(
+                        t, rho, gather_neighbors(rho, nbr, members=True), v,
+                        tuple(gather_neighbors(x, nbr, members=True) for x in v),
+                        dts.view(-1, 1, 1, 1))
+                    # live rows: stencil inputs still exact at interior step
+                    # j; owned rows equal the exchange-every-step step
+                    new_rho = torch.where(t["steps_ok"] > j, new, rho)
+                    return {**state, "density": new_rho,
+                            "flux": torch.zeros_like(new_rho)}
+
+                return exchange, interior
+
+            spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
+                                local_mask=plan.local_mask)
+        self._wide_cached = (grid.epoch, spec)
+        return spec
+
+    def batch_step_spec(self):
+        """This model's step in cohort form (the JAX package's
+        ``batch_step_spec``): the dense path (``advection.dense``: kernels
+        B2 / B3 with a member axis, one launch a step for all members, or
+        the plain body in float64), the split-phase step
+        (``advection.split``) and the gather step (``advection``), their
+        tables as member arguments.  ``steps_per_dispatch`` is
+        ``DCCRG_ENSEMBLE_K``."""
+        from ..parallel.exec_cache import (BatchStepSpec, args_key,
+                                           default_steps_per_dispatch)
+        from ..parallel.halo import MemberExchange, ring_args
+
+        k = default_steps_per_dispatch()
+        dtype = np.dtype(self.dtype)
+        if self.dense is not None:
+            i = self.dense
+            key = ("advection.dense", i.n_devices, i.nz_local, i.ny, i.nx,
+                   tuple(i.periodic), str(dtype), self.dense_kind,
+                   tuple(self._dx.tolist()))
+
+            def bind_dense(args, W):
+                def body(state, dts):
+                    new = self._step_density(
+                        state["density"], state["vx"], state["vy"],
+                        state["vz"], dts, members=True)
+                    return {**state, "density": new}
+                return body
+
+            return BatchStepSpec(kind="advection.dense", kernel_key=key,
+                                 bind=bind_dense, args={}, dt_dtype=dtype,
+                                 steps_per_dispatch=k)
+        wide = self._wide_spec()
+        ex = self._exchange
+        v_names = ("vx", "vy", "vz")
+        if self.overlap:
+            args = {f"inner.{n}": v for n, v in self._inner.items()}
+            args.update({f"outer.{n}": v for n, v in self._outer.items()})
+            args["local_mask"] = self.tables.local_mask
+            args.update(ring_args(ex, ["density"]))
+
+            def bind_split(args, W):
+                mex = MemberExchange(ex, args, W)
+                sides = [{n[len(p):]: v for n, v in args.items() if n.startswith(p)}
+                         for p in ("inner.", "outer.")]
+
+                def side(rho, state, t, dt):
+                    v = tuple(state[n] for n in v_names)
+                    nbr = t["nbr_rows"]
+                    return _face_update(
+                        t, member_rows(rho, t["rows"]),
+                        gather_neighbors(rho, nbr, members=True),
+                        tuple(member_rows(x, t["rows"]) for x in v),
+                        tuple(gather_neighbors(x, nbr, members=True) for x in v), dt)
+
+                def body(state, dts):
+                    dt = dts.view(-1, 1, 1, 1)
+                    field = {"density": state["density"]}
+                    payload = mex.start(field)
+                    new_i = side(state["density"], state, sides[0], dt)
+                    rho2 = mex.finish(field, payload)["density"]
+                    new_o = side(rho2, state, sides[1], dt)
+                    out = rho2.clone()
+                    for t, new in ((sides[0], new_i), (sides[1], new_o)):
+                        out[(*member_index(out, t["rows"].dim()), t["rows"])] = new
+                    out = torch.where(args["local_mask"], out, rho2)
+                    return {**state, "density": out, "flux": torch.zeros_like(out)}
+                return body
+
+            return BatchStepSpec(
+                kind="advection.split",
+                kernel_key=("advection.split_step", str(dtype), args_key(args)),
+                bind=bind_split, args=args, dt_dtype=dtype,
+                steps_per_dispatch=k, wide=wide)
+        args = dict(self._dev)
+        args["nbr_rows"] = self.tables.nbr_rows
+        args["local_mask"] = self.tables.local_mask
+        args.update(ring_args(ex, ["density"]))
+
+        def bind_gather(args, W):
+            mex = MemberExchange(ex, args, W)
+
+            def body(state, dts):
+                state = {**state, **mex({"density": state["density"]})}
+                rho = state["density"]
+                nbr = args["nbr_rows"]
+                v = tuple(state[n] for n in v_names)
+                new = _face_update(
+                    args, rho, gather_neighbors(rho, nbr, members=True), v,
+                    tuple(gather_neighbors(x, nbr, members=True) for x in v),
+                    dts.view(-1, 1, 1, 1))
+                new_rho = torch.where(args["local_mask"], new, rho)
+                return {**state, "density": new_rho,
+                        "flux": torch.zeros_like(new_rho)}
+            return body
+
+        return BatchStepSpec(
+            kind="advection",
+            kernel_key=("advection.step", str(dtype), args_key(args)),
+            bind=bind_gather, args=args, dt_dtype=dtype,
+            steps_per_dispatch=k, wide=wide)
 
     def _record_run(self, path: str, steps, state) -> None:
         """Post-run reconciliation (``obs.fused``), the JAX package's

@@ -29,21 +29,24 @@ split-phase step on the row layout: start the alive halo (kernel B9 on a
 side stream on CUDA), count and rule the inner rows, which read no ghost,
 wait, then the outer rows — equal to the gather step.
 
-The JAX package's exchange-amortized ``_wide_spec`` and its cohort
-``batch_step_spec`` are not ported: they raise ``NotImplementedError``
-naming their queue items.  There is no fallback: a kernel that fails to
-build or launch raises.
+``batch_step_spec`` gives the gather step (``gol``) or the split-phase step
+(``gol.overlap``) in cohort form, over a member stack ``[W, D, R]`` (the
+tables shared or stacked, the halo one grouped B9 gather for every member);
+``_wide_spec`` its exchange-amortized split where a radius-1
+sub-neighborhood steps inside a deeper default hood (``parallel/
+wide_halo.py``).  There is no fallback: a kernel that fails to build or
+launch raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..grid import _not_in_slice
 from ..obs import fused
 from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
 from ..parallel.dense import HaloExtend, detect_dense2d
-from ..parallel.stencil import StencilTables, gather_neighbors, split_rows
+from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
+                                member_rows, split_rows)
 
 __all__ = ["GameOfLife"]
 
@@ -246,7 +249,143 @@ class GameOfLife:
         return cells[alive > 0]
 
     def _wide_spec(self):
-        _not_in_slice("GameOfLife's exchange-amortized wide step", "15")
+        """The exchange-amortized step split (the JAX package's
+        ``_wide_spec``).  The life rule reads the whole neighborhood, so
+        relevance is ``"all"``: on the default hood the budget is 1 and
+        the wide step disengages (None); it engages when the model steps
+        on a radius-1 sub-neighborhood of a deeper default hood — the
+        exchange refills the full-depth ghost zone of both fields and
+        ``steps_ok`` meters its shell-by-shell consumption."""
+        from ..parallel.halo import MemberExchange, ring_args
+        from ..parallel.wide_halo import get_wide_plan, wide_enabled
+
+        if not wide_enabled():
+            return None
+        cached = getattr(self, "_wide_cached", None)
+        if cached is not None and cached[0] is self.grid.epoch:
+            return cached[1]
+        plan = get_wide_plan(self.grid, self.hood_id, relevance="all")
+        spec = None
+        if plan.budget >= 2:
+            from ..parallel.exec_cache import WideStepSpec
+
+            wex = self.grid.halo(None)
+            put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
+                                                device=self.grid.device).to(dt)
+            wt = {
+                "w.nbr_rows": put(plan.nbr_rows, torch.int64),
+                "w.nbr_valid": put(plan.nbr_valid, torch.bool),
+                "w.steps_ok": put(plan.steps_ok, torch.int32),
+                "w.local_mask": put(plan.local_mask, torch.bool),
+            }
+            wt.update(ring_args(wex, list(self.SPEC)))
+
+            def bind(args, wargs, W):
+                mex = MemberExchange(wex, wargs, W)
+
+                def exchange(state):
+                    return mex(state)
+
+                def interior(state, dts, j):
+                    alive = state["is_alive"].to(torch.int32)
+                    nbr_alive = gather_neighbors(alive, wargs["w.nbr_rows"],
+                                                 members=True)
+                    count = (wargs["w.nbr_valid"] & (nbr_alive != 0)).sum(
+                        dim=-1, dtype=torch.int32)
+                    new_alive = _life_rule(count, alive)
+                    live = wargs["w.steps_ok"] > j
+                    # owned rows (live through the budget) equal the
+                    # blocking step; the stale fringe keeps its values
+                    zero = torch.zeros_like(count)
+                    old_cnt = state["live_neighbor_count"].to(torch.int32)
+                    cnt = torch.where(live & wargs["w.local_mask"], count,
+                                      torch.where(live, zero, old_cnt))
+                    return {"is_alive": torch.where(live, new_alive, alive).to(_U32),
+                            "live_neighbor_count": cnt.to(_U32)}
+
+                return exchange, interior
+
+            spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
+                                local_mask=plan.local_mask)
+        self._wide_cached = (self.grid.epoch, spec)
+        return spec
 
     def batch_step_spec(self):
-        _not_in_slice("GameOfLife's cohort batch step", "15")
+        """Cohort-batchable step (the JAX package's ``batch_step_spec``):
+        the gather step (``gol``, whatever the dense 2-D layout) or the
+        split-phase step (``gol.overlap``).  Game of Life takes no dt: the
+        cohort's dt operand is ignored."""
+        from ..parallel.exec_cache import (BatchStepSpec, args_key,
+                                           default_steps_per_dispatch)
+        from ..parallel.halo import MemberExchange, ring_args
+
+        k = default_steps_per_dispatch()
+        ex = self._exchange
+        wide = self._wide_spec()
+        if self.overlap:
+            args = {}
+            for p, (rows, nbr, valid) in zip(("inner.", "outer."), self._sides):
+                args.update({p + "rows": rows, p + "nbr_rows": nbr,
+                             p + "nbr_valid": valid})
+            args["local_mask"] = self._local
+            args.update(ring_args(ex, ["is_alive"]))
+
+            def bind_overlap(args, W):
+                mex = MemberExchange(ex, args, W)
+                sides = [tuple(args[p + n] for n in ("rows", "nbr_rows", "nbr_valid"))
+                         for p in ("inner.", "outer.")]
+
+                def side(a, rows, nbr, valid):
+                    count = (valid & (gather_neighbors(a, nbr, members=True) != 0)
+                             ).sum(dim=-1, dtype=torch.int32)
+                    return count, _life_rule(count, member_rows(a, rows))
+
+                def body(state, dts):
+                    field = {"is_alive": state["is_alive"]}
+                    payload = mex.start(field)
+                    cnt_i, new_i = side(state["is_alive"].to(torch.int32), *sides[0])
+                    a2 = mex.finish(field, payload)["is_alive"].to(torch.int32)
+                    cnt_o, new_o = side(a2, *sides[1])
+                    out_a, cnt = a2.clone(), torch.zeros_like(a2)
+                    for (rows, _, _), new, c in ((sides[0], new_i, cnt_i),
+                                                 (sides[1], new_o, cnt_o)):
+                        at = (*member_index(out_a, rows.dim()), rows)
+                        out_a[at], cnt[at] = new, c
+                    local = args["local_mask"]
+                    return {
+                        "is_alive": torch.where(local, out_a, a2).to(_U32),
+                        "live_neighbor_count": torch.where(
+                            local, cnt, torch.zeros_like(a2)).to(_U32),
+                    }
+                return body
+
+            return BatchStepSpec(kind="gol.overlap",
+                                 kernel_key=("gol.overlap_step", args_key(args)),
+                                 bind=bind_overlap, args=args,
+                                 steps_per_dispatch=k, wide=wide)
+        args = {"nbr_rows": self.tables.nbr_rows,
+                "nbr_valid": self.tables.nbr_valid,
+                "local_mask": self.tables.local_mask}
+        args.update(ring_args(ex, list(self.SPEC)))
+
+        def bind_gather(args, W):
+            mex = MemberExchange(ex, args, W)
+
+            def body(state, dts):
+                state = mex(state)
+                alive = state["is_alive"].to(torch.int32)
+                nbr_alive = gather_neighbors(alive, args["nbr_rows"], members=True)
+                count = (args["nbr_valid"] & (nbr_alive != 0)).sum(
+                    dim=-1, dtype=torch.int32)
+                local = args["local_mask"]
+                return {
+                    "is_alive": torch.where(local, _life_rule(count, alive),
+                                            alive).to(_U32),
+                    "live_neighbor_count": torch.where(
+                        local, count, torch.zeros_like(count)).to(_U32),
+                }
+            return body
+
+        return BatchStepSpec(kind="gol", kernel_key=("gol.step", args_key(args)),
+                             bind=bind_gather, args=args, steps_per_dispatch=k,
+                             wide=wide)

@@ -30,10 +30,13 @@ makes ``step`` / ``run`` the split-phase step: start the f halo (kernel B9
 on a side stream on CUDA), update the inner rows, which read no ghost,
 wait, then update the outer rows — bitwise equal to the general step.
 
-The JAX package's exchange-amortized ``_wide_spec``, its cohort
-``batch_step_spec`` and its run telemetry are not ported (the first two
-raise ``NotImplementedError`` naming their queue items).  There is no
-fallback: a kernel that fails to build or launch raises.
+``batch_step_spec`` gives each layout's step in cohort form over member
+stacks: ``vlasov.dense`` (``f [W, D, nzl, ny, nx, B]``, kernel B7 with a
+member axis, one launch a step for all members, each on its own slab ring
+and dt), ``vlasov.split`` and the gather step ``vlasov`` (``f [W, D, R,
+B]``, the halo one grouped B9 gather for every member); ``_wide_spec``
+their exchange-amortized split.  There is no fallback: a kernel that fails
+to build or launch raises.
 """
 from __future__ import annotations
 
@@ -41,9 +44,9 @@ import numpy as np
 import torch
 
 from ..convert import numpy_dtype, torch_dtype
-from ..grid import _not_in_slice
 from ..obs import fused
 from ..ops.vlasov_kernel import (
+    member_scales,
     pick_vlasov_block,
     split_scales,
     split_xy,
@@ -51,7 +54,8 @@ from ..ops.vlasov_kernel import (
     vlasov_step,
 )
 from ..parallel.dense import HaloExtend
-from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
+from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
+                                member_rows, ordered_sum)
 from .advection import build_face_tables, build_split_tables
 
 __all__ = ["Vlasov"]
@@ -117,15 +121,18 @@ class Vlasov:
             self._fused_block = pick_vlasov_block(
                 info.nz_local, info.ny, info.nx, self.B)
 
-    def _edges(self, f):
+    def _edges(self, f, members=False):
         """The ring's received planes (below, above) of every slab, vacuum
-        at an open z boundary."""
-        lo, hi = self._extend.planes(f)
+        at an open z boundary (each member's own ring with ``members``)."""
+        lo, hi = self._extend.planes(f, members)
         if self._lo_mask is not None:
             lo, hi = lo * self._lo_mask, hi * self._hi_mask
         return lo.contiguous(), hi.contiguous()
 
-    def _dense_step(self, f, dt):
+    def _dense_step(self, f, dt, members=False):
+        """One dense step; with ``members``, ``f [W, D, ...]`` and ``dt`` a
+        ``[W]`` tensor of the model dtype (kernel B7 takes every member in
+        one launch)."""
         if self._fused_block:
             # the kernel reads the slab ring's edge planes from f itself
             return vlasov_step(
@@ -134,9 +141,13 @@ class Vlasov:
                 periodic=self._periodic)
         # the XLA body (vlasov.py:127-149): x and y split inside the slab,
         # z through the ring
-        sx, sy, sz = split_scales(dt, self._inv_dx, self.dtype)
+        if members:
+            sc = member_scales(dt, self._inv_dx, self.torch_dtype)
+            sx, sy, sz = (sc[:, i].view(-1, 1, 1, 1, 1, 1) for i in range(3))
+        else:
+            sx, sy, sz = split_scales(dt, self._inv_dx, self.dtype)
         g = split_xy(f, self._vx, self._vy, sx, sy, *self._periodic[:2])
-        lo, hi = self._edges(g)
+        lo, hi = self._edges(g, members)
         return split_z(g, lo, hi, self._vz, sz)
 
     # ---------------------------------------------------- general (AMR)
@@ -189,23 +200,26 @@ class Vlasov:
         package's general step body) with each bin's constant velocity as
         the face velocity, and the open boundary faces' outflow.  ``t``
         holds the face tables of the cells ``f_c`` (all rows, or one split
-        side), ``f_n [..., K, B]`` their neighbors' blocks."""
+        side), ``f_n [..., K, B]`` their neighbors' blocks.  ``dt`` is a
+        float, or for member stacks a tensor shaped ``[W, 1, 1, 1]``."""
         sgn = t["sign"][..., None]
         v_face = self._vbT[t["axis_idx"].long()]              # [..., K, B]
         fc = f_c[..., None, :]
         up_pos = torch.where(v_face >= 0, fc, f_n)
         up_neg = torch.where(v_face >= 0, f_n, fc)
         upwind = torch.where(sgn > 0, up_pos, up_neg)
-        face_flux = upwind * (dt * v_face) * t["min_area"][..., None]
+        dt_k = dt[..., None] if isinstance(dt, torch.Tensor) else dt
+        face_flux = upwind * (dt_k * v_face) * t["min_area"][..., None]
         contrib = torch.where((t["face_dir"] != 0)[..., None],
                               -sgn * face_flux, 0.0)
         total = ordered_sum(contrib, axis=-2)
         if self._has_open:
             # outgoing-only boundary faces (incoming is vacuum)
             vbT = self._vbT
+            pos, neg = t["bnd_pos"], t["bnd_neg"]
             rate = sum(
-                t["bnd_pos"][d3][..., None] * torch.clamp(vbT[d3], min=0)
-                + t["bnd_neg"][d3][..., None] * torch.clamp(-vbT[d3], min=0)
+                pos.select(-3, d3)[..., None] * torch.clamp(vbT[d3], min=0)
+                + neg.select(-3, d3)[..., None] * torch.clamp(-vbT[d3], min=0)
                 for d3 in range(3)
             )
             total = total - dt * f_c * rate
@@ -338,7 +352,164 @@ class Vlasov:
         return float(self.density(state).sum() * np.prod(l0))
 
     def _wide_spec(self):
-        _not_in_slice("Vlasov's exchange-amortized wide step", "15")
+        """The exchange-amortized step split (the JAX package's
+        ``_wide_spec``; the advection argument, per velocity bin).  The
+        open-boundary face areas are scattered to every replica row
+        (``wide_halo.scatter_rows``): interior steps update live ghost rows
+        too.  None on the dense layout, with ``DCCRG_ENSEMBLE_WIDE=0`` or a
+        budget under 2."""
+        from ..parallel.halo import MemberExchange, ring_args
+        from ..parallel.wide_halo import get_wide_plan, scatter_rows, wide_enabled
+
+        if not wide_enabled() or self.info is not None:
+            return None
+        cached = getattr(self, "_wide_cached", None)
+        if cached is not None and cached[0] is self.grid.epoch:
+            return cached[1]
+        grid = self.grid
+        plan = get_wide_plan(grid, None, relevance="face")
+        spec = None
+        if plan.budget >= 2:
+            from ..parallel.exec_cache import WideStepSpec
+
+            wex = grid.halo(None)
+            _, wdev = build_face_tables(
+                grid, None, self.tables, self.dtype,
+                hood_arrays=(plan.nbr_offset, plan.nbr_len, plan.nbr_rows,
+                             plan.nbr_valid))
+            put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
+                                                device=self.device).to(dt)
+            wt = {f"w.{k}": v for k, v in wdev.items()}
+            wt["w.nbr_rows"] = put(plan.nbr_rows, torch.int64)
+            wt["w.steps_ok"] = put(plan.steps_ok, torch.int32)
+            epoch = grid.epoch
+            mapping = epoch.mapping
+            cells = epoch.leaves.cells
+            idxs = mapping.get_indices(cells).astype(np.int64)
+            clen = mapping.get_cell_length_in_indices(cells).astype(np.int64)
+            lengths = np.asarray(grid.geometry.get_length(cells), np.float64)
+            extent = (np.asarray(mapping.length, np.int64)
+                      << mapping.max_refinement_level)
+            pos, neg = [], []
+            for d3 in range(3):
+                pos_leaf = np.zeros(len(cells))
+                neg_leaf = np.zeros(len(cells))
+                if not grid.topology.is_periodic(d3):
+                    area = lengths[:, (d3 + 1) % 3] * lengths[:, (d3 + 2) % 3]
+                    hi = (idxs[:, d3] + clen) == extent[d3]
+                    pos_leaf = np.where(hi, area, 0.0)
+                    neg_leaf = np.where(idxs[:, d3] == 0, area, 0.0)
+                pos.append(scatter_rows(epoch, pos_leaf))
+                neg.append(scatter_rows(epoch, neg_leaf))
+            wt["w.bnd_pos"] = put(np.stack(pos), self.torch_dtype)
+            wt["w.bnd_neg"] = put(np.stack(neg), self.torch_dtype)
+            wt.update(ring_args(wex, ["f"]))
+
+            def bind(args, wargs, W):
+                mex = MemberExchange(wex, wargs, W)
+                t = {k[2:]: v for k, v in wargs.items() if k.startswith("w.")}
+
+                def exchange(state):
+                    return {**state, **mex({"f": state["f"]})}
+
+                def interior(state, dts, j):
+                    f = state["f"]
+                    new = self._face_update(
+                        t, f, gather_neighbors(f, t["nbr_rows"], members=True),
+                        dts.view(-1, 1, 1, 1))
+                    live = (t["steps_ok"] > j)[..., None]
+                    return {**state, "f": torch.where(live, new, f)}
+
+                return exchange, interior
+
+            spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
+                                local_mask=plan.local_mask)
+        self._wide_cached = (grid.epoch, spec)
+        return spec
 
     def batch_step_spec(self):
-        _not_in_slice("Vlasov's cohort batch step", "15")
+        """Cohort-batchable step (the JAX package's ``batch_step_spec``):
+        ``vlasov.dense`` (kernel B7 with a member axis, or the plain split
+        step in float64), ``vlasov.split`` and the gather step ``vlasov``.
+        ``nv`` rides the kernel key."""
+        from ..parallel.exec_cache import (BatchStepSpec, args_key,
+                                           default_steps_per_dispatch)
+        from ..parallel.halo import MemberExchange, ring_args
+
+        k = default_steps_per_dispatch()
+        dtype = np.dtype(self.dtype)
+        if self.info is not None:
+            i = self.info
+            key = ("vlasov.dense", i.n_devices, i.nz_local, i.ny, i.nx,
+                   self._periodic, str(dtype), self.nv, self._fused_block,
+                   tuple(self._inv_dx.tolist()))
+
+            def bind_dense(args, W):
+                def body(state, dts):
+                    return {**state, "f": self._dense_step(state["f"], dts,
+                                                           members=True)}
+                return body
+
+            return BatchStepSpec(kind="vlasov.dense", kernel_key=key,
+                                 bind=bind_dense, args={}, dt_dtype=dtype,
+                                 steps_per_dispatch=k)
+        ex = self._exchange
+        wide = self._wide_spec()
+        if self.overlap:
+            args = {f"inner.{n}": v for n, v in self._inner.items()}
+            args.update({f"outer.{n}": v for n, v in self._outer.items()})
+            args["local_mask"] = self.tables.local_mask
+            args.update(ring_args(ex, ["f"]))
+
+            def bind_split(args, W):
+                mex = MemberExchange(ex, args, W)
+                sides = [{n[len(p):]: v for n, v in args.items() if n.startswith(p)}
+                         for p in ("inner.", "outer.")]
+
+                def side(f, t, dt):
+                    return self._face_update(
+                        t, member_rows(f, t["rows"]),
+                        gather_neighbors(f, t["nbr_rows"], members=True), dt)
+
+                def body(state, dts):
+                    dt = dts.view(-1, 1, 1, 1)
+                    f = state["f"]
+                    payload = mex.start({"f": f})
+                    new_i = side(f, sides[0], dt)
+                    f2 = mex.finish({"f": f}, payload)["f"]
+                    new_o = side(f2, sides[1], dt)
+                    out = f2.clone()
+                    for t, new in ((sides[0], new_i), (sides[1], new_o)):
+                        out[(*member_index(out, t["rows"].dim()), t["rows"])] = new
+                    out = torch.where(args["local_mask"][..., None], out, f2)
+                    return {**state, "f": out}
+                return body
+
+            return BatchStepSpec(
+                kind="vlasov.split",
+                kernel_key=("vlasov.split_step", str(dtype), self._has_open,
+                            self.nv, args_key(args)),
+                bind=bind_split, args=args, dt_dtype=dtype,
+                steps_per_dispatch=k, wide=wide)
+        args = dict(self._dev)
+        args["nbr_rows"] = self.tables.nbr_rows
+        args["local_mask"] = self.tables.local_mask
+        args.update(ring_args(ex, ["f"]))
+
+        def bind_gather(args, W):
+            mex = MemberExchange(ex, args, W)
+
+            def body(state, dts):
+                f = mex({"f": state["f"]})["f"]
+                new = self._face_update(
+                    args, f, gather_neighbors(f, args["nbr_rows"], members=True),
+                    dts.view(-1, 1, 1, 1))
+                return {**state, "f": torch.where(args["local_mask"][..., None], new, f)}
+            return body
+
+        return BatchStepSpec(
+            kind="vlasov",
+            kernel_key=("vlasov.step", str(dtype), self._has_open, self.nv,
+                        args_key(args)),
+            bind=bind_gather, args=args, dt_dtype=dtype,
+            steps_per_dispatch=k, wide=wide)

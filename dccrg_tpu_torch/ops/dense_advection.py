@@ -21,6 +21,17 @@ package-wide counters of ``ops/__init__.py``, re-exported here).
 Float32 only, as in the JAX package; the f64 path is the plain step body
 (:func:`dense_step_arith`) in ``models/advection.py``.
 
+The two step kernels take a leading member axis, the port's counterpart of
+the JAX package's ``jax.vmap`` over ``pallas_call`` (``serve/ensemble.py``):
+fields ``[W, D, nzl, ny, nx]`` are W independent scenarios of D slots each,
+stepped in one launch, each by its own time step (``dt`` a float32 ``[W]``
+array on the card, read by the kernel).  A member computes exactly what it
+computes alone: its z masks are the shared ``[D, nzl]`` masks and its edge
+planes come from its own slab ring.  One scenario is the same kernel at
+W = 1 (fields ``[D, nzl, ny, nx]``, ``dt`` a float): the kernel
+template's scalar instantiation, whose dt is an argument (the member
+instantiation's per-member load cost the 512x512x128 step 11.6%).
+
 The dispatch thresholds (``fused_run_fits``, ``pick_step_block``,
 ``flux_update_fits``) are copied from the JAX package unchanged, so both
 packages pick the same kernel on every configuration.  They model the
@@ -54,6 +65,7 @@ __all__ = [
     "flux_update_blocked_plain",
     "flux_update",
     "flux_update_plain",
+    "member_dts",
 ]
 
 
@@ -201,34 +213,51 @@ def _masks4(mx, my, mz_up, mz_dn, D, nzl):
             mz_up.reshape(D, nzl, 1, 1), mz_dn.reshape(D, nzl, 1, 1))
 
 
+def _plain_dt(dt, x):
+    """A twin's time step: the float32 value of a scalar ``dt``, or a
+    member array ``[W]`` shaped to broadcast over ``x [W, D, nzl, ny, nx]``
+    (the same float32 products either way)."""
+    if isinstance(dt, torch.Tensor):
+        if x.dim() != 5 or tuple(dt.shape) != (x.shape[0],):
+            raise ValueError(f"dt of shape {tuple(dt.shape)} for fields of "
+                             f"shape {tuple(x.shape)}: want [W] with [W, D, ...]")
+        return dt.to(torch.float32).view(-1, 1, 1, 1, 1)
+    if x.dim() == 5 and x.shape[0] != 1:
+        raise ValueError(f"{x.shape[0]} members need a [W] dt array, got a scalar")
+    return _f32(dt)
+
+
 def flux_update_blocked_plain(rho, edge_lo, edge_hi, vx, vy, vz, vz_edge_lo,
                               vz_edge_hi, mx, my, mz_up, mz_dn, dt, *, block,
                               area, inv_vol):
-    """Twin of :func:`flux_update_blocked`.  The z-block size ``block``
-    does not change the values (every plane sees its true z neighbors, the
-    device-edge planes at the ends)."""
+    """Twin of :func:`flux_update_blocked`, one scenario (``[D, nzl, ny,
+    nx]``, ``dt`` a float) or W members (``[W, D, ...]``, ``dt [W]``).  The
+    z-block size ``block`` does not change the values (every plane sees its
+    true z neighbors, the device-edge planes at the ends)."""
     PLAIN_CALLS["flux_update_blocked"] += 1
-    D, nzl = rho.shape[:2]
-    r_dn = torch.cat([edge_lo, rho[:, :-1]], dim=1)
-    r_up = torch.cat([rho[:, 1:], edge_hi], dim=1)
-    v_dn = torch.cat([vz_edge_lo, vz[:, :-1]], dim=1)
-    v_up = torch.cat([vz[:, 1:], vz_edge_hi], dim=1)
+    D, nzl = rho.shape[-4:-2]
+    r_dn = torch.cat([edge_lo, rho[..., :-1, :, :]], dim=-3)
+    r_up = torch.cat([rho[..., 1:, :, :], edge_hi], dim=-3)
+    v_dn = torch.cat([vz_edge_lo, vz[..., :-1, :, :]], dim=-3)
+    v_up = torch.cat([vz[..., 1:, :, :], vz_edge_hi], dim=-3)
     return dense_step_arith(
         rho, r_dn, r_up, vx, vy, vz, v_dn, v_up,
-        *_masks4(mx, my, mz_up, mz_dn, D, nzl), _f32(dt),
+        *_masks4(mx, my, mz_up, mz_dn, D, nzl), _plain_dt(dt, rho),
         tuple(_f32(a) for a in area), _f32(inv_vol),
     )
 
 
 def flux_update_plain(rho_ext, vx, vy, vz_ext, mx, my, mz_up, mz_dn, dt, *,
                       area, inv_vol):
-    """Twin of :func:`flux_update`."""
+    """Twin of :func:`flux_update` (one scenario or W members, as
+    :func:`flux_update_blocked_plain`)."""
     PLAIN_CALLS["flux_update"] += 1
-    D, nzl = vx.shape[:2]
+    D, nzl = vx.shape[-4:-2]
+    mid = lambda a, lo, hi: a[..., lo:a.shape[-3] + hi, :, :]
     return dense_step_arith(
-        rho_ext[:, 1:-1], rho_ext[:, :-2], rho_ext[:, 2:], vx, vy,
-        vz_ext[:, 1:-1], vz_ext[:, :-2], vz_ext[:, 2:],
-        *_masks4(mx, my, mz_up, mz_dn, D, nzl), _f32(dt),
+        mid(rho_ext, 1, -1), mid(rho_ext, 0, -2), mid(rho_ext, 2, 0), vx, vy,
+        mid(vz_ext, 1, -1), mid(vz_ext, 0, -2), mid(vz_ext, 2, 0),
+        *_masks4(mx, my, mz_up, mz_dn, D, nzl), _plain_dt(dt, vx),
         tuple(_f32(a) for a in area), _f32(inv_vol),
     )
 
@@ -274,8 +303,8 @@ def fused_run_plain(rho, vx, vy, vz, mx, my, mz_up, mz_dn, dt, steps, *,
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "dense_step_blocked": [_PTR] * 13 + [_INT] * 5 + [_F32] * 5 + [_PTR],
-    "dense_step_plane": [_PTR] * 9 + [_INT] * 5 + [_F32] * 5 + [_PTR],
+    "dense_step_blocked": [_PTR] * 13 + [_INT] * 6 + [_PTR] + [_F32] * 5 + [_PTR],
+    "dense_step_plane": [_PTR] * 9 + [_INT] * 6 + [_PTR] + [_F32] * 5 + [_PTR],
     "dense_fused_run": [_PTR] * 10 + [_INT] * 4 + [_F32] * 5 + [_INT] * 7 + [_PTR],
 }
 _lib = None
@@ -336,34 +365,69 @@ def _consts(dt, area, inv_vol):
     return [_f32(dt), *(_f32(a) for a in area), _f32(inv_vol)]
 
 
+def _members(x, dims: int) -> int:
+    """W of a field of ``dims`` dimensions a scenario, or ``dims + 1``
+    with a leading member axis; 1 for a scenario's field."""
+    if x.dim() == dims:
+        return 1
+    if x.dim() == dims + 1:
+        return x.shape[0]
+    raise ValueError(f"expected {dims} dimensions (one scenario) or {dims + 1} "
+                     f"(a leading member axis), got shape {tuple(x.shape)}")
+
+
+def member_dts(dt, W: int, dev):
+    """The step kernels' time-step arguments ``(dts, dt)``: a float32
+    ``[W]`` array on ``dev`` (checked) read by the member instantiation,
+    or for a scalar ``dt`` (one scenario, W = 1) no array and the float32
+    value, the scalar instantiation's argument."""
+    if isinstance(dt, torch.Tensor):
+        if dt.dtype != torch.float32 or tuple(dt.shape) != (W,):
+            raise ValueError(f"dt: expected a float32 [{W}] array, got "
+                             f"{dt.dtype} {tuple(dt.shape)}")
+        if dt.device != dev:
+            raise ValueError(f"dt: on {dt.device}, expected {dev}")
+        return dt.contiguous(), 0.0
+    if W != 1:
+        raise ValueError(f"{W} members need a [W] dt array, got a scalar")
+    return None, _f32(dt)
+
+
 def flux_update_blocked(rho, edge_lo, edge_hi, vx, vy, vz, vz_edge_lo,
                         vz_edge_hi, mx, my, mz_up, mz_dn, dt, *, block, area,
                         inv_vol):
     """One step over ``D`` stacked z-slab blocks, ``rho``/``vx``/``vy``/
     ``vz`` ``[D, nzl, ny, nx]``; ``edge_*`` are the ring-received planes
     ``[D, 1, ny, nx]`` below plane 0 and above plane nzl-1 of each block.
-    Masks: ``mx [nx]``, ``my [ny]``, ``mz_up``/``mz_dn [D, nzl]`` (any
-    shape with those elements).  ``block`` is the z-tile height (a divisor
-    of nzl).  Returns the new density."""
+    With a leading member axis every field is ``[W, ...]`` (each member's
+    edge planes from its own ring) and ``dt`` a float32 ``[W]`` array on
+    the card: W scenarios in one launch.  Masks: ``mx [nx]``, ``my [ny]``,
+    ``mz_up``/``mz_dn [D, nzl]`` (any shape with those elements), shared by
+    the members.  ``block`` is the z-tile height (a divisor of nzl).
+    Returns the new density."""
     tensors = (rho, edge_lo, edge_hi, vx, vy, vz, vz_edge_lo, vz_edge_hi,
                mx, my, mz_up, mz_dn)
     if _on_cpu(*tensors):
         return flux_update_blocked_plain(
             *tensors, dt, block=block, area=area, inv_vol=inv_vol)
-    D, nzl, ny, nx = rho.shape
+    W = _members(rho, 4)
+    lead = tuple(rho.shape[:-4])
+    D, nzl, ny, nx = rho.shape[-4:]
     if block < 1 or nzl % block:
         raise ValueError(f"block {block} does not divide nzl {nzl}")
     dev = rho.device
     for nm, t in (("rho", rho), ("vx", vx), ("vy", vy), ("vz", vz)):
-        _check(nm, t, (D, nzl, ny, nx), dev)
+        _check(nm, t, lead + (D, nzl, ny, nx), dev)
     for nm, t in (("edge_lo", edge_lo), ("edge_hi", edge_hi),
                   ("vz_edge_lo", vz_edge_lo), ("vz_edge_hi", vz_edge_hi)):
-        _check(nm, t, (D, 1, ny, nx), dev)
+        _check(nm, t, lead + (D, 1, ny, nx), dev)
     _check_masks(dev, (nx, ny, D * nzl), mx, my, mz_up, mz_dn)
+    dts, dt0 = member_dts(dt, W, dev)
     out = torch.empty_like(rho)
     err = _kernels().dense_step_blocked(
         *(t.data_ptr() for t in tensors), out.data_ptr(),
-        D, nzl, ny, nx, int(block), *_consts(dt, area, inv_vol),
+        W * D, D, nzl, ny, nx, int(block), None if dts is None else dts.data_ptr(),
+        dt0, *(_f32(a) for a in area), _f32(inv_vol),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("flux_update_blocked", err)
@@ -378,22 +442,29 @@ def flux_update(rho_ext, vx, vy, vz_ext, mx, my, mz_up, mz_dn, dt, *, area,
                 inv_vol):
     """One step from the halo-extended ``rho_ext``/``vz_ext``
     ``[D, nzl+2, ny, nx]`` (plane 0 and nzl+1 are the received halo
-    planes) and ``vx``/``vy`` ``[D, nzl, ny, nx]``; masks as for
-    :func:`flux_update_blocked`.  Returns the new density."""
+    planes) and ``vx``/``vy`` ``[D, nzl, ny, nx]``; with a leading member
+    axis ``[W, ...]`` and ``dt`` a float32 ``[W]`` array, as for
+    :func:`flux_update_blocked`; masks as there.  Returns the new
+    density."""
     tensors = (rho_ext, vx, vy, vz_ext, mx, my, mz_up, mz_dn)
     if _on_cpu(*tensors):
         return flux_update_plain(*tensors, dt, area=area, inv_vol=inv_vol)
-    D, nzl, ny, nx = vx.shape
+    W = _members(vx, 4)
+    lead = tuple(vx.shape[:-4])
+    D, nzl, ny, nx = vx.shape[-4:]
     dev = vx.device
-    _check("rho_ext", rho_ext, (D, nzl + 2, ny, nx), dev)
-    _check("vz_ext", vz_ext, (D, nzl + 2, ny, nx), dev)
-    _check("vx", vx, (D, nzl, ny, nx), dev)
-    _check("vy", vy, (D, nzl, ny, nx), dev)
+    _check("rho_ext", rho_ext, lead + (D, nzl + 2, ny, nx), dev)
+    _check("vz_ext", vz_ext, lead + (D, nzl + 2, ny, nx), dev)
+    _check("vx", vx, lead + (D, nzl, ny, nx), dev)
+    _check("vy", vy, lead + (D, nzl, ny, nx), dev)
     _check_masks(dev, (nx, ny, D * nzl), mx, my, mz_up, mz_dn)
+    dts, dt0 = member_dts(dt, W, dev)
     out = torch.empty_like(vx)
     err = _kernels().dense_step_plane(
         *(t.data_ptr() for t in tensors), out.data_ptr(),
-        D, nzl, ny, nx, min(_PLANE_ZCHUNK, nzl), *_consts(dt, area, inv_vol),
+        W * D, D, nzl, ny, nx, min(_PLANE_ZCHUNK, nzl),
+        None if dts is None else dts.data_ptr(), dt0,
+        *(_f32(a) for a in area), _f32(inv_vol),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("flux_update", err)

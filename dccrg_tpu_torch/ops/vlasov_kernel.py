@@ -21,6 +21,12 @@ that does not cover the shape it is given.  The z-block height ``block``
 (the TPU kernel's tile, kept for dispatch parity with the JAX package)
 changes neither the plan nor the values.
 
+The kernel takes a leading member axis (the port's counterpart of the JAX
+package's ``jax.vmap`` over ``pallas_call``): ``f [W, D, nzl, ny, nx, B]``
+is W independent scenarios, stepped in one launch, member w by its own
+``dt[w]`` (the split scales ``[W, 3]`` on the card) and on its own slab
+ring.  One scenario is W = 1 with a one-element scale array.
+
 On CPU tensors the wrapper computes with :func:`vlasov_step_blocked_plain`;
 on CUDA tensors it launches the kernel or raises.  Launches count in
 ``ops.LAUNCHES["vlasov_step"]``, twin calls in
@@ -41,7 +47,8 @@ from .dense_advection import _check, _launched, _on_cpu
 from .resident import card_limits
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "VlasovPlan", "pick_vlasov_block",
-           "ring_edges", "split_scales", "split_xy", "split_z", "vlasov_step",
+           "member_scales", "ring_edges", "split_scales", "split_xy",
+           "split_z", "vlasov_step",
            "vlasov_step_blocked_plain", "vlasov_step_plan"]
 
 # ----------------------------------------------- dispatch threshold (copied)
@@ -185,33 +192,71 @@ def split_xy(f, vx, vy, sx, sy, px, py):
 
 
 def split_z(g, g_lo, g_hi, vz, sz):
-    """The z split of ``g [D, nzl, ...]``, whose plane below z = 0 and
-    above z = nzl-1 of each slab are ``g_lo`` / ``g_hi`` ``[D, 1, ...]``."""
-    dn = torch.cat([g_lo, g[:, :-1]], dim=1)
-    up = torch.cat([g[:, 1:], g_hi], dim=1)
+    """The z split of ``g [..., D, nzl, ny, nx, B]``, whose plane below z =
+    0 and above z = nzl-1 of each slab are ``g_lo`` / ``g_hi`` ``[..., D, 1,
+    ny, nx, B]``."""
+    dn = torch.cat([g_lo, g[..., :-1, :, :, :]], dim=-4)
+    up = torch.cat([g[..., 1:, :, :, :], g_hi], dim=-4)
     return _split(g, dn, up, vz, sz)
 
 
 def ring_edges(f, periodic_z: bool):
-    """The planes below and above each slab of ``f [D, nzl, ...]`` on the
-    slab ring: the neighbouring slabs' end planes (``HaloExtend.planes``),
-    vacuum (0) below the first slab and above the last on an open z axis."""
-    lo, hi = torch.roll(f[:, -1:], 1, 0), torch.roll(f[:, :1], -1, 0)
+    """The planes below and above each slab of ``f [..., D, nzl, ny, nx,
+    B]`` on its slab ring (a member's own with a leading member axis): the
+    neighbouring slabs' end planes (``HaloExtend.planes``), vacuum (0) below
+    the first slab and above the last on an open z axis."""
+    lo = torch.roll(f[..., -1:, :, :, :], 1, -5)
+    hi = torch.roll(f[..., :1, :, :, :], -1, -5)
     if not periodic_z:
-        lo[0] = 0
-        hi[-1] = 0
+        lo[..., 0, :, :, :, :] = 0
+        hi[..., -1, :, :, :, :] = 0
     return lo, hi
+
+
+#: ``inv_dx`` on the card, by (device, dtype, values): sent once
+_INV_DX: dict = {}
+
+
+def member_scales(dt, inv_dx, dtype):
+    """Each member's split scales (sx, sy, sz): ``dt [W]`` (a tensor of
+    ``dtype``) times ``inv_dx`` cast to ``dtype``, rounded once in it —
+    :func:`split_scales`' product for every member in one multiply.
+    ``[W, 3]``, on ``dt``'s device."""
+    vals = tuple(float(v) for v in np.asarray(inv_dx, np.float64))
+    key = (str(dt.device), str(dtype), vals)
+    inv = _INV_DX.get(key)
+    if inv is None:
+        if len(_INV_DX) > 64:
+            _INV_DX.clear()
+        inv = _INV_DX[key] = torch.tensor(vals, dtype=torch.float64,
+                                          device=dt.device).to(dtype)
+    return (dt.to(dtype)[:, None] * inv[None, :]).contiguous()
+
+
+def _scales(dt, inv_dx, f):
+    """The twin's scales: floats for a scalar ``dt``, else ``[W, 3]``
+    columns shaped to broadcast over ``f [W, D, nzl, ny, nx, B]``."""
+    if isinstance(dt, torch.Tensor):
+        if f.dim() != 6 or tuple(dt.shape) != (f.shape[0],):
+            raise ValueError(f"dt of shape {tuple(dt.shape)} for f of shape "
+                             f"{tuple(f.shape)}: want [W] with [W, D, ...]")
+        s = member_scales(dt, inv_dx, f.dtype)
+        return tuple(s[:, i].view(-1, 1, 1, 1, 1, 1) for i in range(3))
+    if f.dim() == 6 and f.shape[0] != 1:
+        raise ValueError(f"{f.shape[0]} members need a [W] dt array, got a scalar")
+    return split_scales(dt, inv_dx, f.dtype)
 
 
 def vlasov_step_blocked_plain(f, edge_lo, edge_hi, vx, vy, vz, dt, *, block,
                               inv_dx, periodic):
-    """Twin of :func:`vlasov_step` (``vlasov_kernel.py:71-107`` in torch).
-    The z-block size ``block`` does not change the values; ``edge_lo`` /
-    ``edge_hi`` None take the slab ring's planes (:func:`ring_edges`)."""
+    """Twin of :func:`vlasov_step` (``vlasov_kernel.py:71-107`` in torch),
+    one scenario or W members (``f [W, ...]``, ``dt [W]``).  The z-block
+    size ``block`` does not change the values; ``edge_lo`` / ``edge_hi``
+    None take the slab ring's planes (:func:`ring_edges`)."""
     PLAIN_CALLS["vlasov_step"] += 1
     if edge_lo is None and edge_hi is None:
         edge_lo, edge_hi = ring_edges(f, bool(periodic[2]))
-    sx, sy, sz = split_scales(dt, inv_dx, f.dtype)
+    sx, sy, sz = _scales(dt, inv_dx, f)
     px, py = bool(periodic[0]), bool(periodic[1])
     xy = lambda p: split_xy(p, vx, vy, sx, sy, px, py)
     return split_z(xy(f), xy(edge_lo), xy(edge_hi), vz, sz)
@@ -229,9 +274,9 @@ def _kernels():
         from ..cuda_build import load
 
         lib = load("vlasov")
-        lib.vlasov_step.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 7
-                                    + [ctypes.c_void_p])
+        lib.vlasov_step.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                                    + [ctypes.c_void_p] + [ctypes.c_float] * 3
+                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.vlasov_step.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -244,6 +289,21 @@ def _plan_args(plan: VlasovPlan):
             plan.smem_bytes)
 
 
+def _scale_args(dt, inv_dx, W: int, dev) -> tuple:
+    """The kernel's scales: every member's float32 ``[W, 3]`` on ``dev``
+    (:func:`member_scales`) for a float32 ``dt [W]`` on ``dev``; for a
+    scalar ``dt`` (W = 1) no array and :func:`split_scales` by value."""
+    if isinstance(dt, torch.Tensor):
+        if dt.dtype != torch.float32 or tuple(dt.shape) != (W,) or dt.device != dev:
+            raise ValueError(f"dt: expected a float32 [{W}] array on {dev}, got "
+                             f"{dt.dtype} {tuple(dt.shape)} on {dt.device}")
+        scales = member_scales(dt, inv_dx, torch.float32)
+        return scales, scales.data_ptr(), (0.0, 0.0, 0.0)
+    if W != 1:
+        raise ValueError(f"{W} members need a [W] dt array, got a scalar")
+    return None, None, split_scales(dt, inv_dx, np.float32)
+
+
 def vlasov_step(f, edge_lo, edge_hi, vx, vy, vz, dt, *, block, inv_dx,
                 periodic):
     """One step of ``f [D, nzl, ny, nx, B]`` (float32) with per-bin
@@ -252,26 +312,36 @@ def vlasov_step(f, edge_lo, edge_hi, vx, vy, vz, dt, *, block, inv_dx,
     ring's (:func:`ring_edges`: on CUDA the kernel reads them from ``f``);
     ``block`` is the TPU kernel's z-tile height (a divisor of nzl; it does
     not change the values), ``inv_dx`` the inverse level-0 cell lengths and
-    ``periodic`` the (x, y, z) periodicity.  Returns the new ``f``."""
+    ``periodic`` the (x, y, z) periodicity.  With a leading member axis,
+    ``f [W, D, ...]`` (and the edge planes ``[W, D, 1, ...]``) are W
+    scenarios and ``dt`` a float32 ``[W]`` array on the card: one launch,
+    each member on its own ring and scales.  Returns the new ``f``."""
     ring = edge_lo is None and edge_hi is None
     tensors = (f, vx, vy, vz) if ring else (f, edge_lo, edge_hi, vx, vy, vz)
     if _on_cpu(*tensors):
         return vlasov_step_blocked_plain(f, edge_lo, edge_hi, vx, vy, vz, dt,
                                          block=block, inv_dx=inv_dx,
                                          periodic=periodic)
-    if f.dim() != 5:
-        raise ValueError(f"f must be [D, nzl, ny, nx, B], got {tuple(f.shape)}")
-    D, nzl, ny, nx, B = f.shape
+    if f.dim() not in (5, 6):
+        raise ValueError(f"f must be [D, nzl, ny, nx, B] or [W, D, nzl, ny, nx, B], "
+                         f"got {tuple(f.shape)}")
+    W = f.shape[0] if f.dim() == 6 else 1
+    lead = tuple(f.shape[:-5])
+    D, nzl, ny, nx, B = f.shape[-5:]
     if block < 1 or nzl % block:
         raise ValueError(f"block {block} does not divide nzl {nzl}")
     dev = f.device
-    _check("f", f, (D, nzl, ny, nx, B), dev)
+    _check("f", f, lead + (D, nzl, ny, nx, B), dev)
     if not ring:
-        _check("edge_lo", edge_lo, (D, 1, ny, nx, B), dev)
-        _check("edge_hi", edge_hi, (D, 1, ny, nx, B), dev)
+        _check("edge_lo", edge_lo, lead + (D, 1, ny, nx, B), dev)
+        _check("edge_hi", edge_hi, lead + (D, 1, ny, nx, B), dev)
     for nm, t in (("vx", vx), ("vy", vy), ("vz", vz)):
         _check(nm, t, (B,), dev)
-    sx, sy, sz = split_scales(dt, inv_dx, np.float32)
+    scales, scales_ptr, (sx, sy, sz) = _scale_args(dt, inv_dx, W, dev)
+    # one member's plan for every member: its z runs (2 at the bench's
+    # member) beat the W-member plan's single long run from W = 16 on
+    # (3.75 against 4.20 ms at W = 64 on an H100, kernel_probe.py
+    # cohort-launch), and tie below
     plan = vlasov_step_plan(D, nzl, ny, nx, B, *card_limits(dev.index))
     # 16-byte copies need 16-byte aligned arrays (a view may start anywhere)
     al = lambda t: None if t is None else t if t.data_ptr() % 16 == 0 else t.clone()
@@ -280,9 +350,10 @@ def vlasov_step(f, edge_lo, edge_hi, vx, vy, vz, dt, *, block, inv_dx,
     out = torch.empty_like(f)
     err = _kernels().vlasov_step(
         ptr(f), ptr(edge_lo), ptr(edge_hi), ptr(vx), ptr(vy), ptr(vz),
-        out.data_ptr(), D, nzl, ny, nx, B, int(bool(periodic[0])),
-        int(bool(periodic[1])), int(bool(periodic[2])), int(ring), sx, sy, sz,
-        *_plan_args(plan), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), W * D, D, nzl, ny, nx, B, int(bool(periodic[0])),
+        int(bool(periodic[1])), int(bool(periodic[2])), int(ring),
+        scales_ptr, sx, sy, sz, *_plan_args(plan),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _launched("vlasov_step", err)
     return out

@@ -109,14 +109,18 @@ class HaloExtend:
         self.info = info
         self.n_devices = info if isinstance(info, int) else info.n_devices
 
-    def __call__(self, blk: torch.Tensor) -> torch.Tensor:
-        """blk: ``[D, nzl, ...]``. Returns ``[D, nzl+2, ...]``."""
-        recv_below, recv_above = self.planes(blk)
-        return torch.cat([recv_below, blk, recv_above], dim=1)
+    def __call__(self, blk: torch.Tensor, members: bool = False) -> torch.Tensor:
+        """blk: ``[D, nzl, ...]`` (``[W, D, nzl, ...]`` with ``members``).
+        Returns ``[D, nzl+2, ...]`` (``[W, D, nzl+2, ...]``)."""
+        recv_below, recv_above = self.planes(blk, members)
+        return torch.cat([recv_below, blk, recv_above], dim=2 if members else 1)
 
-    def planes(self, blk: torch.Tensor):
+    def planes(self, blk: torch.Tensor, members: bool = False):
         """The two received halo planes ``(below, above)``, each
-        ``[D, 1, ...]``, without materializing the extended block."""
-        top = blk[:, -1:]                    # plane sent upward
-        bot = blk[:, :1]                     # plane sent downward
-        return torch.roll(top, 1, 0), torch.roll(bot, -1, 0)
+        ``[D, 1, ...]``, without materializing the extended block.  With
+        ``members`` the block is ``[W, D, nzl, ...]``, W independent slab
+        rings: each member's planes come from its own slots."""
+        a = 1 if members else 0
+        top = blk.narrow(a + 1, blk.shape[a + 1] - 1, 1)   # plane sent upward
+        bot = blk.narrow(a + 1, 0, 1)                      # plane sent downward
+        return torch.roll(top, 1, a), torch.roll(bot, -1, a)

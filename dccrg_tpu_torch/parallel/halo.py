@@ -52,6 +52,15 @@ time, and the device time of the exchange's kernels comes from the
 profiler merge (``obs.merge``, label ``halo.ring_copy``).  Unlike the JAX
 package, whose exchanges inside a jitted step are not recorded, every
 exchange here is launched from the host and recorded.
+
+Cohorts (``serve/ensemble.py``) exchange W member stacks ``[W, D, R,
+...]`` at once through :class:`MemberExchange`: to kernel B9 the stack is
+``[W * D, R, ...]``, and member w's ring tables carry the offset ``w * D *
+R`` (its payload slots ``w * T``), built once per (schedule, W) and kept
+by the bound cohort body.  Like the JAX package's in-trace exchanges,
+these are not recorded by ``_record``: the cohort reports its own protocol
+(:func:`record_dispatch_exchanges`, the ``halo.exchanges_per_step``
+gauge).
 """
 from __future__ import annotations
 
@@ -66,7 +75,124 @@ from ..obs.registry import metrics as _metrics
 from . import halo_dma
 from .shapes import bucket_pairs
 
-__all__ = ["HaloExchange", "HaloHandle"]
+__all__ = ["HaloExchange", "HaloHandle", "MemberExchange",
+           "interior_steps_per_exchange", "record_dispatch_exchanges"]
+
+
+def interior_steps_per_exchange(ghost_depth: int,
+                                stencil_radius: int = 1) -> int:
+    """Deep-dispatch budget of one boundary sync: how many interior
+    updates a ghost zone ``ghost_depth`` cells deep serves before a stencil
+    of ``stencil_radius`` has consumed it, ``ghost_depth //
+    stencil_radius`` (floor 1: a zero-depth hood still supports its one
+    face-coupled update).  The JAX package's planning bound."""
+    depth = max(int(ghost_depth), 0)
+    radius = max(int(stencil_radius), 1)
+    return max(depth // radius, 1)
+
+
+#: model kind -> [exchanges, steps]: cumulative dispatch-level exchange
+#: amortization, fed by the serving tier
+_amortization: dict = {}
+
+
+def record_dispatch_exchanges(kind: str, exchanges: int, steps: int) -> None:
+    """Exchange-amortization ledger for deep dispatch: after each cohort
+    dispatch the front-end reports its protocol (a wide-halo body at depth
+    g pays ``ceil(k / g)`` exchanges for k steps, the legacy body k), and
+    the cumulative ratio lands as the ``halo.exchanges_per_step{model}``
+    gauge.  Pure Python ints."""
+    steps = int(steps)
+    if steps <= 0:
+        return
+    ent = _amortization.setdefault(kind, [0, 0])
+    ent[0] += int(exchanges)
+    ent[1] += steps
+    _metrics.gauge("halo.exchanges_per_step", ent[0] / ent[1], model=kind)
+
+
+def ring_args(ex, names) -> dict:
+    """One member's ring tables for the fields ``names`` of the schedule
+    ``ex``, as cohort arguments: ``{"ring.<name>.full" / ".send" /
+    ".merge": int32 tensor}`` (nothing for a field without a ring).  A
+    cohort stacks or shares them like any member table;
+    :class:`MemberExchange` offsets them per member."""
+    out = {}
+    for name in names:
+        rings = ex._rings_for_field(name)
+        if rings.ks:
+            out[f"ring.{name}.full"] = rings.full
+            out[f"ring.{name}.send"] = rings.send
+            out[f"ring.{name}.merge"] = rings.merge
+    return out
+
+
+class MemberExchange:
+    """The ghost-row refresh of W member stacks ``[W, D, R, ...]`` (one
+    schedule's protocol for every member at once).
+
+    ``args`` holds each member's :func:`ring_args` tables under a leading
+    axis of 1 (one copy every member shares) or W (one a member); the
+    member-offset tables are built here once: member w's flat rows shift
+    by ``w * D * R`` and its payload slots by ``w * T``.  Every field moves
+    in one grouped gather a protocol step (kernel B9 on the ``pallas``
+    backend, its twin on ``collective``), as the schedule's own exchange
+    does; a member's rows get exactly what its own exchange would give."""
+
+    def __init__(self, ex, args: dict, W: int):
+        self.backend = ex.backend
+        self.D, self.R, self.W = ex.D, ex.R, int(W)
+        if self.W * self.D * self.R >= 2**31:
+            raise ValueError("W * D * R rows exceed the int32 ring tables")
+        self.tables = {}
+        names = sorted({k.split(".")[1] for k in args if k.startswith("ring.")})
+        for name in names:
+            full = args[f"ring.{name}.full"]
+            send = args[f"ring.{name}.send"]
+            merge = args[f"ring.{name}.merge"]
+            dev = full.device
+            w = torch.arange(self.W, dtype=torch.int32, device=dev)[:, None]
+            T = send.shape[-1]
+            self.tables[name] = (
+                (full + w * (self.D * self.R)).reshape(-1).contiguous(),
+                (send + w * (self.D * self.R)).reshape(-1).contiguous(),
+                torch.where(merge >= 0, merge + w * T, merge).reshape(-1).contiguous(),
+            )
+
+    def _gather(self, jobs):
+        if not jobs:
+            return []
+        if self.backend == "pallas":
+            return halo_dma.ring_gather(jobs)
+        return halo_dma.ring_gather_plain(jobs)
+
+    def _rows(self, x):
+        return x.reshape((self.W * self.D,) + tuple(x.shape[2:]))
+
+    def __call__(self, state: dict) -> dict:
+        """``state`` with the ghost rows of every field that has a ring
+        refreshed (the blocking exchange)."""
+        names = [n for n in state if n in self.tables]
+        got = self._gather([(self._rows(state[n]), self.tables[n][0]) for n in names])
+        out = dict(state)
+        out.update((n, y.view(state[n].shape)) for n, y in zip(names, got))
+        return out
+
+    def start(self, state: dict) -> dict:
+        """Every moving field's payload ``[W * T, ...]`` (the send half)."""
+        names = [n for n in state if n in self.tables]
+        got = self._gather([(self._rows(state[n]), self.tables[n][1]) for n in names])
+        return dict(zip(names, got))
+
+    def finish(self, state: dict, payload: dict) -> dict:
+        """``state`` with :meth:`start`'s payloads merged into the ghost
+        rows (the merge half)."""
+        names = [n for n in state if n in payload]
+        got = self._gather([(self._rows(state[n]), self.tables[n][2], payload[n])
+                            for n in names])
+        out = dict(state)
+        out.update((n, y.view(state[n].shape)) for n, y in zip(names, got))
+        return out
 
 
 class HaloHandle:

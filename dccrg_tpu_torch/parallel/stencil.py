@@ -140,12 +140,44 @@ class StencilTables:
                 setattr(self, name, put(out))
 
 
-def gather_neighbors(x, nbr_rows):
+def gather_neighbors(x, nbr_rows, members: bool = False):
     """Gather neighbor rows: x ``[D, R, ...]`` + nbr_rows ``[D, R, K]`` ->
-    ``[D, R, K, ...]``."""
+    ``[D, R, K, ...]``.  With ``members``, x is a member stack ``[W, D, R,
+    ...]`` and nbr_rows ``[M, D, R, K]`` with M = 1 (one table every member
+    shares, broadcast, never copied) or W: ``[W, D, R, K, ...]``."""
+    if members:
+        return x[(*member_index(x, nbr_rows.dim()), nbr_rows)]
     D = x.shape[0]
     dev = torch.arange(D, device=x.device).view(D, 1, 1)
     return x[dev, nbr_rows]
+
+
+#: member_index's tensors by (W, D, ndim, device): made once
+_MEMBER_INDEX: dict = {}
+
+
+def member_index(x, ndim: int):
+    """The (member, slot) index tensors that broadcast against an
+    ``ndim``-dimensional ``[M, D, ...]`` row table over the stack ``x [W,
+    D, R, ...]`` (cached: a cohort step asks for the same ones every
+    time)."""
+    W, D = x.shape[:2]
+    key = (W, D, ndim, str(x.device))
+    idx = _MEMBER_INDEX.get(key)
+    if idx is None:
+        if len(_MEMBER_INDEX) > 256:
+            _MEMBER_INDEX.clear()
+        tail = (1,) * (ndim - 2)
+        idx = _MEMBER_INDEX[key] = (
+            torch.arange(W, device=x.device).view(W, 1, *tail),
+            torch.arange(D, device=x.device).view(1, D, *tail))
+    return idx
+
+
+def member_rows(x, rows):
+    """``x [W, D, R, ...]`` at the rows ``rows [M, D, n]`` of each member's
+    slots: ``[W, D, n, ...]`` (the member form of ``x[ar, rows]``)."""
+    return x[(*member_index(x, rows.dim()), rows)]
 
 
 def ordered_sum(x, axis: int = -1):

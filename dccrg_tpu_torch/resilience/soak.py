@@ -1,9 +1,10 @@
-"""Crash and elastic soak harnesses: the end-to-end proofs of the resilience
-layer (the ``crash`` and ``elastic`` subsystems of the JAX package's soak
-harness, ported).
+"""Crash, elastic and fleet soak harnesses: the end-to-end proofs of the
+resilience layer and the serving fleet (the ``crash``, ``elastic`` and
+``fleet`` subsystems of the JAX package's soak harness, ported).
 
     python -m dccrg_tpu_torch.resilience.soak crash --seeds 0 5 --device cpu
     python -m dccrg_tpu_torch.resilience.soak elastic --seeds 0 3 --device cuda
+    python -m dccrg_tpu_torch.resilience.soak fleet --seeds 0 1 --device cpu
 
 ``crash`` (SIGKILL/resume convergence through the checkpoint lineage): a
 child runs Game of Life and then advection on a refined grid with periodic
@@ -26,8 +27,27 @@ compiling nothing: ``epoch.recompiles`` sums to 0 in its report once the
 kernel libraries are on disk (``cuda_build``).  On the CPU nothing is ever
 compiled, so there the count is 0 by construction.
 
+``fleet`` (the fault-tolerant gateway, ``serve/gateway.py``): a gateway
+child runs supervised workers (``serve/worker.py``) over a crash-durable
+journal and SIGKILLs one worker that holds work with more than 8 steps
+left; the parent SIGKILLs the whole gateway once the journal shows that
+worker's work redispatched and at least a quarter of the scenarios with
+half their steps left, and relaunches it over the same journal (where one
+more such worker is killed).  Both kills wait on journaled state, never on
+a clock, so every victim holds work whatever the host's speed.  After the
+fleet, a solo oracle steps every scenario alone in the parent (so the
+fleet's latencies are measured with the card to itself).  Every accepted
+scenario must retire exactly once, every result equal the oracle's (Game
+of Life exactly, advection within 1e-11),
+a flight-recorder dump must name a lost worker, no worker incarnation may
+build a kernel (``epoch.recompiles`` 0 in its final stream) and the merged
+worker streams must give a fleet p99.  The JAX harness's admission A/B
+(a starvation burst with the admission policy on and off) is not part of
+this driver.
+
 Children are this module run with an internal subcommand (``crash-child``,
-``elastic-child``, ``proof-child``) in a fresh interpreter: they import
+``elastic-child``, ``proof-child``, ``fleet-gateway``) in a
+fresh interpreter: they import
 only this package, choose their slot count with ``initialize(n_devices=…)``
 and run on ``--device`` (default CUDA; a child asked for CUDA where there
 is none fails, it never falls back to the CPU).  Crash and elastic
@@ -817,15 +837,407 @@ def run_elastic(lo: int, hi: int, stream_dir: str | None = None,
     return ok_all
 
 
+# ------------------------------------------------------------------ fleet
+
+
+def fleet_specs(seed: int, n: int | None = None) -> list:
+    """The per-seed fleet workload (the JAX harness's ``_fleet_specs``):
+    four 8x8 Game of Life and two 4^3 advection scenarios of 48 steps, or
+    with ``n`` a seeded mix of ``n`` scenarios at ``build_scenario``'s
+    sizes (Game of Life 10x10, advection 4^3)."""
+    if n is None:
+        specs = [{"sid": f"g{i}", "model": "gol", "n": 8,
+                  "seed": seed * 100 + i, "steps": 48, "tenant": "fleet"}
+                 for i in range(4)]
+        specs += [{"sid": f"a{i}", "model": "advection", "n": 4,
+                   "seed": seed * 100 + 50 + i, "steps": 48,
+                   "tenant": "fleet"} for i in range(2)]
+        return specs
+    kinds = np.random.default_rng(seed).choice(["gol", "advection"], size=n)
+    return [{"sid": f"{k[0]}{i}", "model": str(k), "seed": seed * 1000 + i,
+             "steps": 48, "tenant": "fleet"} for i, k in enumerate(kinds)]
+
+
+def fleet_solo_refs(specs, refdir, nd, device):
+    """The oracle: every scenario of ``specs`` stepped alone (no chunking,
+    no cohort peers), its final state parked as
+    ``refdir/result_<sid>.npz``.  (The JAX harness runs it in a child
+    beside the fleet and then steps the cohort widths a fleet reaches, to
+    fill the shared compilation cache; the port compiles no cohort body,
+    and runs it after the fleet.)"""
+    from ..serve.ensemble import Ensemble
+    from ..serve.worker import build_scenario, park_state
+
+    os.makedirs(refdir, exist_ok=True)
+    ens = Ensemble()
+    for spec in specs:
+        b = build_scenario(spec, nd, device)
+        t = ens.submit(b["model"], b["state"], steps=int(spec["steps"]),
+                       dt=b["dt"])
+        ens.run()
+        park_state(b, t.result, os.path.join(refdir, f"result_{spec['sid']}.npz"),
+                   int(spec["steps"]))
+
+
+def fleet_gateway_child(wd, specs_path, n_workers, nd, seed, n_kills,
+                        done_path, device):
+    """One killable gateway incarnation: real worker processes on ``nd``
+    slots of ``device`` each, a real journal, ``n_kills`` seeded SIGKILLs
+    of workers that hold work with more than 8 journaled steps left, once
+    watermarks flow; writes ``done_path`` when every accepted scenario
+    retired."""
+    import random
+
+    from .. import obs
+    from ..obs.flightrec import recorder as flightrec
+    from ..obs.registry import metrics
+    from ..serve import Gateway, WorkerHandle
+
+    metrics.enabled = True
+    obs.stream_to(os.path.join(wd, "gateway.stream.jsonl"), period=1.0,
+                  truncate=True, extra={"role": "gateway"})
+    flightrec.arm(wd, period=1.0)
+    workers = [WorkerHandle(f"w{i}", os.path.join(wd, f"w{i}"), nd,
+                            device=device) for i in range(n_workers)]
+    for w in workers:
+        w.start()
+    gw = Gateway(os.path.join(wd, "journal.jsonl"), workers)
+    with open(specs_path) as f:
+        for spec in json.load(f):
+            ok, why = gw.submit(spec)   # idempotent across incarnations
+            if not ok:
+                print("REJECTED", spec["sid"], why, flush=True)
+    rng = random.Random(seed * 7919 + n_kills)
+    kills, last_kill_tick, ticks = 0, -10**9, 0
+    compacted, moved, moved_tick = 0, 0, -10**9
+    deadline = time.monotonic() + 540.0
+    while True:
+        st = gw.tick(restart_lost=True)
+        ticks += 1
+        if len(gw.redispatches) != moved:
+            moved, moved_tick = len(gw.redispatches), ticks
+        # compact every 40 ticks, but leave a redispatch in the WAL for
+        # 20 ticks: the harness reads it there
+        if ticks - compacted >= 40 and ticks - moved_tick > 20:
+            gw.journal.checkpoint()
+            compacted = ticks
+        # kill only after this incarnation saw watermark progress, and
+        # only a victim with more than 8 steps left: the redispatch must
+        # move real work
+        if kills < n_kills and ticks - last_kill_tick > 60 and gw._last_wm:
+            def meaty(w):
+                if w.lost or not w.alive():
+                    return False
+                for sid in gw.journal.in_flight(w.wid):
+                    done = gw.journal.watermark.get(sid, {}).get("step", 0)
+                    if int(gw.journal.accepted[sid].get("steps", 0)) - done > 8:
+                        return True
+                return False
+            victims = sorted((w for w in workers if meaty(w)), key=lambda w: w.wid)
+            if victims:
+                v = rng.choice(victims)
+                print("KILLING", v.wid, "generation", v.generation, flush=True)
+                v.kill()
+                kills += 1
+                last_kill_tick = ticks
+        if st["outstanding"] == 0:
+            break
+        if time.monotonic() > deadline:
+            print("FLEET GATEWAY TIMEOUT", st, flush=True)
+            gw.close()
+            sys.exit(3)
+        time.sleep(0.05)
+    gw.journal.checkpoint()
+    # every live incarnation (a replacement included) heartbeats before
+    # the drain, so its final stream carries its counters
+    t_end = time.monotonic() + 60.0
+    while time.monotonic() < t_end and not all(
+            os.path.exists(w.stream) and os.path.getsize(w.stream) > 0
+            for w in workers if w.alive()):
+        gw.tick(restart_lost=False)
+        time.sleep(0.1)
+    rep = metrics.report()["counters"]
+    state = {
+        "accepted": sorted(gw.journal.accepted),
+        "retired": sorted(gw.journal.retired),
+        "rejected": gw.journal.rejected,
+        "kills": kills,
+        "generations": {w.wid: w.generation for w in workers},
+        "redispatches": gw.redispatches,
+        "counters": {k: v for k, v in rep.items() if k.startswith("gateway.")},
+    }
+    tmp = done_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(state, f, sort_keys=True, indent=1)
+    os.replace(tmp, done_path)
+    gw.drain(timeout_s=30.0)
+    gw.close()
+    print("FLEET DRAINED", len(state["retired"]), "retired", flush=True)
+
+
+def _journal_progress(journal: str, seen: set) -> tuple:
+    """What a live fleet's journal shows, read without writing: the
+    snapshot, then the WAL (a torn last line is skipped).  ``seen``, kept
+    across calls, gathers the WAL's event kinds, which a compaction drops.
+    Returns (sid -> watermark step, retired sids)."""
+    wm, retired = {}, set()
+    try:
+        with open(journal + ".snap.json") as f:
+            body = json.load(f).get("state") or {}
+        wm = {sid: int(v.get("step", 0))
+              for sid, v in (body.get("watermark") or {}).items()}
+        retired = set(body.get("retired") or [])
+    except (OSError, ValueError, AttributeError):
+        pass
+    try:
+        with open(journal, "rb") as f:
+            lines = f.read().split(b"\n")
+    except OSError:
+        lines = []
+    for ln in lines:
+        try:
+            rec = json.loads(ln)
+        except ValueError:
+            continue
+        ev, sid = rec.get("ev"), rec.get("sid")
+        seen.add(ev)
+        if ev == "watermark":
+            wm[sid] = max(wm.get(sid, 0), int(rec.get("step", 0)))
+        elif ev == "retired":
+            retired.add(sid)
+    return wm, retired
+
+
+def _wait(p, timeout):
+    t0 = time.monotonic()
+    while p.poll() is None:
+        if time.monotonic() - t0 > timeout:
+            p.kill()
+            p.wait()
+            return None
+        time.sleep(0.25)
+    return p.returncode
+
+
+def run_fleet(lo: int, hi: int, stream_dir: str | None = None,
+              n_workers: int = 2, n_devices: int = 1, device: str = "cuda",
+              n_specs: int | None = None, report: dict | None = None) -> bool:
+    """The fleet proof, per seed (see the module docstring); ``n_specs``
+    picks :func:`fleet_specs`' seeded mix.  ``report`` (a dict), when
+    given, receives each seed's numbers: retirements, kills, generations,
+    redispatches, the fleet p99 and the phase's seconds."""
+    import glob
+
+    from ..obs import slo as obs_slo
+    from ..obs.flightrec import validate_flightrec
+
+    stream = _open_stream(stream_dir, f"fleet_{lo}_{hi}.jsonl",
+                          {"subsystem": "fleet", "seeds": [lo, hi]})
+
+    def record(**kw):
+        if stream is not None:
+            stream.write_snapshot(**kw)
+
+    ok_all = True
+    for seed in range(lo, hi):
+        t_seed = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix=f"dccrg_fleet_{seed}_")
+        try:
+            specs = fleet_specs(seed, n_specs)
+            sids = [sp["sid"] for sp in specs]
+            specs_path = os.path.join(tmp, "specs.json")
+            with open(specs_path, "w") as f:
+                json.dump(specs, f)
+            env = {
+                "DCCRG_GATEWAY_PARK_EVERY": "4",
+                "DCCRG_GATEWAY_STALL_S": "120",
+                "DCCRG_GATEWAY_QUEUE_MAX": "64",
+                "DCCRG_GATEWAY_ADMISSION": "1",
+                "DCCRG_SLO_QUEUE_S": "",   # falsy: no ambient budget
+            }
+            # incarnation 0: one seeded worker kill; the parent SIGKILLs
+            # it once the journal shows that kill's redispatch
+            wd = os.path.join(tmp, "fleet")
+            os.makedirs(wd)
+            done_path = os.path.join(wd, "done.json")
+            gw_args = [wd, specs_path, n_workers, n_devices]
+            p, log = _launch(wd, "fleet-gateway",
+                             gw_args + [seed, 1, done_path, device], env,
+                             log_name="gateway_0.log")
+            journal = os.path.join(wd, "journal.jsonl")
+            # the gateway dies once its worker kill is redispatched and a
+            # quarter of the scenarios still have half their steps left,
+            # so that the relaunched incarnation has work to lose
+            need = max(2, len(specs) // 4)
+            seen: set = set()
+            killed_gw, left = False, None
+            t0 = time.monotonic()
+            while p.poll() is None and time.monotonic() - t0 < 300.0:
+                wm, retired = _journal_progress(journal, seen)
+                if "redispatched" in seen:
+                    left = sum(1 for sp in specs if sp["sid"] not in retired
+                               and 2 * wm.get(sp["sid"], 0) <= int(sp["steps"]))
+                    if left >= need:
+                        p.kill()
+                        p.wait()
+                        killed_gw = True
+                    break
+                time.sleep(0.05)
+            log.close()
+            record(seed=seed, phase="gateway-sigkill", killed=killed_gw,
+                   half_left=left)
+            if not killed_gw:
+                rc = p.returncode if p.poll() is not None else _wait(p, 60.0)
+                why = ("no worker kill redispatched in 300 s" if left is None else
+                       f"{left} scenarios had half their steps left at the "
+                       f"redispatch, {need} needed")
+                print(f"fleet seed {seed}: {why} (gateway rc={rc})\n"
+                      f"{_tail(os.path.join(wd, 'gateway_0.log'))}")
+                record(seed=seed, outcome="no-progress", exit=rc)
+                ok_all = False
+                continue
+            # incarnation 1 over the same journal: replay, one more kill,
+            # drain to completion
+            p, log = _launch(wd, "fleet-gateway",
+                             gw_args + [seed + 1, 1, done_path, device], env,
+                             log_name="gateway_1.log")
+            rc = _wait(p, 600.0)
+            log.close()
+            if rc != 0:
+                print(f"fleet seed {seed}: relaunched gateway failed rc={rc}\n"
+                      f"{_tail(os.path.join(wd, 'gateway_1.log'), 3000)}")
+                for wlog in sorted(glob.glob(os.path.join(wd, "w*", "worker_*.log"))):
+                    print(f"--- {os.path.relpath(wlog, wd)}:\n{_tail(wlog, 1500)}")
+                record(seed=seed, outcome="relaunch-failed", exit=rc)
+                ok_all = False
+                continue
+            refdir = os.path.join(tmp, "ref")
+            try:
+                fleet_solo_refs(specs, refdir, n_devices, device)
+            except Exception as e:  # noqa: BLE001 — a failed seed, reported
+                print(f"fleet seed {seed}: solo oracle failed: {e!r}")
+                record(seed=seed, outcome="oracle-failed", error=repr(e)[:200])
+                ok_all = False
+                continue
+            with open(done_path) as f:
+                done = json.load(f)
+
+            def ctr(name):
+                return sum((done["counters"].get(name) or {}).values())
+
+            fails = []
+            if set(done["accepted"]) != set(sids):
+                fails.append(f"accepted {done['accepted']} != submitted {sids}")
+            if set(done["retired"]) != set(sids):
+                fails.append(f"retired {done['retired']} != submitted {sids}")
+            if ctr("gateway.journal_replays") < 1:
+                fails.append("relaunched gateway never replayed the journal")
+            if ctr("gateway.worker_lost") < 1:
+                fails.append("incarnation 1's kill counted no gateway.worker_lost")
+            if ctr("gateway.redispatched") < 1:
+                fails.append("worker loss moved no in-flight work")
+            for spec in specs:
+                sid = spec["sid"]
+                outs = sorted(glob.glob(os.path.join(wd, "w*", f"result_{sid}.npz")))
+                if not outs:
+                    fails.append(f"{sid}: retired but no worker holds its result")
+                    continue
+                with np.load(os.path.join(refdir, f"result_{sid}.npz")) as z:
+                    want = {k: np.asarray(z[k]) for k in z.files}
+                for out in outs:
+                    with np.load(out) as z:
+                        got = {k: np.asarray(z[k]) for k in z.files}
+                    try:
+                        if spec["model"] == "gol":
+                            np.testing.assert_array_equal(got["alive"], want["alive"])
+                        else:
+                            for field in ADV_FIELDS:
+                                np.testing.assert_allclose(
+                                    got[field], want[field], rtol=1e-11, atol=0)
+                    except AssertionError as e:
+                        fails.append(f"{sid}: {os.path.basename(out)} diverged "
+                                     f"from the solo oracle: {str(e)[:200]}")
+            dumps = glob.glob(os.path.join(wd, "flightrec_*.json"))
+            named = []
+            for dump in dumps:
+                probs = validate_flightrec(dump)
+                if probs:
+                    fails.append(f"{os.path.basename(dump)}: {probs[0]}")
+                    continue
+                with open(dump) as f:
+                    rec = json.load(f)
+                named += [ev["worker"] for ev in rec.get("events", [])
+                          if ev.get("kind") == "worker.lost" and ev.get("worker")]
+            if not named:
+                fails.append(f"no flight-recorder dump names a lost worker "
+                             f"({len(dumps)} dumps)")
+            reports, recompiles = [], {}
+            for wdir in sorted(glob.glob(os.path.join(wd, "w*"))):
+                try:
+                    rep = obs_slo.load_report(os.path.join(wdir, "worker.stream.jsonl"))
+                except (OSError, ValueError) as e:
+                    fails.append(f"{os.path.basename(wdir)}: no final worker stream "
+                                 f"({e!r:.120})")
+                    continue
+                reports.append(rep)
+                n = sum(((rep.get("counters") or {}).get("epoch.recompiles")
+                         or {}).values())
+                recompiles[os.path.basename(wdir)] = n
+                if n:
+                    fails.append(f"{os.path.basename(wdir)}: replacement not "
+                                 f"warm: epoch.recompiles={n}")
+            if max(done["generations"].values() or [0]) < 2:
+                fails.append(f"no worker was ever replaced ({done['generations']})")
+            lat = {}
+            for name in ("ensemble.queue_wait_s", "ensemble.e2e_s"):
+                series = obs_slo.merge_series(reports, name)
+                merged = obs_slo.merge(*series.values()) if series else None
+                lat[name] = tuple(obs_slo.quantile(merged, q) if merged else None
+                                  for q in (0.5, 0.99))
+            p99 = lat["ensemble.e2e_s"][1]
+            if p99 is None:
+                fails.append("merged worker streams yield no ensemble.e2e_s "
+                             "histogram: no fleet p99")
+            for msg in fails:
+                print(f"fleet seed {seed}: {msg}")
+            secs = time.perf_counter() - t_seed
+            if report is not None:
+                report[seed] = dict(
+                    retired=len(done["retired"]), accepted=len(done["accepted"]),
+                    kills=done["kills"], generations=done["generations"],
+                    redispatches=len(done["redispatches"]), lost_named=sorted(set(named)),
+                    recompiles=recompiles, fleet_p99_s=p99, latency_p50_p99_s=lat,
+                    seconds=secs,
+                    failures=fails)
+            record(seed=seed, outcome="ok" if not fails else "failed",
+                   retired=len(done["retired"]), kills=done["kills"],
+                   generations=done["generations"],
+                   redispatches=len(done["redispatches"]), fleet_p99_s=p99,
+                   failures=fails)
+            if fails:
+                ok_all = False
+                continue
+            print(f"fleet seed {seed}: OK — {len(done['retired'])} retired exactly "
+                  f"once across a gateway SIGKILL and {done['kills'] + 1} worker "
+                  f"kills; fleet p99={p99!r} s from {len(reports)} merged worker "
+                  f"streams; {secs:.1f} s", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if stream is not None:
+        stream.stop(final=True)
+    print(f"{'fleet':12s} [{lo},{hi}): {'OK' if ok_all else 'FAIL'}")
+    return ok_all
+
+
 # ---------------------------------------------------------------- CLI
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m dccrg_tpu_torch.resilience.soak",
-        description="Crash and elastic soak harnesses of the port.")
+        description="Crash, elastic and fleet soak harnesses of the port.")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("crash", "elastic"):
+    for name in ("crash", "elastic", "fleet"):
         sp = sub.add_parser(name)
         sp.add_argument("--seeds", type=int, nargs=2, default=(0, 5),
                         metavar=("LO", "HI"))
@@ -841,7 +1253,19 @@ def main(argv=None) -> int:
     sp = sub.add_parser("proof-child")
     for a in ("wd", "nd", "out", "device"):
         sp.add_argument(a)
+    sp = sub.add_parser("fleet-gateway")
+    for a in ("wd", "specs", "n_workers", "nd", "seed", "n_kills", "done",
+              "device"):
+        sp.add_argument(a)
     args = ap.parse_args(argv)
+    if args.cmd == "fleet":
+        return 0 if run_fleet(*args.seeds, stream_dir=args.stream_dir,
+                              device=args.device) else 1
+    if args.cmd == "fleet-gateway":
+        fleet_gateway_child(args.wd, args.specs, int(args.n_workers),
+                            int(args.nd), int(args.seed), int(args.n_kills),
+                            args.done, args.device)
+        return 0
     if args.cmd == "crash":
         return 0 if run_crash(*args.seeds, stream_dir=args.stream_dir,
                               device=args.device) else 1

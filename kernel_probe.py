@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip-side probes of the Vlasov step kernel B7, the BiCG whole-solve
-kernel B8, the halo gather B9, the flat-against-boxed dispatch edges and
-the telemetry's host cost that ``chip_smoke.py`` does not run.
+kernel B8, the halo gather B9, the flat-against-boxed dispatch edges, the
+telemetry's host cost and the cohort kernels' member axis that
+``chip_smoke.py`` does not run.
 
 Run from the repository root on a machine with a CUDA card (an H100):
 
@@ -10,6 +11,7 @@ Run from the repository root on a machine with a CUDA card (an H100):
     python3 kernel_probe.py ring-sweep [--baseline DIR]   # B9 forms
     python3 kernel_probe.py boxed-edge      # flat forms against boxed passes
     python3 kernel_probe.py telemetry-cost  # obs on / off on the refined run
+    python3 kernel_probe.py cohort-launch   # member axis vs a launch a member
 
 ``vlasov-sweep`` compiles copies of ``csrc/vlasov.cu`` with other tile rows
 (``kMaxRows``), window stages (``kStages``) and CTAs an SM (``kMinCtas``),
@@ -48,6 +50,17 @@ checkout) and times it beside every form at the two payload shapes in
 launch), in turns (baseline, the forms, the forms reversed, baseline),
 and the three-field blocking exchange on that checkout's protocol against
 one launch.
+
+``cohort-launch`` steps W members of a cohort two ways, at W = 1, 4, 16
+and 64: one launch with the member axis (the shipped form) and W launches
+of one member each (the alternative), and B7's member launch also under
+a plan made for all W members' slots, for B2 at the headline member
+(128x128x64 on one slot, z-blocks of 16: the blocked dense step with its
+slab-ring planes) and B7 at the bench's Vlasov member (32^3 x 512 bins).
+Each member's dt differs; the two forms are held bitwise against each
+other.  It prints the mean device time a cohort step (CUDA events around
+20 steps issued back to back, so the host's issue time between launches
+shows) and the host's wall time a step (synchronised).
 
 ``boxed-edge`` runs the refined grids of ``chip_smoke.py`` (48^3 with one
 ball refined, 96^3 voxels; 16^3 with two, 64^3 voxels) through the flat
@@ -202,7 +215,8 @@ def vlasov_sweep(card: str) -> int:
     dt = float(np.float32(0.4 / 32))
     kw = dict(block=4, inv_dx=np.full(3, 32.0), periodic=(True, True, True))
     want = V.vlasov_step_blocked_plain(f, None, None, vx, vy, vz, dt, **kw)
-    sx, sy, sz = V.split_scales(dt, kw["inv_dx"], np.float32)
+    scales = torch.tensor([V.split_scales(dt, kw["inv_dx"], np.float32)],
+                          dtype=torch.float32, device=dev)
     out = torch.empty_like(f)
     # the edge planes from the slab ring (the main path's form)
     ptrs = [f.data_ptr(), None, None] + [t.data_ptr() for t in (vx, vy, vz, out)]
@@ -219,8 +233,8 @@ def vlasov_sweep(card: str) -> int:
             assert n == 1, name
         lib, regs = build(f"vlasov_r{rows}s{stages}m{ctas}", s)
         fn = lib.vlasov_step
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         print(f"form kMaxRows {rows}, kStages {stages}, kMinCtas {ctas}: {'; '.join(regs)}",
               flush=True)
         for chunk, ty, threads, zp in itertools.product((32, 16, 8, 4), (4, 8, 16),
@@ -231,8 +245,8 @@ def vlasov_sweep(card: str) -> int:
                 continue
 
             def go():
-                err = fn(*ptrs, D, nzl, ny, nx, nb, 1, 1, 1, 1, sx, sy, sz, ty, tx,
-                         chunk, 4, zp, threads, smem, stream)
+                err = fn(*ptrs, D, D, nzl, ny, nx, nb, 1, 1, 1, 1, scales.data_ptr(),
+                         0.0, 0.0, 0.0, ty, tx, chunk, 4, zp, threads, smem, stream)
                 assert err == 0, err
             out.zero_()
             go()
@@ -616,6 +630,92 @@ def telemetry_cost(card: str) -> int:
     return 0
 
 
+def cohort_launch(card: str) -> int:
+    import time
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, Vlasov
+    from dccrg_tpu_torch.ops import resident as R
+    from dccrg_tpu_torch.ops import vlasov_kernel as V
+
+    dev = torch.device("cuda")
+
+    def grid(n, nz):
+        return (Grid().set_initial_length((n, n, nz)).set_neighborhood_length(0)
+                .set_periodic(True, True, True)
+                .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                              level_0_cell_length=(1 / n, 1 / n, 1 / nz))
+                .initialize(n_devices=1, device=dev))
+
+    def wall_ms(fn, reps=10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    ok = True
+    adv = Advection(grid(128, 64), dtype=np.float32)
+    s = adv.initialize_state()
+    dt0 = 0.4 * adv.max_time_step(s)
+    vl = Vlasov(grid(32, 32), nv=8, dtype=np.float32)
+    f = vl.initialize_state()["f"]
+    dtv = 0.4 * vl.max_time_step()
+    print(f"B2 member: 128x128x64, {adv.dense_kind}; B7 member: 32^3 x 512, block "
+          f"{vl._fused_block}", flush=True)
+    for W in (1, 4, 16, 64):
+        dts = [dt0 * (0.3 + 0.02 * w) for w in range(W)]
+        dt_t = torch.tensor(dts, dtype=torch.float32, device=dev)
+        x = {k: torch.stack([v] * W).contiguous() for k, v in s.items()}
+        one = lambda: adv._step_density(x["density"], x["vx"], x["vy"], x["vz"], dt_t,
+                                        members=True)
+        each = lambda: [adv._step_density(x["density"][w], x["vx"][w], x["vy"][w],
+                                          x["vz"][w], dts[w]) for w in range(W)]
+        same = torch.equal(one(), torch.stack(each()))
+        ok &= same
+        print(f"B2 W={W}: member axis {event_ms(one, 20)!r} ms device, {wall_ms(one)!r} ms "
+              f"wall; a launch a member {event_ms(each, 20)!r} ms device, "
+              f"{wall_ms(each)!r} ms wall; bitwise {same} on {card}", flush=True)
+        del x
+        dts = [dtv * (0.3 + 0.02 * w) for w in range(W)]
+        dt_t = torch.tensor(dts, dtype=torch.float32, device=dev)
+        fw = torch.stack([f] * W).contiguous()
+        one = lambda: vl._dense_step(fw, dt_t, members=True)
+        each = lambda: [vl._dense_step(fw[w], dts[w]) for w in range(W)]
+        same = torch.equal(one(), torch.stack(each()))
+        ok &= same
+        # the member launch under the plan made for all W x D slots (fewer,
+        # longer z runs: the plan's only W-dependent choice) against the
+        # shipped one-member plan
+        p1 = V.vlasov_step_plan(1, 32, 32, 32, 512, *R.card_limits(0))
+        pz = V.vlasov_step_plan(W, 32, 32, 32, 512, *R.card_limits(0))
+        out = torch.empty_like(fw)
+        scales = V.member_scales(dt_t, vl._inv_dx, torch.float32)
+
+        def zrun():
+            err = V._kernels().vlasov_step(
+                fw.data_ptr(), None, None, vl._vx.data_ptr(), vl._vy.data_ptr(),
+                vl._vz.data_ptr(), out.data_ptr(), W, 1, 32, 32, 32, 512, 1, 1, 1, 1,
+                scales.data_ptr(), 0.0, 0.0, 0.0, *V._plan_args(pz),
+                torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+        zrun()
+        same_z = torch.equal(out, one())
+        ok &= same_z
+        print(f"B7 W={W}: member axis {event_ms(one, 20)!r} ms device, {wall_ms(one)!r} ms "
+              f"wall (the one-member plan: {p1.z_parts} z runs, {W * p1.ctas} CTAs); "
+              f"under the {W}-member plan's {pz.z_parts} z runs ({pz.ctas} CTAs, the "
+              f"launch alone) {event_ms(zrun, 20)!r} ms device, bitwise {same_z}; a launch a member "
+              f"{event_ms(each, 20)!r} ms device, {wall_ms(each)!r} ms wall; bitwise {same} "
+              f"on {card}", flush=True)
+        del fw
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
 
@@ -627,7 +727,8 @@ def main() -> int:
     if args[1:2] == ["--baseline"] and len(args) == 3:
         baseline = args.pop()
         args.pop()
-    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge", "telemetry-cost")
+    modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge", "telemetry-cost",
+             "cohort-launch")
     if len(args) != 1 or args[0] not in modes \
             or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
@@ -643,6 +744,8 @@ def main() -> int:
         return boxed_edge(card)
     if args[0] == "telemetry-cost":
         return telemetry_cost(card)
+    if args[0] == "cohort-launch":
+        return cohort_launch(card)
     return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 

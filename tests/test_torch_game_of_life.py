@@ -202,9 +202,17 @@ def test_device_count_invariance():
 
 
 def test_unported_forms_raise():
-    g = _grid(dccrg_tpu_torch)
-    gol = dccrg_tpu_torch.GameOfLife(g)
-    with pytest.raises(NotImplementedError, match="A, item 15"):
-        gol._wide_spec()
-    with pytest.raises(NotImplementedError, match="A, item 15"):
-        gol.batch_step_spec()
+    """The cohort forms the JAX package has are ported (no form raises
+    any more): the gather step in cohort form, and the wide step where
+    the JAX package has one — on one slot every neighbor is local (a
+    budget of 255), on two slots the length-1 hood funds one step (no
+    wide step).  tests/test_torch_wide_halo.py holds the engaged forms."""
+    for D in (1, 2):
+        g = _grid(dccrg_tpu_torch, D=D)
+        gol = dccrg_tpu_torch.GameOfLife(g)
+        jgol = dccrg_tpu.models.GameOfLife(_grid(dccrg_tpu, D=D))
+        spec, jspec = gol.batch_step_spec(), jgol.batch_step_spec()
+        assert spec.kind == jspec.kind == "gol"
+        assert (spec.wide is None) == (jspec.wide is None) == (D == 2)
+        if D == 1:
+            assert spec.wide.budget == jspec.wide.budget == 255

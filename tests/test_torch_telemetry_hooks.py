@@ -30,8 +30,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: series the two packages record differently by design, with the reason
 EXCLUDED = {
-    "epoch.cache_hits": "the JAX package's executable cache (its serving "
-                        "plane) is not ported; the port compiles no programs",
+    "epoch.cache_hits": "the executable cache's series: the JAX package "
+                        "counts compiled programs, the port (which compiles "
+                        "none) the cohort bodies it builds",
     "epoch.cache_misses": "as epoch.cache_hits",
     "epoch.cache_size": "as epoch.cache_hits",
     "epoch.recompiles": "the JAX package counts traces of its jitted kernels; "
