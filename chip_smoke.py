@@ -277,8 +277,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 exactly once, equal to the solo oracle, a postmortem naming
                 the lost worker, no kernel built in any worker).
 
-Launch counters are set to 0 just before each of phases 3-19, 21-28 and
-each sub-step of 30 and 31 drives its path and read just after.  Telemetry is on throughout, as it
+32. spmd     — (at the end) several controllers (``parallel/mesh.py``):
+                2 processes of 4 slots each on the card over gloo
+                (``--child spmd``, started by ``mesh.launch``) run the
+                bench's 500x500 board for 200 gather turns and the refined
+                grid (198,008 leaves, f32) for 20 gather steps, an
+                ``adapt_grid`` with different refine requests on each
+                controller, an HSFC ``balance_load`` with per-controller
+                pins and ``remap_state``, 20 more steps, a checkpoint saved
+                (rank 0 writes) and reloaded, and 20 timed blocking density
+                exchanges, while this process runs the same on one
+                controller of 8 slots: every controller's alive set,
+                density, owners and checkpoint bytes bitwise equal to it;
+                B9 launched on each controller in each part (two launches
+                an exchange around the transport), no twin; each
+                controller's exchange wall ms, transport bytes and B9
+                launches logged; then 3 controllers x 2 slots on small
+                sizes, and nccl with a card a controller where the machine
+                has two (else one line says why not).  ``python3
+                chip_smoke.py --spmd-only`` runs this phase alone.
+
+Launch counters are set to 0 just before each of phases 3-19, 21-28,
+each sub-step of 30 and 31, and (in each controller) each part of 32
+drives its path and read just after.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -557,7 +578,169 @@ def child_gol(wd, device, n_devices, hb):
     print("GOL_CHILD_DONE", flush=True)
 
 
+#: phase 32's sizes: the bench's Game of Life (bench.py:48,55: the 500x500
+#: open board at 30% alive, 200 turns) and refined advection grid
+#: (bench.py:41-42: 48^3, the ball of radius 0.3 around (0.3, 0.5, 0.5)
+#: refined once, 198,008 leaves, f32; 20 gather steps either side of the
+#: adaptation and balance) on SPMD_SLOTS slots over SPMD_CONTROLLERS
+#: controllers; "small" is the odd-count check (3 controllers x 2 slots)
+SPMD_CONTROLLERS, SPMD_SLOTS = 2, 8
+SPMD_SIZES = {
+    "full": {"board": RES_BOARD, "n": 48, "turns": 200, "steps": 20, "reps": 20},
+    "small": {"board": 60, "n": 12, "turns": 20, "steps": 5, "reps": 5},
+}
+#: the phase's budget, process start-ups included (logged beside its time)
+SPMD_BUDGET_S = 60.0
+
+
+def spmd_run(ctl, nproc, D, wd, device, size) -> dict:
+    """Phase 32's scenario on the controllers ``ctl`` (``mesh.SINGLE``: the
+    one-controller oracle, which applies every rank's requests itself, in
+    rank order) with D slots on ``device``: the board's gather turns; the
+    refined grid's gather steps, an adaptation with different refine
+    requests on each controller, an HSFC balance with per-controller pins
+    and ``remap_state``, as many steps again, a checkpoint saved (rank 0
+    writes) and reloaded; then the blocking density exchange timed.
+    Returns hashes of the alive set, the density by cell id, the owners and
+    the checkpoint's bytes, and this controller's B9 launches, transport
+    bytes and seconds."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, GameOfLife, Grid
+    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    def sync():
+        barrier("spmd")
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def counted(fn):
+        """``fn()`` with the counts at 0: (its value, B9 launches, other
+        launches, twin calls, seconds)."""
+        sync()
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t
+        others = {k: v for k, v in LAUNCHES.items() if v and k != "ring_copy"}
+        return out, LAUNCHES["ring_copy"], others, sum(PLAIN_CALLS.values()), secs
+
+    ranks = [ctl.rank] if ctl.multi else list(range(nproc))
+    res = {"rank": ctl.rank, "backend": ctl.backend or "none"}
+    t0 = time.perf_counter()
+
+    n = size["board"]
+    g = (Grid().set_initial_length((n, n, 1)).set_neighborhood_length(1)
+         .initialize(n_devices=D, device=device, controllers=ctl))
+    cells = g.get_cells()
+    gol = GameOfLife(g, allow_dense=False)
+    s = gol.new_state(alive_cells=cells[np.random.default_rng(0).random(len(cells)) < 0.3])
+    b0 = g.halo().transport_bytes
+    s, b9, others, plain, secs = counted(lambda: gol.run(s, size["turns"]))
+    alive = np.sort(gol.alive_cells(s))
+    res["gol"] = {"alive_hash": h(alive), "n_alive": int(len(alive)), "b9": b9,
+                  "others": others, "plain": plain, "s": secs,
+                  "transport_bytes": g.halo().transport_bytes - b0}
+    del g, gol, s
+
+    m = size["n"]
+    ga = (Grid().set_initial_length((m, m, m)).set_neighborhood_length(0)
+          .set_periodic(True, True, True).set_maximum_refinement_level(1)
+          .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                        level_0_cell_length=(1.0 / m,) * 3)
+          .initialize(n_devices=D, device=device, controllers=ctl))
+    centre = np.asarray((0.3, 0.5, 0.5))
+    ids = ga.get_cells()
+    ga.refine_completely_many(ids[np.linalg.norm(ga.geometry.get_center(ids) - centre,
+                                                 axis=1) < 0.3])
+    ga.stop_refining()
+    res["n_leaves"] = int(len(ga.get_cells()))
+    adv = Advection(ga, dtype=np.float32, allow_dense=False, use_kernels=False)
+    sa = adv.initialize_state()
+    dt = 0.4 * adv.max_time_step(sa)
+
+    def steps(adv, sa):
+        for _ in range(size["steps"]):
+            sa = adv.step(sa, dt)
+        return sa
+
+    sa, b9_a, others_a, plain_a, secs_a = counted(lambda: steps(adv, sa))
+    # different refine requests on each controller: rank p asks for every
+    # nproc-th level-0 cell of the shell just outside the ball
+    ids = ga.get_cells()
+    lv = ga.mapping.get_refinement_level(ids)
+    rr = np.linalg.norm(ga.geometry.get_center(ids) - centre, axis=1)
+    shell = ids[(lv == 0) & (rr >= 0.3) & (rr < 0.3 + 3.0 / m)]
+    for p in ranks:
+        ga.refine_completely_many(shell[p::nproc])
+    t = time.perf_counter()
+    adv, sa, new_cells, _ = adv.adapt_grid(sa)
+    adapt_s = time.perf_counter() - t
+    ga.set_partitioning_option("LB_METHOD", "HSFC")
+    cells = ga.get_cells()
+    for p in ranks:
+        ga.pin(int(cells[p * (len(cells) // nproc)]), D - 1 - p)
+    t = time.perf_counter()
+    ga.balance_load()
+    sa = ga.update_copies_of_remote_neighbors(ga.remap_state(sa))
+    balance_s = time.perf_counter() - t
+    adv = Advection(ga, dtype=np.float32, allow_dense=False, use_kernels=False)
+    sa, b9_b, _, plain_b, secs_b = counted(lambda: steps(adv, sa))
+    cells = ga.get_cells()
+    rho = ga.get_cell_data(sa, "density", cells)
+    res["advection"] = {
+        "n_leaves": int(len(cells)), "new_cells": int(len(new_cells)),
+        "rho_hash": h(rho), "owners_hash": h(ga.leaves.owner.astype(np.int64)),
+        "b9": b9_a + b9_b, "others": others_a, "plain": plain_a + plain_b,
+        "steps_s": secs_a + secs_b, "adapt_s": adapt_s, "balance_s": balance_s,
+        "finite": bool(np.isfinite(rho).all()),
+    }
+    ex = ga.halo()
+    field = {"density": sa["density"]}
+    b0 = ex.transport_bytes
+    _, b9_x, _, _, secs_x = counted(lambda: [ex(field) for _ in range(size["reps"])])
+    res["exchange"] = {"wall_ms": secs_x / size["reps"] * 1e3,
+                       "b9": b9_x / size["reps"],
+                       "transport_bytes": (ex.transport_bytes - b0) / size["reps"]}
+
+    path = os.path.join(wd, f"spmd_{nproc}x{D // nproc}_{ctl.multi}.dc")
+    ga.save_grid_data(sa, path, adv.spec)
+    g3, s3, _ = Grid.load_grid_data(path, adv.spec, n_devices=D, device=device)
+    reloaded = g3.get_cell_data(s3, "density", cells)
+    with open(path, "rb") as f:
+        res["ckpt"] = {"file_hash": h(np.frombuffer(f.read(), np.uint8)),
+                       "reload_equal": bool(np.array_equal(reloaded, rho))}
+    barrier("spmd.ckpt")
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def child_spmd(wd, D, backend, size, device) -> int:
+    """One controller of phase 32: join the group (``torchrun``'s
+    environment, set by ``mesh.launch``), run :func:`spmd_run`, print its
+    ``RESULT`` line."""
+    from dccrg_tpu_torch.parallel import mesh
+
+    ctl = mesh.setup(backend=backend, device=None if device == "cuda" else device)
+    try:
+        res = spmd_run(ctl, ctl.size, D, wd, ctl.device, SPMD_SIZES[size])
+    finally:
+        mesh.teardown()
+    mesh.result(res)
+    return 0
+
+
 def child_main(argv) -> int:
+    if argv[0] == "spmd":
+        return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5])
     kind, wd, device = argv[0], argv[1], argv[2]
     if kind == "headline":
         child_headline(wd, device)
@@ -585,6 +768,101 @@ def launch_child(wd, args, env_extra=None):
 def child_log(wd, n=3000):
     with open(os.path.join(wd, "child.log")) as f:
         return f.read()[-n:]
+
+
+def spmd_phase(dev, card, device="cuda"):
+    """Phase 32: the multi-controller gather path (``parallel/mesh.py``).
+    SPMD_CONTROLLERS controllers of SPMD_SLOTS / SPMD_CONTROLLERS slots each,
+    on one card over gloo, run :func:`spmd_run` at the bench's widths while
+    this process runs the one-controller oracle on SPMD_SLOTS slots; every
+    controller's hashes (alive set, density by cell id, owners, checkpoint
+    bytes) must equal each other's and the oracle's, B9 must launch on each
+    controller in each part and no twin run.  Then 3 controllers x 2 slots
+    on the small sizes, and nccl with a card a controller where the machine
+    has two.  Any failure raises; the phase's seconds are logged beside its
+    budget."""
+    import shutil
+    import threading
+
+    from dccrg_tpu_torch.parallel import halo_dma, mesh
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        halo_dma._kernels()      # built once here, before the controllers start
+    wd = tempfile.mkdtemp(prefix="spmd_")
+    env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": ""}
+
+    def run(nproc, per, backend, size):
+        D = nproc * per
+        argv = [sys.executable, os.path.abspath(__file__), "--child", "spmd", wd,
+                str(D), backend, size, device]
+        got = {}
+        th = threading.Thread(target=lambda: got.update(
+            r=mesh.launch(argv, nproc, timeout_s=240, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))))
+        th.start()
+        try:
+            one = spmd_run(mesh.SINGLE, nproc, D, wd, dev, SPMD_SIZES[size])
+        finally:
+            th.join()
+        check("r" in got, f"spmd {nproc}x{per} {backend}: the controllers failed "
+              "(see the traceback above)")
+        res = got["r"]
+        keys = lambda r: (r["gol"]["alive_hash"], r["gol"]["n_alive"], r["n_leaves"],
+                          r["advection"]["rho_hash"], r["advection"]["owners_hash"],
+                          r["advection"]["n_leaves"], r["ckpt"]["file_hash"])
+        for r in res:
+            check(keys(r) == keys(one),
+                  f"spmd {nproc}x{per} {backend}: controller {r['rank']} {keys(r)} != "
+                  f"one controller {keys(one)}")
+            check(r["ckpt"]["reload_equal"] and r["advection"]["finite"],
+                  f"spmd {nproc}x{per} {backend}: reload or finiteness")
+            for part in ("gol", "advection"):
+                # (a rehearsal on the CPU runs the twins: nothing launches)
+                check(device != "cuda" or (r[part]["b9"] > 0 and not r[part]["others"]
+                                           and not r[part]["plain"]),
+                      f"spmd {nproc}x{per} {backend} {part}: controller {r['rank']} B9 "
+                      f"{r[part]['b9']}, others {r[part]['others']}, twins {r[part]['plain']}")
+            check(device != "cuda" or r["exchange"]["b9"] == 2,
+                  f"spmd: {r['exchange']['b9']} B9 launches an exchange")
+            log(f"[spmd] transport {backend}, {nproc} controllers x {per} slots, controller "
+                f"{r['rank']}: gol {SPMD_SIZES[size]['turns']} turns {r['gol']['s']!r} s, "
+                f"B9 launches {r['gol']['b9']}, transport bytes {r['gol']['transport_bytes']}; "
+                f"advection {r['advection']['n_leaves']} leaves, "
+                f"{2 * SPMD_SIZES[size]['steps']} steps {r['advection']['steps_s']!r} s, "
+                f"B9 launches {r['advection']['b9']}, adapt_grid {r['advection']['adapt_s']!r} s "
+                f"({r['advection']['new_cells']} new cells), balance_load + remap "
+                f"{r['advection']['balance_s']!r} s; blocking density exchange wall "
+                f"{r['exchange']['wall_ms']!r} ms, transport bytes "
+                f"{r['exchange']['transport_bytes']!r} an exchange, B9 launches "
+                f"{r['exchange']['b9']!r} an exchange; controller seconds {r['s']!r} on {card}")
+        log(f"[spmd] one controller x {D} slots: gol {one['gol']['s']!r} s "
+            f"(B9 launches {one['gol']['b9']}), advection steps {one['advection']['steps_s']!r} s, "
+            f"blocking density exchange wall {one['exchange']['wall_ms']!r} ms "
+            f"(B9 launches {one['exchange']['b9']!r} an exchange); oracle seconds "
+            f"{one['s']!r}; {nproc}x{per} {backend} bitwise equal: alive set "
+            f"{one['gol']['alive_hash']}, density {one['advection']['rho_hash']}, owners "
+            f"{one['advection']['owners_hash']}, checkpoint {one['ckpt']['file_hash']}")
+        return res
+
+    try:
+        # a rehearsal on the CPU keeps to the small sizes
+        full = run(SPMD_CONTROLLERS, SPMD_SLOTS // SPMD_CONTROLLERS, "gloo",
+                   "full" if device == "cuda" else "small")
+        run(3, 2, "gloo", "small")
+        import torch
+
+        if device == "cuda" and torch.cuda.device_count() >= 2:
+            run(2, 4, "nccl", "full")
+        else:
+            log(f"[spmd] transport nccl: not run: it needs a card a controller and "
+                f"this machine has {torch.cuda.device_count() if device == 'cuda' else 0} "
+                "(NCCL refuses two ranks on one card)")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[spmd] phase seconds {secs!r} (budget {SPMD_BUDGET_S!r}) on {card}")
+    return full
 
 
 def resilience_phase(dev, card, drive, refined):
@@ -3587,6 +3865,10 @@ def main() -> int:
     # a torn generation
     resilience_phase(dev, card, drive, (g_sa, s_sa, adv_s.spec))
 
+    # 32. spmd: the gather path on 2 controllers x 4 slots over gloo,
+    # bitwise against one controller on 8 slots; 3 x 2; nccl where it can
+    spmd_phase(dev, card)
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -3616,7 +3898,29 @@ def main() -> int:
     return 0
 
 
+def spmd_only(device="cuda") -> int:
+    """``python3 chip_smoke.py --spmd-only [cpu]``: phase 32 alone (a quick
+    check of the multi-controller path; ``cpu`` rehearses it without a
+    card)."""
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+            return 1
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+        spmd_phase(torch.device("cuda"), card)
+    else:
+        spmd_phase("cpu", "the CPU", device="cpu")
+    log("[spmd] ok")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--spmd-only"]:
+        sys.exit(spmd_only(*sys.argv[2:3]))
     sys.exit(main())

@@ -1,10 +1,17 @@
-"""The Grid: dccrg's user model on one CUDA device (PyTorch).
+"""The Grid: dccrg's user model on CUDA devices (PyTorch).
 
 The same fluent surface as the JAX package's ``Grid`` (builder ->
 ``initialize`` -> cells, payloads, refinement, halo), with cell payloads
-held as SoA ``[n_devices, rows, ...]`` torch tensors.  All ``n_devices``
-slots live on one device, so the leading axis plays the role of the JAX
-mesh axis and device-count invariance stays testable.
+held as SoA ``[n_devices, rows, ...]`` torch tensors.  Under one controller
+all ``n_devices`` slots live on one device, so the leading axis plays the
+role of the JAX mesh axis and device-count invariance stays testable.
+Under several controllers (``initialize(controllers=...)``,
+``parallel/mesh.py``: one process a card or a block of slots) every
+controller keeps the replicated host metadata for all slots and payload
+tensors for its own block ``slots`` only; ``get_cell_data``, agreement
+(builder settings, user neighbourhoods, AMR requests, pins and weights),
+``remap_state``, ``balance_load``, the halo and the checkpoint writer are
+collectives every controller calls in the same order.
 
 Grid and refinement metadata stay host-side numpy, as in the JAX package.
 A structural change (``stop_refining``, ``balance_load``) patches the epoch
@@ -159,10 +166,18 @@ class Grid:
     # ---------------------------------------------------------- initialize
 
     def initialize(self, n_devices: int | None = None, device=None,
-                   leaf_set=None) -> "Grid":
+                   leaf_set=None, controllers=None) -> "Grid":
         """Create level-0 cells, stripe them over ``n_devices`` slab slots
-        (default 1) and build all derived state.  Payloads are allocated on
-        ``device`` (default CUDA; ``"cpu"`` must be asked for).
+        (default: one a controller) and build all derived state.  Payloads
+        are allocated on ``device`` (default the controllers' device, else
+        CUDA; ``"cpu"`` must be asked for).
+
+        ``controllers`` (``parallel/mesh.py``; default
+        ``parallel.mesh.current()``): under several controllers every
+        process builds the same leaves, epoch and tables for all slots and
+        holds payloads only for its own block of slots (``slots``); the
+        slot count must divide by the controller count, and the builder
+        settings must agree on every controller (``assert_agreement``).
 
         ``leaf_set``: start from an existing leaf-id array instead of the
         level-0 grid — the checkpoint loader's path (the saved set is a
@@ -173,10 +188,19 @@ class Grid:
         listed with its ancestor, and a set that breaks the 2:1 balance
         all raise ``ValueError``."""
         self._assert_uninitialized()
+        from .parallel.mesh import current
+
+        ctl = current() if controllers is None else controllers
+        if device is None and ctl.device is not None:
+            device = ctl.device
         self.device = resolve_device(device)
-        self.n_devices = 1 if n_devices is None else int(n_devices)
+        self.n_devices = ctl.size if n_devices is None else int(n_devices)
         if self.n_devices < 1:
             raise ValueError("n_devices must be >= 1")
+        #: the controller group (``parallel/mesh.py``) and this process's
+        #: block of slots: payload tensors are ``[len(slots), R, ...]``
+        self.controllers = ctl
+        self.slots = ctl.local_slots(self.n_devices)
         self.mapping = Mapping(length=self._length, max_refinement_level=self._max_ref_lvl)
         self.topology = Topology(periodic=self._periodic)
         factory = self._geometry_factory or (lambda m, t: NoGeometry(m, t))
@@ -212,6 +236,22 @@ class Grid:
         else:
             n0 = int(np.prod(self._length))
             cells = np.arange(1, n0 + 1, dtype=np.uint64)
+        if ctl.multi:
+            # enforced agreement on the builder inputs (the JAX package's
+            # grid.py:180-190): a controller whose settings diverge would
+            # build another grid and desynchronise every later collective
+            from .utils.collectives import assert_agreement
+
+            settings = repr((
+                self._length, self._max_ref_lvl, self._periodic,
+                self._hood_length, str(self._lb_method).upper(),
+                type(self.geometry).__name__, self.n_devices,
+            )).encode()
+            assert_agreement(
+                "Grid.initialize settings",
+                settings + self.geometry.params_to_file_bytes()
+                + (cells.tobytes() if leaf_set is not None else b""),
+            )
         if self._lb_method in ("HSFC", "SFC", "HILBERT"):
             owner = hilbert_partition(self.mapping, cells, self.n_devices)
         elif self._lb_method == "MORTON":
@@ -314,7 +354,11 @@ class Grid:
 
     def _harvest_tables(self, old_epoch) -> None:
         """Park a retired epoch's gather tables for reuse by the next delta
-        patch, unless another grid shares the epoch (``copy_structure``)."""
+        patch, unless another grid shares the epoch (``copy_structure``).
+        The JAX package stops recycling under several controllers
+        (``grid.py:292-297``: its jitted code embeds the host tables
+        themselves); the port copies every table to its device, so
+        recycling stays safe there too."""
         if getattr(old_epoch, "_shared", False):
             return
         for h in old_epoch.hoods.values():
@@ -526,14 +570,30 @@ class Grid:
     # ------------------------------------------------------------ payloads
 
     def new_state(self, spec: CellSpec, fill=0):
-        """Allocate SoA payload tensors ``[D, R, *shape]``, one per field."""
+        """Allocate SoA payload tensors ``[D, R, *shape]``, one per field
+        (``[len(slots), R, *shape]``, this controller's slots, under several
+        controllers)."""
         self._assert_initialized()
-        D, R = self.n_devices, self.epoch.R
+        D, R = len(self.slots), self.epoch.R
         return {
             name: torch.full((D, R) + tuple(shape), fill,
                              dtype=torch_dtype(dtype), device=self.device)
             for name, (shape, dtype) in spec.items()
         }
+
+    def _mine(self, dev):
+        """Which of the slots ``dev`` are this controller's, and their
+        local indices."""
+        lo, hi = self.slots.start, self.slots.stop
+        mine = (dev >= lo) & (dev < hi)
+        return mine, dev[mine] - lo
+
+    def slot_view(self, a):
+        """This controller's block ``a[slots]`` of a per-slot host table
+        ``[D, ...]`` (``a`` itself under one controller)."""
+        if not self.controllers.multi:
+            return a
+        return a[self.slots.start:self.slots.stop]
 
     def _owner_rows(self, ids, what: str):
         ids = np.asarray(ids, dtype=np.uint64)
@@ -547,13 +607,23 @@ class Grid:
         I/O path, not the compute path); returns a new state."""
         dev, row = self._owner_rows(ids, "set_cell_data")
         host = state[field].cpu().numpy().copy()
-        host[dev, row] = values
+        if self.controllers.multi:
+            # every controller is given every value; it keeps its slots'
+            mine, ldev = self._mine(dev)
+            vals = np.broadcast_to(np.asarray(values, dtype=host.dtype),
+                                   (len(dev),) + host.shape[2:])
+            host[ldev, row[mine]] = vals[mine]
+        else:
+            host[dev, row] = values
         return {**state, field: torch.from_numpy(host).to(state[field].device)}
 
     def get_cell_data(self, state, field: str, ids):
-        """Host-side gather of per-cell values (verification/I/O path)."""
+        """Host-side gather of per-cell values (verification/I/O path); a
+        collective under several controllers (``collectives.fetch``)."""
+        from .utils.collectives import fetch
+
         dev, row = self._owner_rows(ids, "get_cell_data")
-        return state[field].cpu().numpy()[dev, row]
+        return fetch(state[field])[dev, row]
 
     def state_from_host(self, spec: CellSpec, ids, values: dict, fill=0):
         """A new state whose fields hold ``values[name]`` (host arrays, one
@@ -561,12 +631,16 @@ class Grid:
         the host and moved to the device once a field."""
         self._assert_initialized()
         dev, row = self._owner_rows(ids, "state_from_host")
-        D, R = self.n_devices, self.epoch.R
+        D, R = len(self.slots), self.epoch.R
+        mine, ldev = self._mine(dev)
         state = {}
         for name, (shape, dtype) in spec.items():
             host = np.full((D, R) + tuple(shape), fill, dtype=np.dtype(dtype))
             if name in values:
-                host[dev, row] = values[name]
+                if self.controllers.multi:
+                    host[ldev, row[mine]] = np.asarray(values[name])[mine]
+                else:
+                    host[dev, row] = values[name]
             state[name] = torch.from_numpy(host).to(self.device)
         return state
 
@@ -597,7 +671,7 @@ class Grid:
             return HaloExchange(
                 self.epoch, self.epoch.hoods[hood_id], self.device,
                 cell_datatype=policy, hood_id=hood_id,
-                ring_hints=self._ring_hints,
+                ring_hints=self._ring_hints, controllers=self.controllers,
             )
 
         # only the installed policy and the no-policy schedule are cached: an
@@ -1001,16 +1075,22 @@ class Grid:
             unresolved[idx[exists]] = False
         return out
 
-    def stop_refining(self) -> np.ndarray:
+    def stop_refining(self, presynced: bool = False) -> np.ndarray:
         """Commit all queued refines/unrefines (veto -> induce -> override
         -> execute, reference ``dccrg.hpp:3461-3485``) and rebuild the
         epoch; returns the new cells.  States allocated before this call
-        are carried over with ``remap_state``."""
+        are carried over with ``remap_state``.  Under several controllers
+        every controller commits the union of all controllers' queues
+        (``sync_adaptation``); ``presynced`` skips the union for a caller
+        that already ran it."""
         self._assert_no_staged_lb()
         self._assert_initialized()
         from .amr.refinement import commit_adaptation
+        from .utils.collectives import sync_adaptation
 
         with self._span_ctx(), _metrics.phase("amr.refine"):
+            if not presynced:
+                sync_adaptation(self.amr)
             old_epoch = self.epoch
             new_cells, removed, delta = commit_adaptation(self)
             self._last_new_cells = new_cells
@@ -1049,13 +1129,17 @@ class Grid:
         new parent reduces its removed children ("mean" default, "sum", or
         "zero") — the array form of the reference's parent/child data
         handling after stop_refining (tests/advection/adapter.hpp:230-292).
-        Runs on the host, like the JAX package's."""
+        Runs on the host, like the JAX package's.  Under several
+        controllers each controller fills its own slots: the old rows its
+        new cells read from another controller's slots come over the
+        transport (``_remap_sources``), the rest from its own."""
         if self._prev_epoch is None or self._prev_epoch is self.epoch:
             return state
         old, new = self._prev_epoch, self.epoch
         policy = policy or {}
         out = {}
         new_cells = new.leaves.cells
+        multi = self.controllers.multi
 
         # classification of new leaves
         surv_pos_new = np.flatnonzero(old.leaves.exists(new_cells))
@@ -1073,14 +1157,23 @@ class Grid:
             False,
         ) & ~is_child
 
+        def per_cell(arr):
+            return arr.dim() >= 2 and tuple(arr.shape[:2]) == (
+                len(self.slots), old.R)
+
+        sources = None
+        if multi:
+            fields = {n: a for n, a in state.items() if per_cell(a)}
+            sources = self._remap_sources(
+                old, new, fields, surv_pos_new, fresh_pos_new[is_child],
+                parents_of_fresh[is_child], fresh[is_parent])
+
         for name, arr in state.items():
-            host_old = arr.cpu().numpy()
-            if host_old.ndim < 2 or host_old.shape[:2] != (
-                old.n_devices, old.R
-            ):
+            if not per_cell(arr):
                 # not a per-cell [D, R, ...] payload: carried unchanged
                 out[name] = arr
                 continue
+            host_old = sources[name] if multi else arr.cpu().numpy()
             field_shape = host_old.shape[2:]
             host_new = np.zeros((new.n_devices, new.R) + field_shape, host_old.dtype)
             pol = policy.get(name, {})
@@ -1112,8 +1205,66 @@ class Grid:
                         red = red / 8 if np.issubdtype(red.dtype, np.floating) else red // 8
                     write(parents, red.astype(host_old.dtype))
 
-            out[name] = torch.from_numpy(host_new).to(arr.device)
+            out[name] = torch.from_numpy(
+                np.ascontiguousarray(self.slot_view(host_new))).to(arr.device)
         return out
+
+    def _remap_sources(self, old, new, fields, surv_pos_new, child_pos_new,
+                       child_parents, new_parents) -> dict:
+        """Under several controllers: each field of ``fields`` (local
+        ``[len(slots), R_old, ...]`` tensors) as a host ``[D, R_old, ...]``
+        array holding this controller's old rows and every old row its new
+        cells read from other controllers (the survivors' own rows, the
+        refined parents', the unrefined children's), received over the
+        host transport; other rows are 0.  Every controller derives the
+        same (sender, receiver, old cell) lists from the replicated
+        directories, so each message meets its receive."""
+        from .parallel.transport import Transport
+
+        ctl, lo = self.controllers, self.slots.start
+        rank_of = ctl.slot_owner(old.n_devices)
+        new_cells = new.leaves.cells
+        src = [old.leaves.position(new_cells[surv_pos_new]),
+               old.leaves.position(child_parents)]
+        tgt = [surv_pos_new, child_pos_new]
+        if len(new_parents):
+            kids = self.mapping.get_all_children(new_parents)
+            src.append(old.leaves.position(kids.reshape(-1)))
+            tgt.append(np.repeat(new.leaves.position(new_parents), 8))
+        src = np.concatenate(src).astype(np.int64)
+        tgt_rank = rank_of[new.leaves.owner[np.concatenate(tgt).astype(np.int64)]]
+        src_rank = rank_of[old.leaves.owner[src]]
+        cross = src_rank != tgt_rank
+        # unique (receiver, old position) pairs: ascending receiver, then
+        # ascending position
+        key = np.unique(tgt_rank[cross] * len(old.leaves) + src[cross])
+        recv_rank, pos = key // len(old.leaves), key % len(old.leaves)
+        send_rank = rank_of[old.leaves.owner[pos]]
+        dev, row = old.leaves.owner[pos], old.row_of[pos]
+        hosts = {n: a.cpu().numpy() for n, a in fields.items()}
+        full = {}
+        for n, h in hosts.items():
+            full[n] = np.zeros((old.n_devices,) + h.shape[1:], h.dtype)
+            full[n][lo:lo + len(h)] = h
+        sends, recvs, landing = [], [], []
+        for q in range(ctl.size):
+            if q == ctl.rank:
+                continue
+            out_sel = (send_rank == ctl.rank) & (recv_rank == q)
+            in_sel = (send_rank == q) & (recv_rank == ctl.rank)
+            for n, h in hosts.items():
+                if out_sel.any():
+                    sends.append((q, torch.from_numpy(np.ascontiguousarray(
+                        h[dev[out_sel] - lo, row[out_sel]]))))
+                if in_sel.any():
+                    buf = torch.from_numpy(np.empty(
+                        (int(in_sel.sum()),) + h.shape[2:], h.dtype))
+                    recvs.append((q, buf))
+                    landing.append((n, in_sel, buf))
+        Transport(ctl, host=True).exchange(sends, recvs)
+        for n, sel, buf in landing:
+            full[n][dev[sel], row[sel]] = buf.numpy()
+        return full
 
     # -------------------------------------------------- user neighborhoods
 
@@ -1125,6 +1276,15 @@ class Grid:
         existing states stay valid."""
         self._assert_no_staged_lb()
         self._assert_initialized()
+        # enforced agreement before any early-out: every controller must
+        # attempt the same registration, or all of them fail loudly
+        from .utils.collectives import assert_agreement
+
+        assert_agreement(
+            f"add_neighborhood({hood_id})",
+            np.int64(-1 if hood_id is None else hood_id).tobytes()
+            + np.asarray(offsets, dtype=np.int64).tobytes(),
+        )
         if hood_id in self.neighborhoods or hood_id is None:
             return False
         offs = validate_neighborhood(offsets)
@@ -1139,6 +1299,12 @@ class Grid:
         return True
 
     def remove_neighborhood(self, hood_id: int) -> bool:
+        from .utils.collectives import assert_agreement
+
+        assert_agreement(
+            f"remove_neighborhood({hood_id})",
+            np.int64(-1 if hood_id is None else hood_id).tobytes(),
+        )
         if hood_id is None or hood_id not in self.neighborhoods:
             return False
         del self.neighborhoods[hood_id]
@@ -1434,7 +1600,7 @@ class Grid:
         old, new = self.epoch, st["epoch"]
         if st["staged"] is None:
             st["staged"] = {
-                k: torch.zeros((new.n_devices, new.R) + tuple(v.shape[2:]),
+                k: torch.zeros((len(self.slots), new.R) + tuple(v.shape[2:]),
                                dtype=v.dtype, device=self.device)
                 for k, v in state.items()
             }
@@ -1442,13 +1608,56 @@ class Grid:
         hi = N if max_cells is None else min(lo + int(max_cells), N)
         if lo < hi:
             _metrics.inc("loadbalance.staged_rows", hi - lo)
-            put = lambda a: torch.as_tensor(a.astype(np.int64), device=self.device)
-            d_old, r_old = put(old.leaves.owner[lo:hi]), put(old.row_of[lo:hi])
-            d_new, r_new = put(new.leaves.owner[lo:hi]), put(new.row_of[lo:hi])
-            for k, arr in state.items():
-                st["staged"][k][d_new, r_new] = arr[d_old, r_old].to(self.device)
+            if self.controllers.multi:
+                self._stage_rows_multi(state, st["staged"], old, new, lo, hi)
+            else:
+                put = lambda a: torch.as_tensor(a.astype(np.int64), device=self.device)
+                d_old, r_old = put(old.leaves.owner[lo:hi]), put(old.row_of[lo:hi])
+                d_new, r_new = put(new.leaves.owner[lo:hi]), put(new.row_of[lo:hi])
+                for k, arr in state.items():
+                    st["staged"][k][d_new, r_new] = arr[d_old, r_old].to(self.device)
             st["done"] = hi
         return hi < N
+
+    def _stage_rows_multi(self, state, staged, old, new, lo, hi) -> None:
+        """One staged chunk (leaves ``lo:hi``) under several controllers:
+        rows that stay on this controller are device row copies; rows
+        whose owner moves to another controller go over the payload
+        transport, in ascending leaf order on both sides."""
+        from .parallel.transport import Transport
+
+        ctl, base = self.controllers, self.slots.start
+        rank_of = ctl.slot_owner(self.n_devices)
+        d_old = old.leaves.owner[lo:hi].astype(np.int64)
+        d_new = new.leaves.owner[lo:hi].astype(np.int64)
+        r_old = old.row_of[lo:hi].astype(np.int64)
+        r_new = new.row_of[lo:hi].astype(np.int64)
+        q_old, q_new = rank_of[d_old], rank_of[d_new]
+        put = lambda a: torch.as_tensor(a, device=self.device)
+        keep = (q_old == ctl.rank) & (q_new == ctl.rank)
+        if keep.any():
+            do, ro = put(d_old[keep] - base), put(r_old[keep])
+            dn, rn = put(d_new[keep] - base), put(r_new[keep])
+            for k, arr in state.items():
+                staged[k][dn, rn] = arr[do, ro].to(self.device)
+        sends, recvs, landing = [], [], []
+        for q in range(ctl.size):
+            if q == ctl.rank:
+                continue
+            out_sel = (q_old == ctl.rank) & (q_new == q)
+            in_sel = (q_old == q) & (q_new == ctl.rank)
+            for k, arr in state.items():
+                if out_sel.any():
+                    sends.append((q, arr[put(d_old[out_sel] - base),
+                                         put(r_old[out_sel])].contiguous()))
+                if in_sel.any():
+                    buf = torch.empty((int(in_sel.sum()),) + tuple(arr.shape[2:]),
+                                      dtype=arr.dtype, device=self.device)
+                    recvs.append((q, buf))
+                    landing.append((k, in_sel, buf))
+        Transport(ctl).exchange(sends, recvs)
+        for k, sel, buf in landing:
+            staged[k][put(d_new[sel] - base), put(r_new[sel])] = buf
 
     def finish_balance_load(self, state=None):
         """Phase 3 (``dccrg.hpp:3942-4147``): commit the new directory and

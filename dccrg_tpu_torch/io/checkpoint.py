@@ -215,12 +215,35 @@ def _save_grid_data(grid, state, path, spec, user_header, ragged,
                 int(bytes_per_cell.sum()) + len(cells) * 16)
     metrics.inc("checkpoint.cells_written", len(cells))
 
-    tmp = path + ".tmp"
-    _write_checkpoint(tmp, grid, cells, spec, user_header, fixed,
-                      ragged_fields, per_cell, counts, bytes_per_cell,
-                      offsets, fixed_bpc, version)
-    os.replace(tmp, path)
-    _fsync_dir(path)
+    # multi-controller fan-in (the JAX package's checkpoint.py:180-240):
+    # the readbacks above are collective, so every controller holds the
+    # file's content and rank 0 alone writes it; the closing flag
+    # all-gather, which every controller reaches even when the write
+    # raises, orders the peers behind the write and raises a writer's
+    # failure on every controller
+    from ..utils.collectives import allgather_u64, process_count
+
+    ctl = grid.controllers
+    err = None
+    if ctl.rank == 0:
+        try:
+            tmp = path + ".tmp"
+            _write_checkpoint(tmp, grid, cells, spec, user_header, fixed,
+                              ragged_fields, per_cell, counts, bytes_per_cell,
+                              offsets, fixed_bpc, version)
+            os.replace(tmp, path)
+            _fsync_dir(path)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            err = e
+    if ctl.multi and process_count() > 1:
+        ok = allgather_u64(np.array([0 if err is not None else 1],
+                                    dtype=np.uint64))
+        if err is None and int(ok[0][0]) == 0:
+            raise RuntimeError(
+                f"checkpoint write of {path!r} failed on process 0"
+            )
+    if err is not None:
+        raise err
 
 
 def _fsync_dir(path: str) -> None:

@@ -79,6 +79,7 @@ from ..ops.flat_amr import (
     make_flat_ml_run,
 )
 from ..parallel.dense import HaloExtend
+from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, ordered_sum, split_rows)
 
@@ -148,7 +149,7 @@ def build_face_tables(grid, hood_id, tables, dtype, hood_arrays=None):
     direction[tuple(i[~keep] for i in f)] = 0
 
     # physical areas/volumes from the geometry tables
-    length = tables.length.cpu().numpy()             # [D, R, 3]
+    length = tables.length_host                      # [D, R, 3]
     vol = length.prod(axis=-1)                       # [D, R]
     ar_d = np.arange(D)[:, None, None]
     cell_axis_len = np.broadcast_to(length[:, :, None, 0], (D, R, K)).copy()
@@ -172,7 +173,8 @@ def build_face_tables(grid, hood_id, tables, dtype, hood_arrays=None):
     }
     ai_all = np.maximum(np.abs(direction.astype(np.int64)) - 1, 0)
     tdt = torch_dtype(dtype)
-    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=grid.device).to(dt)
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(grid.slot_view(a)),
+                                        device=grid.device).to(dt)
     dev = {name: put(host[name], tdt)
            for name in ("min_area", "cell_axis_len", "nbr_axis_len", "inv_volume")}
     dev["face_dir"] = put(direction, torch.int8)
@@ -337,6 +339,12 @@ class Advection:
         #: general path, which this pins (no dense path, no flat run)
         self.overlap = bool(overlap)
         self.dense = grid.epoch.dense if allow_dense and not self.overlap else None
+        ctl = grid.controllers
+        if self.overlap:
+            require_single(ctl, "Advection(overlap=True)", "D6")
+        if self.dense is not None:
+            require_single(ctl, "Advection's dense layout (pass "
+                           "allow_dense=False for the gather step)", "D1")
         if self.dense is not None:
             self._init_dense()
         else:
@@ -351,6 +359,7 @@ class Advection:
         host, self._dev = build_face_tables(grid, self.hood_id, self.tables,
                                             self.dtype)
         self.inv_volume = host["inv_volume"]
+        self._local_host = grid.epoch.local_mask
         #: which flat form ``run`` takes: "pallas" (kernel B5), "ml_pallas"
         #: (kernel B6), "ml" / "sharded" (plain torch) or None — the JAX
         #: package's labels
@@ -360,6 +369,10 @@ class Advection:
             self._inner, self._outer = build_split_tables(
                 grid, self.hood_id, host, self.dtype)
             self._ar = torch.arange(grid.n_devices, device=self.device)[:, None]
+            return
+        if grid.controllers.multi:
+            # ``run`` refuses the flat forms under several controllers; the
+            # gather step needs none of their tables
             return
         if self.allow_boxed:
             self._boxed = _UNBUILT
@@ -490,7 +503,12 @@ class Advection:
         ], dim=-1)
         ok = (torch.isfinite(steps) & (steps > 0)
               & self.tables.local_mask[..., None])
-        return float(torch.where(ok, steps, torch.inf).min())
+        best = float(torch.where(ok, steps, torch.inf).min())
+        if self.grid.controllers.multi:
+            from ..utils.collectives import all_reduce
+
+            best = float(all_reduce([best], np.minimum))
+        return best
 
     def _general_max_diff(self, state, thr):
         """Max relative density difference to face neighbors
@@ -687,6 +705,7 @@ class Advection:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, wide_enabled
 
+        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled() or self.dense is not None:
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -750,6 +769,7 @@ class Advection:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
+        require_single(self.grid.controllers, "Advection.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         dtype = np.dtype(self.dtype)
         if self.dense is not None:
@@ -865,6 +885,10 @@ class Advection:
         step (the split step with ``overlap``) per step."""
         steps, dt = int(steps), self._scalar(dt)
         if self.dense is None:
+            if self.use_kernels:
+                require_single(self.grid.controllers, "Advection.run through "
+                               "the flat forms (use_kernels=True; step() and "
+                               "use_kernels=False take the gather step)", "D2")
             if self._prefer_boxed:
                 self._record_run("boxed", steps, state)
                 return self._boxed_run(state, steps, dt)
@@ -971,15 +995,20 @@ class Advection:
         refine: the state moves to the row layout first."""
         grid = self.grid
         if self.dense is not None:
+            # decide from every controller's queues (the JAX package's
+            # advection.py:1532-1545; the identity under one controller)
+            from ..utils.collectives import sync_adaptation
+
+            sync_adaptation(grid.amr)
             if not (grid.amr.to_refine or grid.amr.to_unrefine):
                 # nothing queued: the grid stays uniform and this model
                 # stays valid
-                new_cells = grid.stop_refining()
+                new_cells = grid.stop_refining(presynced=True)
                 return self, state, new_cells, grid.get_removed_cells()
             # the dense layout is about to stop existing: convert to the
             # row layout remap_state speaks while the old epoch is current
             state = self._dense_to_rows(state)
-        new_cells = grid.stop_refining()
+        new_cells = grid.stop_refining(presynced=self.dense is not None)
         removed = grid.get_removed_cells()
         state = grid.remap_state(
             state,
@@ -1002,10 +1031,12 @@ class Advection:
 
     def total_mass(self, state) -> float:
         if self.dense is None:
-            rho = state["density"].cpu().numpy()
+            # every slot's rows, whatever the controllers (a collective)
+            from ..utils.collectives import fetch
+
+            rho = fetch(state["density"])
             vol = 1.0 / np.where(self.inv_volume > 0, self.inv_volume, np.inf)
-            local = self.tables.local_mask.cpu().numpy()
-            return float((rho * vol * local).sum())
+            return float((rho * vol * self._local_host).sum())
         return float(
             state["density"].cpu().numpy().astype(np.float64).sum() * self._vol
         )

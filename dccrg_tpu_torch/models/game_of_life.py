@@ -45,6 +45,7 @@ import torch
 from ..obs import fused
 from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
 from ..parallel.dense import HaloExtend, detect_dense2d
+from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, split_rows)
 
@@ -74,10 +75,16 @@ class GameOfLife:
         self.use_kernels = bool(use_kernels)
         #: split-phase stepping on the row layout (no dense 2-D path)
         self.overlap = bool(overlap)
-        self._exchange = grid.halo(hood_id)
-        self.tables = None if self.overlap else StencilTables(grid, hood_id)
+        ctl = grid.controllers
+        if self.overlap:
+            require_single(ctl, "GameOfLife(overlap=True)", "D6")
         self.dense2d = (detect_dense2d(grid, hood_id)
                         if allow_dense and not self.overlap else None)
+        if self.dense2d is not None:
+            require_single(ctl, "GameOfLife's dense 2-D layout (pass "
+                           "allow_dense=False for the gather step)", "D1")
+        self._exchange = grid.halo(hood_id)
+        self.tables = None if self.overlap else StencilTables(grid, hood_id)
         #: whether ``run`` takes the whole-run kernel (``gol_run``)
         self.fused = False
         if self.overlap:
@@ -259,6 +266,7 @@ class GameOfLife:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, wide_enabled
 
+        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled():
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -319,6 +327,7 @@ class GameOfLife:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
+        require_single(self.grid.controllers, "GameOfLife.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         ex = self._exchange
         wide = self._wide_spec()

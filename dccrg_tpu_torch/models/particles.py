@@ -42,6 +42,9 @@ class Particles:
                  dtype=np.float32):
         """``dtype``: the coordinates' dtype (float32 by default, the
         bench's; the reference stores doubles, ``np.float64``)."""
+        from ..parallel.mesh import require_single
+
+        require_single(getattr(grid, "controllers", None), "Particles", "D5")
         self.grid = grid
         self.P = int(max_particles_per_cell)
         self.hood_id = hood_id

@@ -60,6 +60,9 @@ class Poisson:
     def __init__(self, grid, hood_id=None, dtype=np.float64,
                  solve_cells=None, skip_cells=None, allow_flat=True,
                  use_kernels=True, allow_rolled=None):
+        from ..parallel.mesh import require_single
+
+        require_single(getattr(grid, "controllers", None), "Poisson", "D4")
         self.grid = grid
         self.hood_id = hood_id
         self.dtype = numpy_dtype(dtype)

@@ -65,6 +65,9 @@ class Vlasov:
     def __init__(self, grid, nv: int = 4, v_max: float = 1.0,
                  dtype=np.float32, use_kernels: bool = True,
                  overlap: bool = False):
+        from ..parallel.mesh import require_single
+
+        require_single(getattr(grid, "controllers", None), "Vlasov", "D3")
         self.grid = grid
         #: split-phase stepping on the general row layout, which this forces
         #: even on slab grids (the split form overlaps the gather path's halo)

@@ -1,4 +1,5 @@
-"""Halo exchange: ghost-row refresh over the device slots of one tensor.
+"""Halo exchange: ghost-row refresh over the device slots of one tensor,
+and between the slot blocks of several controllers.
 
 The JAX package's ``parallel/halo.py::HaloExchange`` ships each device's
 send rows around a per-peer ring — one step per ring distance k (device d
@@ -52,6 +53,25 @@ time, and the device time of the exchange's kernels comes from the
 profiler merge (``obs.merge``, label ``halo.ring_copy``).  Unlike the JAX
 package, whose exchanges inside a jitted step are not recorded, every
 exchange here is launched from the host and recorded.
+
+Under several controllers (``parallel/mesh.py``) each process holds its
+own block of slots, ``[len(own), R, ...]``, and builds the schedule's
+tables for those slots only (:meth:`HaloExchange._controller_tables`):
+for each ring distance, the pairs whose sender and receiver slots share
+the controller stay local, and the others cross the ring transport
+(``parallel/transport.py``).  An exchange is three steps: kernel B9's
+payload mode packs one buffer a field, ``[local rows | the rows for each
+peer | room for each peer's rows]``, whose slices are the messages; the
+transport posts every peer's message of every field as one
+``batch_isend_irecv`` (gloo stages CUDA buffers through pinned host
+memory; nccl sends them as they are); B9's merge mode lands the local and
+received rows in the ghost rows.  The blocking ``__call__`` runs the three
+in a row, ``start`` packs and posts (no side stream), ``finish`` waits and
+merges; ``DCCRG_HALO_VERIFY`` replays the same protocol with the plain
+twin over the same transport.  Each controller records the per-slot
+gauges and counters of its own slots, and the byte counters of the rows
+its slots ship; ``transport_bytes`` counts what crossed to other
+controllers.
 
 Cohorts (``serve/ensemble.py``) exchange W member stacks ``[W, D, R,
 ...]`` at once through :class:`MemberExchange`: to kernel B9 the stack is
@@ -200,13 +220,16 @@ class HaloHandle:
     distinct type, so passing it where a state belongs (or a state where
     the handle belongs) fails loudly instead of exchanging garbage.
     ``payload`` maps field names to flat payloads (None where a field has
-    no rings); ``event`` is the side stream's completion event on CUDA."""
+    no rings); ``event`` is the side stream's completion event on CUDA;
+    ``pending`` the posted transport messages under several controllers
+    (``parallel/transport.py``)."""
 
-    __slots__ = ("payload", "event")
+    __slots__ = ("payload", "event", "pending")
 
-    def __init__(self, payload, event=None):
+    def __init__(self, payload, event=None, pending=None):
         self.payload = payload
         self.event = event
+        self.pending = pending
 
 
 class _Rings:
@@ -215,10 +238,19 @@ class _Rings:
     payload table) and receiving rows ``recv`` (int64 on the host, pads on
     the scratch row), ordered k, then receiving slot, then pair slot; the
     int32 device tables ``full`` and ``merge`` over all ``D * R`` rows (None
-    without a ring); ``wire`` rows shipped (padding included) and ``cells``
-    useful rows."""
+    without a ring); ``wire`` rows shipped (padding included), ``k_wire``
+    the same a ring distance, and ``cells`` useful rows.
 
-    __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire", "cells")
+    Under several controllers the tables are this controller's
+    (:meth:`HaloExchange._controller_tables`): ``send`` gathers the payload
+    ``[local | to each peer | from each peer]`` from the local rows,
+    ``merge`` covers the local slots' rows, ``sends`` / ``recvs`` hold each
+    peer's ``(rank, first slot, rows)`` in the payload, ``full`` is None,
+    and ``wire`` / ``k_wire`` / ``cells`` count the rows this controller's
+    slots ship (no padding)."""
+
+    __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire",
+                 "k_wire", "cells", "sends", "recvs")
 
 
 def _flush_record_cache(cache: dict) -> None:
@@ -278,11 +310,23 @@ class HaloExchange:
     ghost rows refreshed from their owners."""
 
     def __init__(self, epoch, hood, device, cell_datatype=None, hood_id=None,
-                 ring_hints=None):
+                 ring_hints=None, controllers=None):
         self.D = epoch.n_devices
         self.R = epoch.R
         self.hood_id = hood_id
         self.device = torch.device(device)
+        #: the controller group (``parallel/mesh.py``); under several
+        #: controllers the fields are this controller's ``[len(own), R,
+        #: ...]`` slots and remote pairs cross ``_transport``
+        self.multi = controllers is not None and controllers.multi
+        self._controllers = controllers
+        self._own = (controllers.local_slots(self.D) if self.multi
+                     else range(self.D))
+        self._transport = None
+        if self.multi:
+            from .transport import Transport
+
+            self._transport = Transport(controllers)
         #: wire transport (``DCCRG_HALO_BACKEND``, resolved at construction
         #: as in the JAX package): "pallas" (kernel B9) or "collective"
         self.backend = halo_dma.resolve_backend(self.device)
@@ -293,8 +337,9 @@ class HaloExchange:
         #: grid-persistent ring-size hysteresis hints {(hood, field, k):
         #: bucket}, shared with the JAX package's bucket rule
         self._ring_hints = ring_hints if ring_hints is not None else {}
-        #: cells moved per exchange (useful payload)
-        self.cells_moved = int(hood.pair_counts.sum())
+        #: cells moved per exchange (useful payload; this controller's
+        #: slots' sends under several controllers)
+        self.cells_moved = int(hood.pair_counts[self._own.start:self._own.stop].sum())
         D = self.D
         pair_lists = {}
         for i in range(D):
@@ -326,7 +371,7 @@ class HaloExchange:
         self._recv_per_dev = hood.pair_counts.sum(axis=0)
         if _metrics.enabled:
             hood_label = "default" if hood_id is None else str(hood_id)
-            for d in range(D):
+            for d in self._own:
                 _metrics.gauge("halo.send_cells_per_exchange",
                                int(self._send_per_dev[d]),
                                device=d, hood=hood_label)
@@ -348,6 +393,7 @@ class HaloExchange:
         D, R, scratch = self.D, self.R, self.R - 1
         rings = _Rings()
         rings.ks, rings.sizes, rings.wire, rings.cells = [], [], 0, 0
+        rings.k_wire, rings.sends, rings.recvs = [], None, None
         send, recv, real = [], [], []
         ar = np.arange(D)
         for k in range(1, D):
@@ -381,7 +427,11 @@ class HaloExchange:
             rings.ks.append(k)
             rings.sizes.append(S_k)
             rings.wire += D * S_k
+            rings.k_wire.append(D * S_k)
         cat = lambda parts: np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        if self.multi:
+            return self._controller_tables(rings, cat(send), cat(recv),
+                                           cat(real).astype(bool))
         send, recv = cat(send), cat(recv)
         rings.send = torch.as_tensor(send.astype(np.int32), device=self.device)
         rings.recv = torch.as_tensor(recv)
@@ -395,6 +445,58 @@ class HaloExchange:
             merge[recv[slot]] = slot
             rings.full = torch.as_tensor(full, device=self.device)
             rings.merge = torch.as_tensor(merge, device=self.device)
+        return rings
+
+    def _controller_tables(self, rings, send, recv, real) -> _Rings:
+        """This controller's part of the ring schedule (global flat rows
+        ``send`` / ``recv`` and the ``real`` mask of ``_ring_from_pairs``,
+        in its k, receiving slot, pair slot order).  A real entry whose
+        sender and receiver slots are both this controller's is local; one
+        from this controller's slot to another's goes out to that peer; one
+        to this controller's slot from another's comes in.  The payload is
+        ``[local | out to peer 0, 1, ... | in from peer 0, 1, ...]``, each
+        part in the schedule's order, so a sender's part for a peer is that
+        peer's part from it, row for row; the payload table reads the
+        sender's local flat row (0 for an incoming slot, which the
+        transport overwrites), the merge table sends a refreshed ghost row
+        to its payload slot.  Pads are left out: they land nowhere."""
+        D, R = self.D, self.R
+        rank_of = self._controllers.slot_owner(D)
+        me, lo, Dl = self._controllers.rank, self._own.start, len(self._own)
+        send, recv = send[real], recv[real]
+        src_rank, dst_rank = rank_of[send // R], rank_of[recv // R]
+        k_of = np.repeat(np.arange(len(rings.ks)), [D * S for S in rings.sizes])[real]
+        order = [np.flatnonzero((src_rank == me) & (dst_rank == me))]
+        rings.sends, rings.recvs = [], []
+        at = len(order[0])
+        for part, mine, theirs in (("sends", src_rank, dst_rank),
+                                   ("recvs", dst_rank, src_rank)):
+            for q in range(self._controllers.size):
+                if q == me:
+                    continue
+                sel = np.flatnonzero((mine == me) & (theirs == q))
+                if len(sel):
+                    getattr(rings, part).append((q, at, len(sel)))
+                    order.append(sel)
+                    at += len(sel)
+        n_local = len(order[0])
+        order = np.concatenate(order)
+        n_ship = n_local + sum(n for _, _, n in rings.sends)
+        table = np.zeros(len(order), np.int32)
+        table[:n_ship] = send[order[:n_ship]] - lo * R
+        # the rows that land here: local entries and incoming ones
+        slots = np.concatenate([np.arange(n_local),
+                                np.arange(n_ship, len(order))]).astype(np.int64)
+        landed = order[slots]
+        merge = np.full(Dl * R, -1, np.int32)
+        merge[recv[landed] - lo * R] = slots
+        rings.send = torch.as_tensor(table, device=self.device)
+        rings.recv = torch.as_tensor(recv[landed] - lo * R)
+        rings.merge = torch.as_tensor(merge, device=self.device)
+        rings.full = None
+        shipped = order[:n_ship]
+        rings.cells = rings.wire = n_ship
+        rings.k_wire = np.bincount(k_of[shipped], minlength=len(rings.ks)).tolist()
         return rings
 
     def _rings_for_field(self, name: str) -> _Rings:
@@ -469,12 +571,34 @@ class HaloExchange:
 
     def _exchange(self, state, backend=None) -> dict:
         """The blocking exchange: every field with rings gathered through its
-        ``full`` table in one grouped gather."""
+        ``full`` table in one grouped gather.  Under several controllers:
+        the payloads in one grouped gather, the transport, and the merge in
+        another (:meth:`_post`)."""
+        if self.multi:
+            handle = self._start_dispatch(state, backend)
+            handle.pending.wait()
+            return self.ring_finish(state, handle.payload, backend)
         moving = self._moving(state)
         got = self._gather([(x, rings.full) for _, x, rings in moving], backend)
         out = dict(state)
         out.update((name, y.view(x.shape)) for (name, x, _), y in zip(moving, got))
         return out
+
+    def _post(self, moving, payloads):
+        """Post every field's remote parts of its payload (the slices of
+        ``_Rings.sends`` / ``recvs``) as one transport batch; fields in the
+        state's order, each peer's part once a field, the same order on
+        every controller."""
+        sends, recvs = [], []
+        for (_, _, rings), p in zip(moving, payloads):
+            sends += [(q, p[a:a + n]) for q, a, n in rings.sends]
+            recvs += [(q, p[a:a + n]) for q, a, n in rings.recvs]
+        return self._transport.post(sends, recvs)
+
+    @property
+    def transport_bytes(self) -> int:
+        """Bytes this schedule has sent to other controllers (0 under one)."""
+        return 0 if self._transport is None else self._transport.bytes_sent
 
     def __call__(self, state):
         if isinstance(state, HaloHandle):
@@ -521,8 +645,15 @@ class HaloExchange:
             return out
         return self._start_dispatch(state)
 
-    def _start_dispatch(self, state) -> HaloHandle:
+    def _start_dispatch(self, state, backend=None) -> HaloHandle:
         moving = self._moving(state)
+        if self.multi:
+            # payloads on the current stream (the gloo transport stages
+            # them through host memory before it posts), then posted
+            got = self._gather([(x, rings.send) for _, x, rings in moving], backend)
+            payload = dict.fromkeys(state)
+            payload.update((name, p) for (name, _, _), p in zip(moving, got))
+            return HaloHandle(payload, None, self._post(moving, got))
         if self.device.type != "cuda" or not moving:
             return HaloHandle(self.ring_start(state))
         cur = torch.cuda.current_stream(self.device)
@@ -566,6 +697,8 @@ class HaloExchange:
         return out
 
     def _finish_dispatch(self, state, handle: HaloHandle):
+        if handle.pending is not None:
+            handle.pending.wait()
         if handle.event is not None:
             torch.cuda.current_stream(self.device).wait_event(handle.event)
         return self.ring_finish(state, handle.payload)
@@ -629,17 +762,17 @@ class HaloExchange:
             # field-accurate bytes are in halo.field_bytes)
             items.extend(
                 ("halo.send_cells", int(self._send_per_dev[d]),
-                 {"device": d, "hood": hood}) for d in range(self.D)
+                 {"device": d, "hood": hood}) for d in self._own
             )
             items.extend(
                 ("halo.recv_cells", int(self._recv_per_dev[d]),
-                 {"device": d, "hood": hood}) for d in range(self.D)
+                 {"device": d, "hood": hood}) for d in self._own
             )
             if self._cell_datatype is None:
                 per = sum(self._per_cell_bytes(x) for x in state.values())
                 items.extend(
-                    ("halo.ring_bytes", self.D * S * per, {"ring": k})
-                    for k, S in zip(self.ring_ks, self.ring_sizes)
+                    ("halo.ring_bytes", rows * per, {"ring": k})
+                    for k, rows in zip(self.ring_ks, self._rings.k_wire)
                 )
                 items.extend(
                     ("halo.field_bytes",
@@ -682,7 +815,8 @@ class HaloExchange:
         return int(np.prod(x.shape[2:], dtype=np.int64)) * x.element_size()
 
     def bytes_moved(self, state) -> int:
-        """Useful payload bytes (real send-list rows) per exchange."""
+        """Useful payload bytes (real send-list rows) per exchange (this
+        controller's slots' rows under several controllers)."""
         return sum(self._rings_for_field(n).cells * self._per_cell_bytes(x)
                    for n, x in state.items())
 

@@ -18,7 +18,13 @@ takes every field of an exchange in one launch, each field a job
   ghost rows (``table`` the schedule's ``merge`` table).
 
 ``HaloExchange`` builds the tables once per epoch and field schedule and
-picks the kernel or its twin by the schedule's backend.  The kernel moves
+picks the kernel or its twin by the schedule's backend.  Between
+controllers (one process a card or a block of slots, ``parallel/mesh.py``)
+the same two modes surround the ring transport (``parallel/transport.py``):
+each controller packs its payload with ``(x, send)`` on its own device,
+the transport carries the slices bound for other controllers, and ``(x,
+merge, payload)`` lands them, so B9 is launched by every controller around
+every exchange.  The kernel moves
 bytes with no arithmetic, so ghost copies stay bit-exact for every dtype.
 
 Backend selection (``DCCRG_HALO_BACKEND``, the JAX package's values and

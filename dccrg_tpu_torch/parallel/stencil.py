@@ -56,7 +56,8 @@ def split_rows(grid, hood_id):
 class StencilTables:
     """Device tensors describing one neighborhood's structure.
 
-    Attributes (all on the grid's device, leading axis the device slot):
+    Attributes (all on the grid's device, leading axis the device slot;
+    under several controllers this controller's slots, ``grid.slots``):
       nbr_rows   [D, R, K] int64 — row of each neighbor entry (scratch-padded)
       nbr_valid  [D, R, K] bool  — entry exists
       nbr_offset [D, R, K, 3] int32 — neighbor min corner - cell min corner
@@ -86,9 +87,10 @@ class StencilTables:
         epoch = grid.epoch
         hood = epoch.hoods[hood_id]
         # always a copy: on the CPU as_tensor would share the epoch's arrays,
-        # whose hood tables the grid recycles after a structural change
-        put = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt,
-                                              device=grid.device)
+        # whose hood tables the grid recycles after a structural change;
+        # under several controllers only this controller's slots
+        put = lambda a, dt=None: torch.tensor(np.asarray(grid.slot_view(a)),
+                                              dtype=dt, device=grid.device)
         # gather indices as int64, the index type torch's advanced indexing
         # takes without a conversion per step
         self.nbr_rows = put(hood.nbr_rows, torch.int64)
@@ -110,6 +112,9 @@ class StencilTables:
             lengths[pad] = 1.0
             self.center = put(centers)
             self.length = put(lengths)
+            #: ``length`` on the host for every slot ``[D, R, 3]`` (face
+            #: factors read neighbours' rows on any slot)
+            self.length_host = lengths
 
         leaves = epoch.leaves
         for name, fn in (cell_items or {}).items():

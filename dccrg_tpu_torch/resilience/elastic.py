@@ -136,6 +136,9 @@ def rescale(grid, state, spec, n_devices: int, *, lineage=None,
     """
     import torch
 
+    from ..parallel.mesh import require_single
+
+    require_single(getattr(grid, "controllers", None), "rescale", "D9")
     if lineage is None:
         if directory is None:
             raise ValueError("rescale needs a lineage= or directory=")

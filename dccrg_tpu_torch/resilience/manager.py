@@ -198,7 +198,10 @@ class CheckpointLineage:
         ``sigkill.post_commit`` injection site, fired right after the
         manifest lands, is the harness's way of proving it)."""
         from ..obs import metrics
+        from ..parallel.mesh import require_single
 
+        require_single(getattr(grid, "controllers", None),
+                       "CheckpointLineage.commit", "D9")
         with metrics.phase("lineage.commit"):
             entries = self.generations()
             gen = max((int(e["gen"]) for e in entries), default=0) + 1

@@ -9,7 +9,9 @@ the *internal* consistency of every derived structure against the leaf set,
 plus ghost-copy correctness of user data.  Call after mutations in tests or
 debugging sessions; it is pure host-side numpy.  A copy of the JAX
 package's ``utils/verify.py``; payloads are read back with
-``collectives.fetch``, and ``verify_grid`` compares the neighbour pairs as
+``collectives.fetch`` (under several controllers a collective that gives
+every controller all slots' rows, so ``verify_user_data`` and
+``verify_finite`` check every slot on every controller), and ``verify_grid`` compares the neighbour pairs as
 sorted integer keys and sums the leaves' volume over their distinct edge
 lengths, where the JAX package builds Python sets and sums cell by cell
 (the same invariants; a re-landing of a million cells verifies in about a

@@ -1,0 +1,308 @@
+"""The agreement helpers of ``dccrg_tpu_torch/utils/collectives.py`` in one
+process, with a fake multi-process ``_process_allgather`` seam: P threads,
+one a virtual controller, meet at a barrier and each gets every thread's
+array.  The same fake drives the JAX package's ``utils/collectives.py``
+(patched here, in the test only), and both must give equal results.  Also:
+a path whose multi-controller form is not ported raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item under P > 1."""
+import tempfile
+import threading
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from dccrg_tpu_torch.utils import collectives as TC
+
+
+class FakeGroup:
+    """An all-gather among ``P`` threads (each sets ``rank`` first)."""
+
+    def __init__(self, P):
+        self.P = P
+        self.barrier = threading.Barrier(P, timeout=30)
+        self.slots = [None] * P
+        self.local = threading.local()
+
+    def allgather(self, x):
+        self.slots[self.local.rank] = np.array(x, copy=True)
+        self.barrier.wait()
+        out = np.stack(self.slots)
+        self.barrier.wait()
+        return out
+
+
+def run_controllers(module, monkeypatch, P, fn):
+    """``fn(rank)`` on P threads over ``module`` patched with a fake seam;
+    returns each rank's return value or raised exception."""
+    group = FakeGroup(P)
+    monkeypatch.setattr(module, "process_count", lambda: P)
+    monkeypatch.setattr(module, "_process_allgather", group.allgather)
+    out = [None] * P
+
+    def body(r):
+        group.local.rank = r
+        try:
+            out[r] = fn(r)
+        except Exception as e:  # noqa: BLE001 — compared by the test
+            out[r] = e
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(P)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    return out
+
+
+def both(monkeypatch, P, make):
+    """``make(module)`` -> fn(rank), run on the port's and the JAX
+    package's helpers; returns (port results, JAX results)."""
+    from dccrg_tpu.utils import collectives as JC
+
+    return (run_controllers(TC, monkeypatch, P, make(TC)),
+            run_controllers(JC, monkeypatch, P, make(JC)))
+
+
+def _norm(v):
+    if isinstance(v, np.ndarray):
+        return ("a", str(v.dtype), v.tolist())
+    if isinstance(v, (list, tuple)):
+        return [_norm(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _norm(x) for k, x in v.items()}
+    return v
+
+
+REQUESTS = [
+    [np.array([5, 9, 1], np.uint64), np.array([], np.uint64)],
+    [np.array([9, 33], np.uint64), np.array([2], np.uint64)],
+    [np.array([], np.uint64), np.array([2, 7, 7], np.uint64)],
+]
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_union_and_multi_gather(monkeypatch, P):
+    def make(m):
+        return lambda r: (m.union_u64(REQUESTS[r][0]),
+                          m.allgather_u64_multi(REQUESTS[r]),
+                          m.allgather_u64(REQUESTS[r][1]))
+
+    port, jax_ = both(monkeypatch, P, make)
+    for r in range(P):
+        assert _norm(port[r]) == _norm(port[0]) == _norm(jax_[r])
+    want = np.unique(np.concatenate([REQUESTS[r][0] for r in range(P)]))
+    assert port[0][0].tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_sync_adaptation(monkeypatch, P):
+    def make(m):
+        def fn(r):
+            q = SimpleNamespace(to_refine={3 + r, 100}, to_unrefine={40 * r},
+                                not_to_refine={7} if r == P - 1 else set(),
+                                not_to_unrefine=set())
+            m.sync_adaptation(q)
+            return {k: sorted(getattr(q, k)) for k in
+                    ("to_refine", "to_unrefine", "not_to_refine", "not_to_unrefine")}
+        return fn
+
+    port, jax_ = both(monkeypatch, P, make)
+    assert port == jax_
+    assert all(r == port[0] for r in port)
+    assert port[0]["to_refine"] == sorted({3 + r for r in range(P)} | {100})
+    assert port[0]["not_to_refine"] == [7]
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_sync_partition_inputs_rank_order(monkeypatch, P):
+    """Conflicting pins and weights: the highest rank's entry wins; each
+    controller's own dicts stay as they were."""
+    def make(m):
+        def fn(r):
+            pins = {5: r, 10 + r: 0}
+            weights = {5: 1.5 * (r + 1), 99: 2.0}
+            got = m.sync_partition_inputs(pins, weights)
+            assert pins == {5: r, 10 + r: 0}
+            return got
+        return fn
+
+    port, jax_ = both(monkeypatch, P, make)
+    assert port == jax_
+    pins, weights = port[0]
+    assert pins[5] == P - 1 and weights[5] == 1.5 * P
+    assert {10 + r for r in range(P)} <= set(pins)
+
+
+@pytest.mark.parametrize("differ", [None, 0, 2])
+def test_assert_agreement(monkeypatch, differ):
+    P = 3
+
+    def make(m):
+        def fn(r):
+            payload = b"same" if r != differ else b"other"
+            m.assert_agreement("Grid.initialize settings", payload)
+            return "agreed"
+        return fn
+
+    port, jax_ = both(monkeypatch, P, make)
+    for got in (port, jax_):
+        if differ is None:
+            assert got == ["agreed"] * P
+        else:
+            assert all(isinstance(e, RuntimeError) and "disagree" in str(e)
+                       for e in got)
+    if differ is not None:
+        assert [str(e) for e in port] == [str(e) for e in jax_]
+
+
+@pytest.mark.parametrize("op", [np.add, np.minimum, np.maximum])
+def test_all_reduce(monkeypatch, op):
+    vals = [[1.5, 4.0], [-2.0, 8.0], [0.25, 3.0]]
+
+    def make(m):
+        return lambda r: m.all_reduce([vals[r]], op)
+
+    port, jax_ = both(monkeypatch, 3, make)
+    for p, j in zip(port, jax_):
+        assert np.array_equal(p, j)
+    assert np.array_equal(port[0], op.reduce(np.asarray(vals), axis=0))
+
+
+def test_identity_under_one_controller():
+    assert TC.process_count() == 1
+    pins, weights = {1: 0}, {2: 3.0}
+    assert TC.sync_partition_inputs(pins, weights) == (pins, weights)
+    TC.assert_agreement("x", b"anything")
+    TC.barrier()
+    assert TC.union_u64(np.array([3, 1, 3], np.uint64)).tolist() == [1, 3]
+    x = torch.arange(6.0).reshape(2, 3)
+    assert np.array_equal(TC.fetch(x), x.numpy())
+    assert TC.some_reduce_p2p(np.uint64(4), [1, 2]) == 4
+
+
+# ----------------------------------------------- not ported across controllers
+
+def _two_controllers():
+    from dccrg_tpu_torch.parallel.mesh import Controllers
+
+    return Controllers(rank=0, size=2, backend="gloo",
+                       device=torch.device("cpu"))
+
+
+def _grid(length, D=2, max_ref=0, hood=1, refine=False):
+    from dccrg_tpu_torch import CartesianGeometry, Grid
+
+    g = (Grid().set_initial_length(length).set_maximum_refinement_level(max_ref)
+         .set_neighborhood_length(hood).set_periodic(True, True, length[2] > 1)
+         .set_load_balancing_method("BLOCK")
+         .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                       level_0_cell_length=tuple(1.0 / n for n in length))
+         .initialize(n_devices=D, controllers=_two_controllers()))
+    if refine:
+        g.refine_completely(int(g.get_cells()[0]))
+        g.stop_refining()
+    return g
+
+
+def _advection_dense():
+    from dccrg_tpu_torch import Advection
+
+    Advection(_grid((4, 4, 4), hood=0), dtype=np.float32)
+
+
+def _advection_flat_run():
+    from dccrg_tpu_torch import Advection
+
+    adv = Advection(_grid((4, 4, 4), max_ref=1, hood=0, refine=True),
+                    allow_dense=False)
+    adv.run(adv.grid.new_state(adv.spec), 1, 0.01)
+
+
+def _advection_overlap():
+    from dccrg_tpu_torch import Advection
+
+    Advection(_grid((4, 4, 4), hood=0), overlap=True)
+
+
+def _advection_cohort():
+    from dccrg_tpu_torch import Advection
+
+    Advection(_grid((4, 4, 4), hood=0), allow_dense=False).batch_step_spec()
+
+
+def _gol_dense():
+    from dccrg_tpu_torch import GameOfLife
+
+    GameOfLife(_grid((6, 6, 1)))
+
+
+def _gol_overlap():
+    from dccrg_tpu_torch import GameOfLife
+
+    GameOfLife(_grid((6, 6, 1)), overlap=True)
+
+
+def _gol_cohort():
+    from dccrg_tpu_torch import GameOfLife
+
+    GameOfLife(_grid((6, 6, 1)), allow_dense=False).batch_step_spec()
+
+
+def _vlasov():
+    from dccrg_tpu_torch import Vlasov
+
+    Vlasov(_grid((4, 4, 4), hood=0), 4)
+
+
+def _poisson():
+    from dccrg_tpu_torch import Poisson
+
+    Poisson(_grid((4, 4, 4), hood=0))
+
+
+def _particles():
+    from dccrg_tpu_torch import Particles
+
+    Particles(_grid((4, 4, 4), hood=1))
+
+
+def _lineage():
+    from dccrg_tpu_torch.resilience import CheckpointLineage
+
+    g = _grid((4, 4, 4), hood=0)
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointLineage(d).commit(g, {}, {})
+
+
+def _rescale():
+    from dccrg_tpu_torch.resilience import rescale
+
+    with tempfile.TemporaryDirectory() as d:
+        rescale(_grid((4, 4, 4), hood=0), {}, {}, 1, directory=d)
+
+
+@pytest.mark.parametrize("path,item", [
+    (_advection_dense, "D1"), (_gol_dense, "D1"), (_advection_flat_run, "D2"),
+    (_vlasov, "D3"), (_poisson, "D4"), (_particles, "D5"),
+    (_advection_overlap, "D6"), (_gol_overlap, "D6"),
+    (_advection_cohort, "D7"), (_gol_cohort, "D7"),
+    (_lineage, "D9"), (_rescale, "D9"),
+])
+def test_not_ported_across_controllers_raises(path, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        path()
+
+
+def test_gather_paths_build_across_controllers():
+    """The ported paths build under P > 1 with this controller's slots."""
+    from dccrg_tpu_torch import Advection, GameOfLife
+
+    g = _grid((6, 6, 1))
+    gol = GameOfLife(g, allow_dense=False)
+    assert gol.tables.nbr_rows.shape[0] == 1
+    assert gol.new_state()["is_alive"].shape[:2] == (1, g.epoch.R)
+    adv = Advection(_grid((4, 4, 4), max_ref=1, hood=0, refine=True),
+                    allow_dense=False, use_kernels=False)
+    assert adv._flat_run is None and adv.tables.local_mask.shape[0] == 1
