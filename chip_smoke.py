@@ -162,7 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 steps (41 ring_copy launches): bitwise equal by cell id to
                 40 steps without the balance, mass conserved; again with the
                 staged form (chunks of 20,000 cells), bitwise equal to the
-                one-shot form; the host seconds of balance_load under HSFC,
+                one-shot form; the 500x500 board's uint32 state staged in
+                chunks of 50,000 cells on 8 slots, every cell's value kept,
+                equal to the one-shot form; the host seconds of balance_load under HSFC,
                 RCB and GRAPH with the incremental rebuild and with
                 DCCRG_EPOCH_DELTA=0, cells moved, weighted imbalance before
                 and after;
@@ -294,8 +296,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 controller's exchange wall ms, transport bytes and B9
                 launches logged; then 3 controllers x 2 slots on small
                 sizes, and nccl with a card a controller where the machine
-                has two (else one line says why not).  ``python3
-                chip_smoke.py --spmd-only`` runs this phase alone.
+                has two (else one line says why not).  Inside the same
+                controller processes, the dense slab ring (D1, D3) at the
+                bench's widths, each case against the oracle on its own slot
+                count (SPMD_DENSE_LAYOUT): the headline 128x128x64 on 2 x 4
+                through B2 (B = 8, run(50): 50 launches a controller, the
+                density planes a step and the vz planes once a run over the
+                transport), the 128x128x63 plane grid on 3 x 1 through B3
+                (step + run(20): 21 launches), the 500x500 board on 2 x 2
+                through the torch dense loop (200 turns, no kernel), Vlasov
+                32^3 x 8^3 on 2 x 4 through B7's explicit-edge mode (run(20):
+                20 launches) and Vlasov's gather step on the refined 16^3
+                grid (nv = 4, run(5): B9 two launches a step); every slot's
+                result bitwise equal to the oracle's, the ring's bytes two
+                planes an exchange, the launches, bytes a step and wall ms a
+                step logged beside the oracle's.  ``python3 chip_smoke.py
+                --spmd-only`` runs this phase alone.
 
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
 each sub-step of 30 and 31, and (in each controller) each part of 32
@@ -591,9 +607,30 @@ SPMD_SIZES = {
 }
 #: the phase's budget, process start-ups included (logged beside its time)
 SPMD_BUDGET_S = 60.0
+#: phase 32's dense cases (D1, D3): (controllers, slots a controller) of
+#: each; a case runs in the launch of its controller count, and the oracle
+#: runs it on one controller with the same slots.  "plane" takes 3 x 1
+#: (63 z planes divide over 3 slots, not over 2 or 6) and the board 2 x 2
+#: (500 rows do not divide over 8 slots)
+SPMD_DENSE_LAYOUT = {"headline": (2, 4), "plane": (3, 1), "board": (2, 2),
+                     "vlasov": (2, 4), "vlasov_amr": (2, 4)}
+#: their widths: the bench's (headline 128x128x64 periodic f32, bench.py:
+#: 39-40; the plane kernel's 128x128x63; the 500x500 open board at 30%
+#: alive, bench.py:48,55; Vlasov 32^3 x 8^3 f32, bench.py:49,54; vlasov_amr
+#: the refined 16^3 grid of phase 11 at nv = 4), and "small" for the CPU
+#: rehearsal; the steps are cut (the bench runs 5000 / 20000 / 50) and
+#: the same at both sizes
+SPMD_DENSE = {
+    "full": {"headline": (128, 128, 64), "plane": (128, 128, 63), "board": RES_BOARD,
+             "vlasov": ((32, 32, 32), 8), "vlasov_amr": (16, 4)},
+    "small": {"headline": (16, 16, 16), "plane": (16, 16, 15), "board": 60,
+              "vlasov": ((8, 8, 16), 2), "vlasov_amr": (8, 2)},
+}
+SPMD_DENSE_STEPS = {"headline": 50, "plane": 20, "board": 200, "vlasov": 20,
+                    "vlasov_amr": 5}
 
 
-def spmd_run(ctl, nproc, D, wd, device, size) -> dict:
+def spmd_run(ctl, nproc, D, wd, device, size, dense=None) -> dict:
     """Phase 32's scenario on the controllers ``ctl`` (``mesh.SINGLE``: the
     one-controller oracle, which applies every rank's requests itself, in
     rank order) with D slots on ``device``: the board's gather turns; the
@@ -603,7 +640,8 @@ def spmd_run(ctl, nproc, D, wd, device, size) -> dict:
     writes) and reloaded; then the blocking density exchange timed.
     Returns hashes of the alive set, the density by cell id, the owners and
     the checkpoint's bytes, and this controller's B9 launches, transport
-    bytes and seconds."""
+    bytes and seconds; with ``dense`` (a key of SPMD_DENSE) also the dense
+    cases of ``nproc`` controllers (:func:`spmd_dense`)."""
     import hashlib
 
     import numpy as np
@@ -719,11 +757,135 @@ def spmd_run(ctl, nproc, D, wd, device, size) -> dict:
         res["ckpt"] = {"file_hash": h(np.frombuffer(f.read(), np.uint8)),
                        "reload_equal": bool(np.array_equal(reloaded, rho))}
     barrier("spmd.ckpt")
+    del ga, adv, sa, g3, s3
+    if dense is not None:
+        res["dense"] = spmd_dense(ctl, nproc, device, SPMD_DENSE[dense])
     res["s"] = time.perf_counter() - t0
     return res
 
 
-def child_spmd(wd, D, backend, size, device) -> int:
+def spmd_dense(ctl, nproc, device, widths) -> dict:
+    """Phase 32's dense cases (SPMD_DENSE_LAYOUT) of ``nproc`` controllers,
+    on the controllers ``ctl`` (``mesh.SINGLE``: the oracle on the same
+    slots): the headline through B2 with the ring planes from the transport
+    each step and the vz planes once a run, the plane grid through B3, the
+    board through the torch dense loop, Vlasov through B7 with the ring's
+    edge planes (its explicit-edge mode), and Vlasov's gather step on the
+    refined grid.  Each case takes one step (turn) untimed, then its run
+    with the counts at 0.  Returns, a case: hashes of this controller's
+    slots' result (slot -> hash; the board's alive set and vlasov_amr's f
+    by cell id whole), the launches and twin calls of the run, its ring
+    bytes and wall ms a step."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, GameOfLife, Grid, Vlasov
+    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    def sync():
+        barrier("spmd.dense")
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def grid(length, D, periodic=(True, True, True), hood=0, max_ref=0):
+        return (Grid().set_initial_length(length).set_neighborhood_length(hood)
+                .set_periodic(*periodic).set_maximum_refinement_level(max_ref)
+                .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                              level_0_cell_length=tuple(1.0 / n for n in length))
+                .initialize(n_devices=D, device=device, controllers=ctl))
+
+    def per_slot(g, t):
+        a = t.detach().cpu().numpy()
+        return {str(d): h(a[i]) for i, d in enumerate(g.slots)}
+
+    def drive(fn, ring, steps):
+        """``fn()`` with the counts at 0: (its value, a record of the
+        launches, twin calls, ring bytes and wall ms a step)."""
+        sync()
+        reset_counts()
+        b0 = ring.transport_bytes
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t
+        return out, {"launches": {k: v for k, v in LAUNCHES.items() if v},
+                     "plain": sum(PLAIN_CALLS.values()), "steps": steps,
+                     "bytes": ring.transport_bytes - b0, "ms": secs / steps * 1e3}
+
+    out = {}
+    cases = [c for c, (p, _) in SPMD_DENSE_LAYOUT.items() if p == nproc]
+    for case in cases:
+        D = nproc * SPMD_DENSE_LAYOUT[case][1]
+        steps = SPMD_DENSE_STEPS[case]
+        if case in ("headline", "plane"):
+            g = grid(widths[case], D)
+            adv = Advection(g, dtype=np.float32)
+            s = adv.initialize_state()
+            dt = 0.4 * adv.max_time_step(s)
+            g.halo(None)        # the run's telemetry record reads it: built here
+            s = adv.step(s, dt)
+            if case == "headline":
+                s, rec = drive(lambda: adv.run(s, steps, dt), adv._extend, steps)
+            else:
+                s, rec = drive(lambda: adv.run(adv.step(s, dt), steps, dt),
+                               adv._extend, steps + 1)
+            rec.update(hashes=per_slot(g, s["density"]), kind=list(adv.dense_kind),
+                       fused=adv.fused, plane_bytes=g.length[0] * g.length[1] * 4,
+                       finite=bool(torch.isfinite(s["density"]).all()))
+            del g, adv, s
+        elif case == "board":
+            n = widths[case]
+            g = (Grid().set_initial_length((n, n, 1)).set_neighborhood_length(1)
+                 .initialize(n_devices=D, device=device, controllers=ctl))
+            cells = g.get_cells()
+            gol = GameOfLife(g)
+            s = gol.new_state(alive_cells=cells[np.random.default_rng(0).random(len(cells))
+                                                < 0.3])
+            s = gol.run(s, 1)
+            s, rec = drive(lambda: gol.run(s, steps), gol._ring, steps)
+            rec.update(hashes={"alive": h(np.sort(gol.alive_cells(s)))},
+                       dense=gol.dense2d is not None, fused=gol.fused,
+                       plane_bytes=n * 4, finite=True)
+            del g, gol, s
+        else:
+            if case == "vlasov":
+                length, nv = widths[case]
+                g = grid(length, D)
+            else:
+                m, nv = widths[case]
+                g = grid((m, m, m), D, max_ref=1)
+                ids = g.get_cells()
+                g.refine_completely_many(ids[np.linalg.norm(
+                    g.geometry.get_center(ids) - 0.5, axis=1) < 0.3])
+                g.stop_refining()
+            vl = Vlasov(g, nv=nv, dtype=np.float32)
+            s = vl.initialize_state()
+            dt = 0.4 * vl.max_time_step()
+            ring = vl._extend if vl.info is not None else g.halo(None)
+            s = vl.step(s, dt)
+            s, rec = drive(lambda: vl.run(s, steps, dt), ring, steps)
+            if vl.info is not None:
+                hashes = per_slot(g, s["f"])
+                plane = g.length[0] * g.length[1] * vl.B * 4
+            else:
+                ids = g.get_cells()
+                hashes = {"f": h(g.get_cell_data(s, "f", ids)), "n_leaves": len(ids)}
+                plane = 0
+            rec.update(hashes=hashes, fused_block=vl._fused_block, plane_bytes=plane,
+                       dense=vl.info is not None,
+                       finite=bool(torch.isfinite(s["f"]).all()))
+            del g, vl, s
+        out[case] = rec
+    return out
+
+
+def child_spmd(wd, D, backend, size, device, dense) -> int:
     """One controller of phase 32: join the group (``torchrun``'s
     environment, set by ``mesh.launch``), run :func:`spmd_run`, print its
     ``RESULT`` line."""
@@ -731,7 +893,7 @@ def child_spmd(wd, D, backend, size, device) -> int:
 
     ctl = mesh.setup(backend=backend, device=None if device == "cuda" else device)
     try:
-        res = spmd_run(ctl, ctl.size, D, wd, ctl.device, SPMD_SIZES[size])
+        res = spmd_run(ctl, ctl.size, D, wd, ctl.device, SPMD_SIZES[size], dense)
     finally:
         mesh.teardown()
     mesh.result(res)
@@ -740,7 +902,7 @@ def child_spmd(wd, D, backend, size, device) -> int:
 
 def child_main(argv) -> int:
     if argv[0] == "spmd":
-        return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5])
+        return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5], argv[6])
     kind, wd, device = argv[0], argv[1], argv[2]
     if kind == "headline":
         child_headline(wd, device)
@@ -788,21 +950,29 @@ def spmd_phase(dev, card, device="cuda"):
 
     t_phase = time.perf_counter()
     if device == "cuda":
-        halo_dma._kernels()      # built once here, before the controllers start
+        from dccrg_tpu_torch.ops import dense_advection, vlasov_kernel
+
+        # built once here, before the controllers start
+        for build in (halo_dma._kernels, dense_advection._kernels,
+                      vlasov_kernel._kernels):
+            build()
     wd = tempfile.mkdtemp(prefix="spmd_")
     env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": ""}
+
+    # the dense kernels, like B9, built once before the controllers start
+    dense = "full" if device == "cuda" else "small"
 
     def run(nproc, per, backend, size):
         D = nproc * per
         argv = [sys.executable, os.path.abspath(__file__), "--child", "spmd", wd,
-                str(D), backend, size, device]
+                str(D), backend, size, device, dense]
         got = {}
         th = threading.Thread(target=lambda: got.update(
             r=mesh.launch(argv, nproc, timeout_s=240, env=env,
                           cwd=os.path.dirname(os.path.abspath(__file__)))))
         th.start()
         try:
-            one = spmd_run(mesh.SINGLE, nproc, D, wd, dev, SPMD_SIZES[size])
+            one = spmd_run(mesh.SINGLE, nproc, D, wd, dev, SPMD_SIZES[size], dense)
         finally:
             th.join()
         check("r" in got, f"spmd {nproc}x{per} {backend}: the controllers failed "
@@ -843,6 +1013,7 @@ def spmd_phase(dev, card, device="cuda"):
             f"{one['s']!r}; {nproc}x{per} {backend} bitwise equal: alive set "
             f"{one['gol']['alive_hash']}, density {one['advection']['rho_hash']}, owners "
             f"{one['advection']['owners_hash']}, checkpoint {one['ckpt']['file_hash']}")
+        spmd_dense_check(res, one, nproc, backend, device, card)
         return res
 
     try:
@@ -863,6 +1034,71 @@ def spmd_phase(dev, card, device="cuda"):
     secs = time.perf_counter() - t_phase
     log(f"[spmd] phase seconds {secs!r} (budget {SPMD_BUDGET_S!r}) on {card}")
     return full
+
+
+#: what each dense case of phase 32 launches a controller: the kernel and
+#: its launches for the run's steps (the plane case's step and run), B9 two
+#: an exchange around the transport (pack and merge) on vlasov_amr, none on
+#: the board (the torch dense loop)
+def _dense_launches(case, steps):
+    return {"headline": {"flux_update_blocked": steps}, "plane": {"flux_update": steps},
+            "board": {}, "vlasov": {"vlasov_step": steps},
+            "vlasov_amr": {"ring_copy": 2 * steps}}[case]
+
+
+def _dense_ring_bytes(case, rec):
+    """The ring bytes a controller sends in a dense case's run: two planes
+    an exchange; the headline's density each step and vz once a run, the
+    plane case's density and vz each step, the board's and Vlasov's one
+    exchange a step (vlasov_amr's halo is not a plane ring)."""
+    steps, plane = rec["steps"], rec["plane_bytes"]
+    n = {"headline": steps + 1, "plane": 2 * steps, "board": steps,
+         "vlasov": steps}.get(case)
+    return None if n is None else 2 * n * plane
+
+
+def spmd_dense_check(res, one, nproc, backend, device, card):
+    """Phase 32's dense cases: every controller's slots hash as the
+    oracle's on the same slots, each controller launched its kernel on
+    every step of the run and no twin ran (on the card), its ring carried
+    two planes an exchange; a line a controller with its launches, bytes a
+    step and wall ms a step beside the oracle's."""
+    for case, want in one.get("dense", {}).items():
+        merged = {}
+        for r in res:
+            merged.update(r["dense"][case]["hashes"])
+        check(merged == want["hashes"],
+              f"spmd dense {case} {nproc} controllers {backend}: {merged} != one "
+              f"controller {want['hashes']}")
+        for r in res:
+            rec = r["dense"][case]
+            check(rec["finite"], f"spmd dense {case}: non-finite result")
+            form = {"headline": lambda: rec["kind"][0] == "blocked_direct",
+                    "plane": lambda: rec["kind"] == ["plane"],
+                    "board": lambda: rec["dense"] and not rec["fused"],
+                    "vlasov": lambda: rec["dense"] and rec["fused_block"] > 0,
+                    "vlasov_amr": lambda: not rec["dense"]}[case]
+            check(form(), f"spmd dense {case}: controller {r['rank']} took another form: "
+                  f"{rec}")
+            if device == "cuda":
+                check(rec["launches"] == _dense_launches(case, rec["steps"])
+                      and not rec["plain"],
+                      f"spmd dense {case}: controller {r['rank']} launches "
+                      f"{rec['launches']}, twins {rec['plain']}")
+            ring = _dense_ring_bytes(case, rec)
+            check(ring is None or rec["bytes"] == ring,
+                  f"spmd dense {case}: controller {r['rank']} ring bytes {rec['bytes']} "
+                  f"!= {ring}")
+            check(ring is not None or rec["bytes"] > 0,
+                  f"spmd dense {case}: controller {r['rank']} sent nothing")
+            per = SPMD_DENSE_LAYOUT[case][1]
+            log(f"[spmd dense] {case} {nproc} controllers x {per} slots ({backend}), "
+                f"controller {r['rank']}: launches {rec['launches']} in "
+                f"{rec['steps']} steps, transport bytes a step {rec['bytes'] / rec['steps']!r} "
+                f"({rec['bytes']} in the run), wall ms a step {rec['ms']!r}; one "
+                f"controller x {nproc * per} slots: launches {want['launches']}, wall ms a "
+                f"step {want['ms']!r}; {'dense kind ' + str(rec['kind']) if 'kind' in rec else ''}"
+                f" bitwise equal on {card}")
 
 
 def resilience_phase(dev, card, drive, refined):
@@ -3667,6 +3903,40 @@ def main() -> int:
     log(f"[balance staged] chunks of 20,000 cells: initialize + continue + finish "
         f"{secs_stg!r} s; the state after 40 steps bitwise equal to the one-shot form's")
     del a_one, out_one, a_stg, out_stg, g_stg
+    # the board's uint32 state staged in chunks of 50,000 cells on 8 slots
+    # (unsigned rows move through their signed view): every cell keeps its
+    # value, as after the one-shot balance_load + remap_state
+    g_gb = (Grid().set_initial_length((RES_BOARD, RES_BOARD, 1))
+            .set_neighborhood_length(1).initialize(n_devices=8))
+    cells_gb = g_gb.get_cells()
+    s_gb = GameOfLife(g_gb, allow_dense=False).new_state(
+        alive_cells=cells_gb[np.random.default_rng(0).random(len(cells_gb)) < 0.3])
+    alive_gb = g_gb.get_cell_data(s_gb, "is_alive", cells_gb)
+    owner_gb = g_gb.leaves.owner.copy()
+    g_one_gb = g_gb.copy_structure()
+    for g in (g_gb, g_one_gb):
+        for c in cells_gb[: len(cells_gb) // 8]:
+            g.set_cell_weight(int(c), 4.0)
+    t = time.perf_counter()
+    g_gb.initialize_balance_load()
+    chunks = 1
+    while g_gb.continue_balance_load(s_gb, max_cells=50_000):
+        chunks += 1
+    out_gb = g_gb.finish_balance_load()
+    sync()
+    secs = time.perf_counter() - t
+    g_one_gb.balance_load()
+    one_gb = g_one_gb.remap_state(s_gb)
+    check(out_gb["is_alive"].dtype == torch.uint32
+          and np.array_equal(g_gb.get_cell_data(out_gb, "is_alive", cells_gb), alive_gb)
+          and np.array_equal(g_gb.leaves.owner, g_one_gb.leaves.owner)
+          and np.array_equal(g_gb.get_cell_data(out_gb, "is_alive", cells_gb),
+                             g_one_gb.get_cell_data(one_gb, "is_alive", cells_gb)),
+          "balance staged board: the uint32 state changed in the migration")
+    log(f"[balance staged] the {RES_BOARD}x{RES_BOARD} board's uint32 state in {chunks} "
+        f"chunks of 50,000 cells, {int((g_gb.leaves.owner != owner_gb).sum())} cells "
+        f"moved: {secs!r} s, every cell's value kept, equal to the one-shot form's on {card}")
+    del g_gb, g_one_gb, s_gb, out_gb, one_gb
     # the host seconds of balance_load alone, from the weighted grid, with the
     # incremental rebuild and with DCCRG_EPOCH_DELTA=0
     for method in ("HSFC", "RCB", "GRAPH"):

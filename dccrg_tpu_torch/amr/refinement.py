@@ -130,6 +130,18 @@ def induce_refines(leaves: LeafSet, lvl: np.ndarray, adj: tuple, queues: AmrQueu
     queues.to_refine = set(leaves.cells[refine].tolist())
 
 
+def one_per_family(mapping: Mapping, to_unrefine) -> np.ndarray:
+    """The unrefine queue with one entry a sibling family, its smallest
+    id, sorted.  One process queues one sibling a family
+    (``Grid.unrefine_completely`` returns early for a queued family), but
+    the union of several controllers' queues, a caller's
+    ``unrefine_completely_many`` or a queue set directly may hold more, and
+    the commit builds one parent an entry."""
+    cand = np.sort(np.fromiter(to_unrefine, dtype=np.uint64, count=len(to_unrefine)))
+    _, first = np.unique(mapping.get_parent(cand), return_index=True)
+    return cand[np.sort(first)]
+
+
 def override_unrefines(
     mapping: Mapping, topology, leaves: LeafSet, lvl: np.ndarray, hood_offsets, queues: AmrQueues
 ):
@@ -143,7 +155,7 @@ def override_unrefines(
     if not queues.to_unrefine:
         queues.to_unrefine = set()
         return
-    cand = np.fromiter(queues.to_unrefine, dtype=np.uint64, count=len(queues.to_unrefine))
+    cand = one_per_family(mapping, queues.to_unrefine)
     keep = np.ones(len(cand), dtype=bool)
 
     sib = mapping.get_siblings(cand)                     # (M, 8)

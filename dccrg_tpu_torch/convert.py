@@ -31,10 +31,18 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def _slot_block(grid, host):
+    """This controller's slots of a ``[D, ...]`` host array (all of it
+    under one controller), as a writable C-ordered copy."""
+    slots = grid.slots
+    return np.ascontiguousarray(host[slots.start:slots.stop])
+
+
 def state_from_numpy(adv, arrays) -> dict:
     """A state for the dense ``Advection`` model ``adv`` from numpy arrays
     (one per field, each ``[D, nz_local, ny, nx]``), cast to the model's
-    dtype and placed on its grid's device."""
+    dtype and placed on its grid's device (this controller's block of
+    slots under several controllers)."""
     info = adv.dense
     shape = (info.n_devices, info.nz_local, info.ny, info.nx)
     state = {}
@@ -42,14 +50,15 @@ def state_from_numpy(adv, arrays) -> dict:
         host = np.array(arr, dtype=adv.dtype, order="C")  # a writable copy
         if host.shape != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {host.shape}")
-        state[name] = torch.from_numpy(host).to(adv.grid.device)
+        state[name] = torch.from_numpy(_slot_block(adv.grid, host)).to(adv.grid.device)
     return state
 
 
 def vlasov_state_from_numpy(vl, f) -> dict:
     """A state for the dense ``Vlasov`` model ``vl`` from the numpy phase
     space ``f [D, nz_local, ny, nx, B]``, cast to the model's dtype and
-    placed on its grid's device."""
+    placed on its grid's device (this controller's block of slots under
+    several controllers)."""
     info = vl.info
     if info is None:
         raise ValueError("the model runs the general layout: use rows_state_from_numpy")
@@ -57,12 +66,16 @@ def vlasov_state_from_numpy(vl, f) -> dict:
     host = np.array(f, dtype=vl.dtype, order="C")  # a writable copy
     if host.shape != shape:
         raise ValueError(f"f: expected shape {shape}, got {host.shape}")
-    return {"f": torch.from_numpy(host).to(vl.device)}
+    return {"f": torch.from_numpy(_slot_block(vl.grid, host)).to(vl.device)}
 
 
 def state_to_numpy(state) -> dict:
-    """Host numpy copies of every field of a state."""
-    return {name: t.detach().cpu().numpy() for name, t in state.items()}
+    """Host numpy copies of every field of a state: every slot, ``[D,
+    ...]``, whatever the controllers (a collective under several:
+    ``utils.collectives.fetch``)."""
+    from .utils.collectives import fetch
+
+    return {name: fetch(t) for name, t in state.items()}
 
 
 def rows_state_from_numpy(grid, arrays, cell_ids) -> dict:

@@ -110,7 +110,10 @@ class LeafSet:
 
     def __post_init__(self):
         assert self.cells.dtype == np.uint64
-        assert (np.diff(self.cells) > 0).all(), "cells must be sorted unique"
+        # a raise, not an assert: ``python -O`` must not let a corrupt leaf
+        # set through (and no ``np.diff``: a uint64 difference wraps)
+        if not (self.cells[1:] > self.cells[:-1]).all():
+            raise ValueError("cells must be sorted unique")
         assert len(self.owner) == len(self.cells)
 
     def __len__(self) -> int:

@@ -66,6 +66,7 @@ from .parallel.epoch import build_epoch
 from .parallel.epoch_delta import TablePool, build_epoch_delta
 from .parallel.exec_cache import ExecutableCache
 from .parallel.halo import HaloExchange
+from .parallel.halo_dma import AS_SIGNED
 from .parallel.partition import block_partition, hilbert_partition, morton_partition
 from .parallel.shapes import epoch_shape_hints, signature_of
 
@@ -1608,14 +1609,18 @@ class Grid:
         hi = N if max_cells is None else min(lo + int(max_cells), N)
         if lo < hi:
             _metrics.inc("loadbalance.staged_rows", hi - lo)
+            # unsigned fields move as their same-width signed view (torch
+            # has no index_put for them); the rows travel bit for bit
+            state = {k: _signed(v) for k, v in state.items()}
+            staged = {k: _signed(v) for k, v in st["staged"].items()}
             if self.controllers.multi:
-                self._stage_rows_multi(state, st["staged"], old, new, lo, hi)
+                self._stage_rows_multi(state, staged, old, new, lo, hi)
             else:
                 put = lambda a: torch.as_tensor(a.astype(np.int64), device=self.device)
                 d_old, r_old = put(old.leaves.owner[lo:hi]), put(old.row_of[lo:hi])
                 d_new, r_new = put(new.leaves.owner[lo:hi]), put(new.row_of[lo:hi])
                 for k, arr in state.items():
-                    st["staged"][k][d_new, r_new] = arr[d_old, r_old].to(self.device)
+                    staged[k][d_new, r_new] = arr[d_old, r_old].to(self.device)
             st["done"] = hi
         return hi < N
 
@@ -1822,6 +1827,13 @@ class _SubGridView:
         self.geometry = grid.geometry
         self.leaves = LeafSet(cells=grid.leaves.cells[idx],
                               owner=grid.leaves.owner[idx])
+
+
+def _signed(t):
+    """``t`` itself, or for an unsigned integer tensor its same-width signed
+    view (``parallel.halo_dma.AS_SIGNED``): the same bytes, indexable."""
+    s = AS_SIGNED.get(t.dtype)
+    return t if s is None else t.view(s)
 
 
 class _EpochCarry:

@@ -45,6 +45,12 @@ makes ``step`` / ``run`` the split-phase step: start the density halo
 (kernel B9 on a side stream on CUDA), update the inner rows, which read no
 ghost, wait, then update the outer rows — bitwise equal to the gather step.
 
+Under several controllers (``parallel/mesh.py``) the dense layout holds
+this controller's slots, ``[len(grid.slots), nz_local, ny, nx]``: the z
+ring's end planes cross the transport (``HaloExtend``'s controller form),
+reads are collectives and the sums keep the one-controller order, so
+every result is bitwise one controller's on the same slots.
+
 On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
 that fails to build or launch raises: there is no fallback to another path.
 """
@@ -339,12 +345,8 @@ class Advection:
         #: general path, which this pins (no dense path, no flat run)
         self.overlap = bool(overlap)
         self.dense = grid.epoch.dense if allow_dense and not self.overlap else None
-        ctl = grid.controllers
         if self.overlap:
-            require_single(ctl, "Advection(overlap=True)", "D6")
-        if self.dense is not None:
-            require_single(ctl, "Advection's dense layout (pass "
-                           "allow_dense=False for the gather step)", "D1")
+            require_single(grid.controllers, "Advection(overlap=True)", "D6")
         if self.dense is not None:
             self._init_dense()
         else:
@@ -528,6 +530,9 @@ class Advection:
     def _init_dense(self):
         info = self.dense
         D, nzl, ny, nx = info.n_devices, info.nz_local, info.ny, info.nx
+        #: this controller's slots (all D under one controller): dense
+        #: tensors are ``[len(slots), nzl, ny, nx]``
+        self._slots = slots = self.grid.slots
         l0 = self.grid.geometry.get_level_0_cell_length()
         self._dx = l0.astype(np.float64)
         self._vol = float(l0.prod())
@@ -535,7 +540,7 @@ class Advection:
         self._area = tuple(float(a) for a in area.astype(self.dtype))
         self._inv_vol = float(self.dtype.type(1.0 / self._vol))
         px, py, pz = info.periodic
-        self._extend = HaloExtend(info)
+        self._extend = HaloExtend(info, self.grid.controllers)
 
         # Face validity masks for non-periodic boundaries.  "Face i" along
         # a dimension sits between cell i and cell (i+1) mod n; the
@@ -546,15 +551,16 @@ class Advection:
             mask_x[-1] = 0.0
         if not py:
             mask_y[-1] = 0.0
-        # z-face validity per (device, local plane); the face below plane g
-        # is the face above plane g-1
+        # z-face validity per (slot, local plane); the face below plane g
+        # is the face above plane g-1; this controller keeps its slots' rows
         zface_up = np.ones((D, nzl))
         if not pz:
             zface_up[-1, -1] = 0.0
         zface_dn = np.roll(zface_up.reshape(-1), 1).reshape(D, nzl)
         put = lambda a: torch.tensor(a, dtype=self.torch_dtype, device=self.device)
         self._mx, self._my = put(mask_x), put(mask_y)
-        self._mz_up, self._mz_dn = put(zface_up), put(zface_dn)
+        self._mz_up = put(zface_up[slots.start:slots.stop])
+        self._mz_dn = put(zface_dn[slots.start:slots.stop])
 
         #: which per-step path engaged: ("blocked_direct", B) / ("plane",)
         #: / ("xla",) — the JAX package's labels
@@ -595,7 +601,7 @@ class Advection:
                 rho_e, vx, vy, vz_e, self._mx, self._my, self._mz_up,
                 self._mz_dn, dt, area=self._area, inv_vol=self._inv_vol,
             )
-        D, nzl = self.dense.n_devices, self.dense.nz_local
+        D, nzl = len(self._slots), self.dense.nz_local
         if members:
             dt = dt.view(-1, 1, 1, 1, 1)
         return dense_step_arith(
@@ -606,7 +612,8 @@ class Advection:
         )
 
     def _dense_coords(self, ids):
-        """(device, local z, y, x) of given cell ids in the dense layout."""
+        """(slot, local z, y, x) of given cell ids in the dense layout (the
+        global slot; this controller's block starts at ``slots.start``)."""
         ids = np.asarray(ids, dtype=np.uint64)
         i = self.dense
         lin = (ids - np.uint64(1)).astype(np.int64)
@@ -653,31 +660,45 @@ class Advection:
             return self._exchange(state)
 
         i = self.dense
-        shape = (i.n_devices, i.nz_local, i.ny, i.nx)
-        d, zl, y, x = self._dense_coords(cells)
+        shape = (len(self._slots), i.nz_local, i.ny, i.nx)
+        mine, (d, zl, y, x) = self._local_coords(cells)
         state = {}
         for name in self.spec:
             host = np.zeros(shape, dtype=self.dtype)
             vals = values.get(name)
             if vals is not None:
-                host[d, zl, y, x] = vals
+                host[d, zl, y, x] = vals[mine]
             state[name] = torch.from_numpy(host).to(self.device)
         return state
 
+    def _local_coords(self, ids):
+        """Which of ``ids`` lie in this controller's slots, and their
+        (local slot, local z, y, x)."""
+        d, zl, y, x = self._dense_coords(ids)
+        lo, hi = self._slots.start, self._slots.stop
+        mine = (d >= lo) & (d < hi)
+        return mine, (d[mine] - lo, zl[mine], y[mine], x[mine])
+
     def get_cell_data(self, state, field: str, ids):
-        """Host-side per-cell read (dense or row layout)."""
+        """Host-side per-cell read (dense or row layout); a collective under
+        several controllers (every controller gets every value)."""
         if self.dense is None:
             return self.grid.get_cell_data(state, field, ids)
+        from ..utils.collectives import fetch
+
         d, zl, y, x = self._dense_coords(ids)
-        return state[field].cpu().numpy()[d, zl, y, x]
+        return fetch(state[field])[d, zl, y, x]
 
     def set_cell_data(self, state, field: str, ids, values):
-        """Host-side per-cell write; returns a new state."""
+        """Host-side per-cell write; returns a new state.  Under several
+        controllers every controller is given every value and keeps its
+        slots'."""
         if self.dense is None:
             return self.grid.set_cell_data(state, field, ids, values)
-        d, zl, y, x = self._dense_coords(ids)
+        mine, (d, zl, y, x) = self._local_coords(ids)
         host = state[field].cpu().numpy().copy()
-        host[d, zl, y, x] = values
+        vals = np.broadcast_to(np.asarray(values, dtype=host.dtype), mine.shape)
+        host[d, zl, y, x] = vals[mine]
         return {**state, field: torch.from_numpy(host).to(self.device)}
 
     def step(self, state, dt):
@@ -929,6 +950,10 @@ class Advection:
             s = torch.tensor(self._dx[axis], dtype=v.dtype, device=v.device) / v.abs()
             s = torch.where(torch.isfinite(s) & (s > 0), s, torch.inf)
             best = min(best, float(s.min()))
+        if self.grid.controllers.multi:
+            from ..utils.collectives import all_reduce
+
+            best = float(all_reduce([best], np.minimum))
         return best
 
     def compute_max_diff(self, state, diff_threshold: float):
@@ -939,7 +964,7 @@ class Advection:
         if self.dense is None:
             return self._general_max_diff(state, thr)
         rho = state["density"]
-        D, nzl = self.dense.n_devices, self.dense.nz_local
+        D, nzl = len(self._slots), self.dense.nz_local
 
         def rel(a, b):
             return torch.abs(a - b) / (torch.minimum(a, b) + thr)
@@ -1037,6 +1062,8 @@ class Advection:
             rho = fetch(state["density"])
             vol = 1.0 / np.where(self.inv_volume > 0, self.inv_volume, np.inf)
             return float((rho * vol * self._local_host).sum())
-        return float(
-            state["density"].cpu().numpy().astype(np.float64).sum() * self._vol
-        )
+        # every slot in the one-controller order (a collective), so the
+        # sum is the same bits whatever the controllers
+        from ..utils.collectives import fetch
+
+        return float(fetch(state["density"]).astype(np.float64).sum() * self._vol)

@@ -19,6 +19,10 @@ A port of the JAX package's ``models/game_of_life.py``, with two layouts:
   the halo two boundary rows a device — in plain torch, as the JAX package
   runs it in XLA.
 
+Under several controllers the dense loop runs on this controller's band
+of slots, its ring rows crossing the transport each turn (``HaloExtend``'s
+controller form); the whole-run kernel stays a one-slot path.
+
 The payload is uint32, as in the JAX package.  torch implements few
 operations for uint32 (no ``>`` or ``+`` on the CPU), so counts and the
 rule compute in int32 (the gather step) or float32 (the dense view, as in
@@ -75,14 +79,10 @@ class GameOfLife:
         self.use_kernels = bool(use_kernels)
         #: split-phase stepping on the row layout (no dense 2-D path)
         self.overlap = bool(overlap)
-        ctl = grid.controllers
         if self.overlap:
-            require_single(ctl, "GameOfLife(overlap=True)", "D6")
+            require_single(grid.controllers, "GameOfLife(overlap=True)", "D6")
         self.dense2d = (detect_dense2d(grid, hood_id)
                         if allow_dense and not self.overlap else None)
-        if self.dense2d is not None:
-            require_single(ctl, "GameOfLife's dense 2-D layout (pass "
-                           "allow_dense=False for the gather step)", "D1")
         self._exchange = grid.halo(hood_id)
         self.tables = None if self.overlap else StencilTables(grid, hood_id)
         #: whether ``run`` takes the whole-run kernel (``gol_run``)
@@ -171,24 +171,28 @@ class GameOfLife:
         D, nyl, nx = info["D"], info["nyl"], info["nx"]
         px, py = info["periodic"]
         self.fused = (self.use_kernels and D == 1 and gol_run_fits(nyl, nx))
-        self._ring = HaloExtend(D)
+        self._ring = HaloExtend(D, self.grid.controllers)
         dev = self.grid.device
         self._vx = _validity(nx, px, dev)
-        # boundary-row validity on open y: device 0's below-row and device
-        # D-1's above-row come from the ring wrap and must be dropped
+        # boundary-row validity on open y: slot 0's below-row and slot
+        # D-1's above-row come from the ring wrap and must be dropped; this
+        # controller keeps its slots' rows
+        slots = self.grid.slots
         ok_below = torch.ones((D, 1, 1), dtype=torch.float32, device=dev)
         ok_above = torch.ones((D, 1, 1), dtype=torch.float32, device=dev)
         if not py:
             ok_below[0] = 0
             ok_above[-1] = 0
-        self._ok_below, self._ok_above = ok_below, ok_above
+        self._ok_below = ok_below[slots.start:slots.stop]
+        self._ok_above = ok_above[slots.start:slots.stop]
 
     def _dense_board(self, rows):
-        """The float32 0/1 y-slab view ``[D, nyl, nx]`` of the row layout."""
+        """The float32 0/1 y-slab view ``[D, nyl, nx]`` of the row layout
+        (``[len(slots), nyl, nx]`` under several controllers)."""
         info = self.dense2d
         per = info["nyl"] * info["nx"]
         return (rows[:, :per].to(torch.int32) != 0).to(torch.float32).reshape(
-            info["D"], info["nyl"], info["nx"])
+            rows.shape[0], info["nyl"], info["nx"])
 
     def _dense_state(self, rows, a, cnt):
         """The row layout of the board ``a`` and the counts ``cnt``."""
@@ -206,9 +210,10 @@ class GameOfLife:
 
     def _dense_run(self, state, turns):
         """The JAX package's dense loop (``game_of_life.py:347-378``) over
-        ``[D, nyl, nx]``: each device's band of rows, its halo the two
-        boundary rows of its ring neighbors; the count and the rule are the
-        kernel twin's."""
+        ``[D, nyl, nx]``: each slot's band of rows, its halo the two
+        boundary rows of its ring neighbors (from the transport at a
+        controller's block ends); the count and the rule are the kernel
+        twin's."""
         rows = state["is_alive"]
         a = self._dense_board(rows)
         cnt = torch.zeros_like(a)

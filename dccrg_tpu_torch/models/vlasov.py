@@ -20,6 +20,12 @@ distribution block.  Two layouts:
   constant velocity as the face velocity, the ghost blocks refreshed by the
   halo exchange every step.
 
+Under several controllers the dense ``f`` is this controller's slots,
+``[len(grid.slots), nz_local, ...]``; the ring's edge planes cross the
+transport (``HaloExtend``'s controller form) and the step kernel takes
+them explicitly (its ring mode would wrap inside the block).  The row
+layout runs its gather step through the grid's halo.
+
 The two layouts differ by the O(dt) splitting error; mass is conserved
 exactly on both.  Boundaries follow ``grid.topology``: periodic dimensions
 wrap; open dimensions use vacuum inflow (f = 0 outside) with free outflow,
@@ -54,6 +60,7 @@ from ..ops.vlasov_kernel import (
     vlasov_step,
 )
 from ..parallel.dense import HaloExtend
+from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, ordered_sum)
 from .advection import build_face_tables, build_split_tables
@@ -65,13 +72,12 @@ class Vlasov:
     def __init__(self, grid, nv: int = 4, v_max: float = 1.0,
                  dtype=np.float32, use_kernels: bool = True,
                  overlap: bool = False):
-        from ..parallel.mesh import require_single
-
-        require_single(getattr(grid, "controllers", None), "Vlasov", "D3")
         self.grid = grid
         #: split-phase stepping on the general row layout, which this forces
         #: even on slab grids (the split form overlaps the gather path's halo)
         self.overlap = bool(overlap)
+        if self.overlap:
+            require_single(grid.controllers, "Vlasov(overlap=True)", "D6")
         self.info = grid.epoch.dense if not self.overlap else None
         self.nv = nv
         self.v_max = float(v_max)
@@ -104,32 +110,30 @@ class Vlasov:
 
     def _init_dense(self):
         info = self.info
-        D = info.n_devices
+        #: this controller's slots (all D under one controller): ``f`` is
+        #: ``[len(slots), nzl, ny, nx, B]``
+        self._slots = self.grid.slots
         l0 = self.grid.geometry.get_level_0_cell_length()
         self._inv_dx = (1.0 / l0).astype(np.float64)
         self._periodic = tuple(bool(p) for p in info.periodic)
-        self._extend = HaloExtend(info)
+        self._extend = HaloExtend(info, self.grid.controllers)
         self._vx, self._vy, self._vz = (self._vbT[d].contiguous() for d in range(3))
-        # open z: the ring's wrap-around planes below device 0 and above
-        # device D-1 are vacuum
-        self._lo_mask = self._hi_mask = None
-        if not self._periodic[2]:
-            shape = (D, 1, 1, 1, 1)
-            lo = torch.ones(shape, dtype=self.torch_dtype, device=self.device)
-            hi = torch.ones(shape, dtype=self.torch_dtype, device=self.device)
-            lo[0] = 0
-            hi[-1] = 0
-            self._lo_mask, self._hi_mask = lo, hi
         if self.use_kernels and self.dtype == np.float32:
             self._fused_block = pick_vlasov_block(
                 info.nz_local, info.ny, info.nx, self.B)
 
     def _edges(self, f, members=False):
-        """The ring's received planes (below, above) of every slab, vacuum
-        at an open z boundary (each member's own ring with ``members``)."""
+        """The ring's received planes (below, above) of every slab, exactly
+        0 below slot 0 and above slot D-1 on an open z (vacuum; the planes
+        ``ops.vlasov_kernel.ring_edges`` gives), each member's own ring
+        with ``members``."""
         lo, hi = self._extend.planes(f, members)
-        if self._lo_mask is not None:
-            lo, hi = lo * self._lo_mask, hi * self._hi_mask
+        if not self._periodic[2]:
+            a = 1 if members else 0
+            if self._slots.start == 0:
+                lo.select(a, 0).zero_()
+            if self._slots.stop == self.info.n_devices:
+                hi.select(a, -1).zero_()
         return lo.contiguous(), hi.contiguous()
 
     def _dense_step(self, f, dt, members=False):
@@ -137,9 +141,12 @@ class Vlasov:
         ``[W]`` tensor of the model dtype (kernel B7 takes every member in
         one launch)."""
         if self._fused_block:
-            # the kernel reads the slab ring's edge planes from f itself
+            # one controller: the kernel reads the slab ring's edge planes
+            # from f itself; several: its ring would wrap inside this
+            # controller's block, so it takes the controller ring's planes
+            lo, hi = (None, None) if self._extend.controllers is None else self._edges(f)
             return vlasov_step(
-                f, None, None, self._vx, self._vy, self._vz, dt,
+                f, lo, hi, self._vx, self._vy, self._vz, dt,
                 block=self._fused_block, inv_dx=self._inv_dx,
                 periodic=self._periodic)
         # the XLA body (vlasov.py:127-149): x and y split inside the slab,
@@ -190,7 +197,10 @@ class Vlasov:
             bnd_pos[d3][devs, rows] = np.where(hi, area, 0.0)
             bnd_neg[d3][devs, rows] = np.where(lo, area, 0.0)
         self._has_open = bool(bnd_pos.any() or bnd_neg.any())
-        put = lambda a: torch.tensor(a, dtype=self.torch_dtype, device=self.device)
+        # this controller's slots (all of them under one controller)
+        lo, hi = grid.slots.start, grid.slots.stop
+        put = lambda a: torch.tensor(a[:, lo:hi], dtype=self.torch_dtype,
+                                     device=self.device)
         self._dev["bnd_pos"], self._dev["bnd_neg"] = put(bnd_pos), put(bnd_neg)
         if self.overlap:
             self._inner, self._outer = build_split_tables(
@@ -270,13 +280,17 @@ class Vlasov:
             state = grid.set_cell_data(state, "f", cells, f)
             return grid.update_copies_of_remote_neighbors(state)
 
-        shape = (info.n_devices, info.nz_local, info.ny, info.nx, self.B)
+        # this controller's slots' cells (every cell under one controller)
+        slots = self._slots
+        shape = (len(slots), info.nz_local, info.ny, info.nx, self.B)
         host = np.zeros(shape, self.dtype)
         lin = (cells - np.uint64(1)).astype(np.int64)
         x = lin % info.nx
         y = (lin // info.nx) % info.ny
         z = lin // (info.nx * info.ny)
-        host[z // info.nz_local, z % info.nz_local, y, x] = f
+        d = z // info.nz_local
+        mine = (d >= slots.start) & (d < slots.stop)
+        host[d[mine] - slots.start, z[mine] % info.nz_local, y[mine], x[mine]] = f[mine]
         return {"f": torch.from_numpy(host).to(self.device)}
 
     def step(self, state, dt):
@@ -340,8 +354,11 @@ class Vlasov:
 
     def density(self, state) -> np.ndarray:
         """Velocity-space integral per spatial cell: ``[D, nzl, ny, nx]`` on
-        the dense layout, ``[D, R]`` rows on the general layout."""
-        return state["f"].cpu().numpy().astype(np.float64).sum(axis=-1)
+        the dense layout, ``[D, R]`` rows on the general layout — every
+        slot, whatever the controllers (a collective under several)."""
+        from ..utils.collectives import fetch
+
+        return fetch(state["f"]).astype(np.float64).sum(axis=-1)
 
     def total_mass(self, state) -> float:
         if self.info is None:
@@ -364,6 +381,7 @@ class Vlasov:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, scatter_rows, wide_enabled
 
+        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled() or self.info is not None:
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -439,6 +457,7 @@ class Vlasov:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
+        require_single(self.grid.controllers, "Vlasov.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         dtype = np.dtype(self.dtype)
         if self.info is not None:

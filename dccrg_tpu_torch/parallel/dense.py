@@ -6,9 +6,13 @@ x-fastest / z-slowest, ``dccrg_mapping.hpp:180-207``), stencils become
 shifted slices, and the halo exchange collapses to two plane transfers up
 and down the slab ring.
 
-In this package all D slabs live in one ``[D, nz_local, ny, nx]`` tensor on
-one device, so the ring's plane transfers are rolls of the top and bottom
-planes over the leading (device) axis.
+Under one controller all D slabs live in one ``[D, nz_local, ny, nx]``
+tensor on one device, so the ring's plane transfers are rolls of the top and
+bottom planes over the leading (slot) axis.  Under several controllers
+(``parallel/mesh.py``) each holds its block of slots, ``[len(slots),
+nz_local, ...]``: the planes between its own slots are still rolls, and the
+two that cross to the ring neighbours' controllers travel over the payload
+transport (``parallel/transport.py``).
 """
 from __future__ import annotations
 
@@ -98,16 +102,39 @@ def detect_dense2d(grid, hood_id):
 
 
 class HaloExtend:
-    """Per-device leading-axis halo of a ``[D, n_loc, ...]`` slab stack —
-    z planes for the 3-D slab layout, y rows for the 2-D one: device d
-    receives the top slice of device d-1 below its block and the bottom
-    slice of device d+1 above it (the ring's two transfers; for one
-    device the ring degenerates to the local wrap)."""
+    """Per-slot leading-axis halo of a ``[D, n_loc, ...]`` slab stack —
+    z planes for the 3-D slab layout, y rows for the 2-D one: slot d
+    receives the top slice of slot d-1 below its block and the bottom
+    slice of slot d+1 above it (the ring's two transfers; for one slot the
+    ring degenerates to the local wrap).
 
-    def __init__(self, info):
-        """``info``: a DenseInfo, or a plain device count."""
+    Under several controllers (``controllers.multi``) the stack is this
+    controller's block of slots, ``[len(slots), n_loc, ...]``, and the
+    planes are bit for bit those one controller's roll gives these slots:
+    the top plane of the last local slot goes to rank ``(r + 1) % P``, the
+    bottom plane of the first to rank ``(r - 1) % P``, and the matching
+    planes come back from them, in one transport batch a call.  The wrap
+    planes at an open end travel too; the model masks their faces as on one
+    controller.  Every controller calls :meth:`planes` in the same order."""
+
+    def __init__(self, info, controllers=None):
+        """``info``: a DenseInfo, or a plain slot count; ``controllers``: a
+        ``parallel.mesh.Controllers`` (None or a single one: the roll)."""
         self.info = info
         self.n_devices = info if isinstance(info, int) else info.n_devices
+        self.controllers = (controllers if controllers is not None
+                            and controllers.multi else None)
+        self._transport = None
+        if self.controllers is not None:
+            from .transport import Transport
+
+            self.controllers.local_slots(self.n_devices)   # D % P == 0
+            self._transport = Transport(self.controllers)
+
+    @property
+    def transport_bytes(self) -> int:
+        """Bytes this ring has sent to other controllers (0 under one)."""
+        return 0 if self._transport is None else self._transport.bytes_sent
 
     def __call__(self, blk: torch.Tensor, members: bool = False) -> torch.Tensor:
         """blk: ``[D, nzl, ...]`` (``[W, D, nzl, ...]`` with ``members``).
@@ -119,8 +146,30 @@ class HaloExtend:
         """The two received halo planes ``(below, above)``, each
         ``[D, 1, ...]``, without materializing the extended block.  With
         ``members`` the block is ``[W, D, nzl, ...]``, W independent slab
-        rings: each member's planes come from its own slots."""
+        rings: each member's planes come from its own slots (one controller
+        only)."""
         a = 1 if members else 0
         top = blk.narrow(a + 1, blk.shape[a + 1] - 1, 1)   # plane sent upward
         bot = blk.narrow(a + 1, 0, 1)                      # plane sent downward
-        return torch.roll(top, 1, a), torch.roll(bot, -1, a)
+        below, above = torch.roll(top, 1, a), torch.roll(bot, -1, a)
+        if self.controllers is None:
+            return below, above
+        if members:
+            from .mesh import require_single
+
+            require_single(self.controllers, "the slab ring of member stacks",
+                           "D7")
+        # the ring's two crossings: this block's first slot receives from
+        # the previous controller's last, its last from the next one's first
+        ctl = self.controllers
+        up, down = (ctl.rank + 1) % ctl.size, (ctl.rank - 1) % ctl.size
+        recv_lo, recv_hi = torch.empty_like(below[0]), torch.empty_like(above[-1])
+        # canonical order on every rank: sends (up, down), receives (below,
+        # above); with P = 2 both go to one peer, and its k-th receive from
+        # this rank meets this rank's k-th send
+        self._transport.exchange(
+            [(up, top[-1].contiguous()), (down, bot[0].contiguous())],
+            [(down, recv_lo), (up, recv_hi)])
+        below[0] = recv_lo
+        above[-1] = recv_hi
+        return below, above

@@ -98,9 +98,7 @@ class Controllers:
 
 #: the multi-controller forms not ported yet (``ROADMAP.md`` queue D)
 NOT_PORTED = {
-    "D1": "the dense slab ring (B1-B4)",
     "D2": "the flat forms with B5 / B6 and the boxed passes",
-    "D3": "the Vlasov step with B7",
     "D4": "Poisson, with B8 and the sharded torch solve",
     "D5": "particles",
     "D6": "the split-phase overlap steps",

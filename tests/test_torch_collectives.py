@@ -206,12 +206,6 @@ def _grid(length, D=2, max_ref=0, hood=1, refine=False):
     return g
 
 
-def _advection_dense():
-    from dccrg_tpu_torch import Advection
-
-    Advection(_grid((4, 4, 4), hood=0), dtype=np.float32)
-
-
 def _advection_flat_run():
     from dccrg_tpu_torch import Advection
 
@@ -232,12 +226,6 @@ def _advection_cohort():
     Advection(_grid((4, 4, 4), hood=0), allow_dense=False).batch_step_spec()
 
 
-def _gol_dense():
-    from dccrg_tpu_torch import GameOfLife
-
-    GameOfLife(_grid((6, 6, 1)))
-
-
 def _gol_overlap():
     from dccrg_tpu_torch import GameOfLife
 
@@ -250,10 +238,29 @@ def _gol_cohort():
     GameOfLife(_grid((6, 6, 1)), allow_dense=False).batch_step_spec()
 
 
-def _vlasov():
+def _vlasov_overlap():
     from dccrg_tpu_torch import Vlasov
 
-    Vlasov(_grid((4, 4, 4), hood=0), 4)
+    Vlasov(_grid((4, 4, 4), hood=0), 2, overlap=True)
+
+
+def _vlasov_cohort():
+    from dccrg_tpu_torch import Vlasov
+
+    Vlasov(_grid((4, 4, 4), hood=0), 2).batch_step_spec()
+
+
+def _vlasov_wide():
+    from dccrg_tpu_torch import Vlasov
+
+    Vlasov(_grid((4, 4, 4), max_ref=1, hood=0, refine=True), 2)._wide_spec()
+
+
+def _dense_ring_members():
+    from dccrg_tpu_torch.parallel.dense import HaloExtend
+
+    HaloExtend(2, _two_controllers()).planes(torch.zeros(3, 1, 2, 1, 4),
+                                             members=True)
 
 
 def _poisson():
@@ -284,10 +291,10 @@ def _rescale():
 
 
 @pytest.mark.parametrize("path,item", [
-    (_advection_dense, "D1"), (_gol_dense, "D1"), (_advection_flat_run, "D2"),
-    (_vlasov, "D3"), (_poisson, "D4"), (_particles, "D5"),
-    (_advection_overlap, "D6"), (_gol_overlap, "D6"),
-    (_advection_cohort, "D7"), (_gol_cohort, "D7"),
+    (_advection_flat_run, "D2"), (_poisson, "D4"), (_particles, "D5"),
+    (_advection_overlap, "D6"), (_gol_overlap, "D6"), (_vlasov_overlap, "D6"),
+    (_advection_cohort, "D7"), (_gol_cohort, "D7"), (_vlasov_cohort, "D7"),
+    (_vlasov_wide, "D7"), (_dense_ring_members, "D7"),
     (_lineage, "D9"), (_rescale, "D9"),
 ])
 def test_not_ported_across_controllers_raises(path, item):
@@ -296,8 +303,11 @@ def test_not_ported_across_controllers_raises(path, item):
 
 
 def test_gather_paths_build_across_controllers():
-    """The ported paths build under P > 1 with this controller's slots."""
-    from dccrg_tpu_torch import Advection, GameOfLife
+    """The ported paths build under P > 1 with this controller's slots:
+    the gather steps, and the dense slab ring's paths (dense advection,
+    the dense 2-D board, dense and row-layout Vlasov) with no
+    ``allow_dense=False``."""
+    from dccrg_tpu_torch import Advection, GameOfLife, Vlasov
 
     g = _grid((6, 6, 1))
     gol = GameOfLife(g, allow_dense=False)
@@ -306,3 +316,18 @@ def test_gather_paths_build_across_controllers():
     adv = Advection(_grid((4, 4, 4), max_ref=1, hood=0, refine=True),
                     allow_dense=False, use_kernels=False)
     assert adv._flat_run is None and adv.tables.local_mask.shape[0] == 1
+
+    dense = Advection(_grid((4, 4, 4), hood=0), dtype=np.float32)
+    assert dense.dense is not None and not dense.fused
+    assert dense.dense_kind == ("blocked_direct", 2)
+    assert dense._extend.controllers.multi
+    assert tuple(dense._mz_up.shape) == (1, 2)
+    board = GameOfLife(_grid((6, 6, 1)))
+    assert board.dense2d is not None and not board.fused
+    assert board._ring.controllers.multi
+    assert tuple(board._ok_below.shape) == (1, 1, 1)
+    vl = Vlasov(_grid((4, 4, 4), hood=0), 2)
+    assert vl.info is not None and vl._fused_block == 2
+    assert tuple(vl.initialize_state()["f"].shape) == (1, 2, 4, 4, 8)
+    rows = Vlasov(_grid((4, 4, 4), max_ref=1, hood=0, refine=True), 2)
+    assert rows.info is None and rows._dev["bnd_pos"].shape[1] == 1

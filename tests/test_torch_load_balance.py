@@ -459,6 +459,48 @@ def test_staged_balance_equals_one_shot(n_dev):
                                   g1.get_cell_data(s1, "rho", cells))
 
 
+def _staged_unsigned(pkg, n_dev, chunk):
+    """A 12x12 board at 30% alive with uint16 / uint32 / uint64 fields of
+    every bit, cells 1-29 weighted 4, moved by the staged balance in chunks
+    of ``chunk`` cells; returns (grid, migrated state, cells)."""
+    g = make_grid(pkg, "RCB", length=(12, 12, 1), n_dev=n_dev)
+    cells = g.get_cells()
+    rng = np.random.default_rng(3)
+    gol = (JGameOfLife if pkg is dccrg_tpu else GameOfLife)(g, allow_dense=False)
+    state = gol.new_state(alive_cells=cells[rng.random(len(cells)) < 0.3])
+    for name, t in (("u16", np.uint16), ("u32", np.uint32), ("u64", np.uint64)):
+        vals = rng.integers(0, np.iinfo(t).max, len(cells), dtype=t, endpoint=True)
+        more = g.set_cell_data(g.new_state({name: ((), t)}), name, cells, vals)
+        state = {**state, **more}
+    for c in range(1, 30):
+        g.set_cell_weight(c, 4.0)
+    g.initialize_balance_load()
+    while g.continue_balance_load(state, max_cells=chunk):
+        pass
+    return g, g.finish_balance_load(state), cells
+
+
+@pytest.mark.parametrize("chunk", [7, 20])
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_staged_balance_moves_unsigned_fields(n_dev, chunk):
+    """A Game of Life state (uint32) and uint16 / uint64 fields migrate in
+    chunks bitwise as the JAX package's staged balance moves them; the
+    board turns on after it as the JAX package's does."""
+    tg, ts, cells = _staged_unsigned(dccrg_tpu_torch, n_dev, chunk)
+    jg, js, _ = _staged_unsigned(dccrg_tpu, n_dev, chunk)
+    same_owners(jg, tg)
+    assert not np.array_equal(tg.leaves.owner, np.repeat(np.arange(n_dev), 144 // n_dev))
+    for k in js:
+        assert ts[k].dtype == getattr(torch, str(np.asarray(js[k]).dtype))
+        np.testing.assert_array_equal(tg.get_cell_data(ts, k, cells),
+                                      np.asarray(jg.get_cell_data(js, k, cells)))
+    tgol, jgol = GameOfLife(tg, allow_dense=False), JGameOfLife(jg, allow_dense=False)
+    ts = tgol.run(tg.update_copies_of_remote_neighbors(ts), 3)
+    js = jgol.run(jg.update_copies_of_remote_neighbors(js), 3)
+    np.testing.assert_array_equal(np.sort(tgol.alive_cells(ts)),
+                                  np.sort(np.asarray(jgol.alive_cells(js))))
+
+
 def test_staged_finish_drains_and_guards():
     g = make_grid(dccrg_tpu_torch, "GRAPH", length=(6, 6, 6), n_dev=4,
                   cell=(1 / 6,) * 3)

@@ -11,8 +11,12 @@ the gather advection with per-controller adaptation and balance.  Every
 controller must report the same result, equal to the port's one-controller
 run of the same scenarios and to the JAX package's single-controller run
 in this process (8 CPU devices), to the tolerances of
-``tests/test_multiprocess.py``.  Scenarios 6 (flat Poisson) and 8
-(particles) wait for their multi-controller forms (``ROADMAP.md`` D4, D5).
+``tests/test_multiprocess.py``.  The worker also holds two repairs:
+per-controller unrefines of one sibling family commit one parent (C2),
+and the staged balance migrates unsigned fields (C3).  Scenarios 6 (flat
+Poisson) and 8 (particles) wait for their multi-controller forms
+(``ROADMAP.md`` D4, D5); the dense slab ring's cases are
+``tests/test_torch_dense_ring.py``.
 """
 import hashlib
 import os
@@ -128,3 +132,73 @@ def test_matches_jax_single_controller(runs, tmp_path):
     save_grid_data(g2, st, path, spec, user_header=b"mp-test")
     with open(path, "rb") as f:
         assert res["ckpt"]["file_hash"] == _hash(np.frombuffer(f.read(), np.uint8))
+
+
+def test_unrefine_families_commit_one_parent(runs):
+    """C2: controllers that queue different children of one family (and
+    the same child of another) commit one parent a family: 32 leaves, the
+    one controller's leaves, owners and "mean" / "sum" parents, and the
+    JAX package's single-controller run with one child queued a family."""
+    from dccrg_tpu.utils.verify import verify_grid
+
+    res, nproc, D = runs[0][0], runs[2], runs[3]
+    got = res["unrefine_families"]
+    assert got["n_leaves"] == 32
+    g = _jax_grid((4, 4, 2), D, max_ref=1)
+    for cell, _ in W.C2_FAMILIES:
+        assert g.refine_completely(cell)
+    g.stop_refining()
+    cells = g.get_cells()
+    spec = {"rho": ((), np.float64), "q": ((), np.float64)}
+    st = g.new_state(spec)
+    st = g.set_cell_data(st, "rho", cells, np.sin(cells.astype(np.float64)))
+    st = g.set_cell_data(st, "q", cells, np.cos(3.0 * cells.astype(np.float64)))
+    for cell, child in W.C2_FAMILIES:
+        kids = g.mapping.get_all_children(np.asarray([cell], np.uint64))[0]
+        assert g.unrefine_completely(int(kids[child(0)]))
+    g.stop_refining()
+    st = g.remap_state(st, policy={"rho": {"unrefine": "mean"},
+                                   "q": {"unrefine": "sum"}})
+    verify_grid(g)
+    ids = g.get_cells()
+    want = {"ids": _hash(ids), "owner": _hash(np.asarray(g.leaves.owner, np.int64)),
+            "rho": _hash(np.asarray(g.get_cell_data(st, "rho", ids))),
+            "q": _hash(np.asarray(g.get_cell_data(st, "q", ids))),
+            "n_leaves": int(len(ids))}
+    assert got == want
+
+
+def test_staged_unsigned_fields_match_jax(runs):
+    """C3: the staged balance in chunks of 20 cells moves a Game of Life
+    state and uint16 / uint32 / uint64 fields across controllers bitwise
+    as the JAX package's staged balance does on one; the board turns on
+    after it as the JAX package's does."""
+    from dccrg_tpu.models import GameOfLife
+
+    res, D = runs[0][0], runs[3]
+    got = res["staged_unsigned"]
+    g = _jax_grid((12, 12, 1), D)
+    cells = g.get_cells()
+    rng = np.random.default_rng(3)
+    gol = GameOfLife(g, allow_dense=False)
+    st = gol.new_state(alive_cells=cells[rng.random(len(cells)) < 0.3])
+    extra = {k: rng.integers(0, np.iinfo(t).max, len(cells), dtype=t, endpoint=True)
+             for k, t in W.C3_FIELDS.items()}
+    more = g.new_state({k: ((), t) for k, t in W.C3_FIELDS.items()})
+    for k, v in extra.items():
+        more = g.set_cell_data(more, k, cells, v)
+    st = {**st, **more}
+    for c in range(1, 30):
+        g.set_cell_weight(c, 4.0)
+    g.initialize_balance_load()
+    while g.continue_balance_load(st, max_cells=20):
+        pass
+    st = g.finish_balance_load(st)
+    want = {"owner": _hash(np.asarray(g.leaves.owner, np.int64))}
+    for k in st:
+        want[k] = _hash(np.asarray(g.get_cell_data(st, k, cells)))
+    assert want["u64"] == _hash(extra["u64"])
+    gol = GameOfLife(g, allow_dense=False)
+    st = gol.run(g.update_copies_of_remote_neighbors(st), 2)
+    want["alive"] = _hash(np.sort(np.asarray(gol.alive_cells(st))))
+    assert got == want

@@ -1,13 +1,17 @@
 """One controller of the port's multi-controller tests
 (``tests/test_torch_multiprocess.py``).
 
-Run as ``python tests/torch_multiproc_worker.py D`` by
+Run as ``python tests/torch_multiproc_worker.py D [workdir [mode]]`` by
 ``dccrg_tpu_torch.parallel.mesh.launch`` (the controllers' environment:
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), it joins the
-gloo group on the CPU, runs the JAX package's multi-controller scenarios 1-5,
-7 and 9 (``tests/multiproc_worker.py``) on a grid of D slots, plus the
-gather advection with per-controller adaptation requests and balance, and
-prints one ``RESULT {json}`` line.  :func:`scenarios` with the single
+gloo group on the CPU and prints one ``RESULT {json}`` line.  Mode
+``scenarios`` (the default) runs the JAX package's multi-controller
+scenarios 1-5, 7 and 9 (``tests/multiproc_worker.py``) on a grid of D
+slots, the gather advection with per-controller adaptation requests and
+balance, per-controller unrefines of one sibling family (C2) and the
+staged migration of unsigned fields (C3); ``dense`` runs the dense slab
+ring's cases (:func:`dense_scenarios`, ``tests/test_torch_dense_ring.py``);
+``ring`` the ring's planes alone.  Each function with the single
 controller is the one-controller oracle: it applies every rank's requests
 itself, in rank order.
 """
@@ -204,6 +208,11 @@ def scenarios(ctl, nproc: int, D: int, workdir: str) -> dict:
                         "rho_hash": _hash(rho), "mass": adv.total_mass(sa),
                         "max_dt": adv.max_time_step(sa)}
 
+    # ---- C2 and C3: per-controller unrefines of one family, and the
+    # staged migration of unsigned fields
+    res["unrefine_families"] = unrefine_families(ctl, nproc, D)[0]
+    res["staged_unsigned"] = staged_unsigned(ctl, D)[0]
+
     # ---- 7: point-to-point Some_Reduce
     counts = np.asarray([g.get_local_cell_count(d) for d in range(D)], np.uint64)
     res["some_reduce"] = {"device0": int(some_reduce(g, counts, 0))}
@@ -213,6 +222,294 @@ def scenarios(ctl, nproc: int, D: int, workdir: str) -> dict:
     # ---- 9: enforced agreement for host mutators
     if ctl.multi:
         res["agreement"] = _agreement(ctl, g, D)
+    return res
+
+
+def _grid(ctl, D, length, max_ref=0, hood=1, lb="RCB", periodic=(False,) * 3,
+          cell=None):
+    from dccrg_tpu_torch import CartesianGeometry, Grid
+
+    g = (Grid().set_initial_length(length).set_maximum_refinement_level(max_ref)
+         .set_neighborhood_length(hood).set_load_balancing_method(lb)
+         .set_periodic(*periodic))
+    if cell is not None:
+        g = g.set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                           level_0_cell_length=cell)
+    return g.initialize(n_devices=D, device="cpu", controllers=ctl)
+
+
+#: C2's families: the cells refined first, and the child (by position in
+#: ``get_all_children``) each controller queues for unrefinement: the
+#: first family a different child a rank, the second the same child on
+#: every rank
+C2_FAMILIES = ((6, lambda p: (3 * p) % 8), (11, lambda p: 2))
+
+
+def unrefine_families(ctl, nproc, D):
+    """C2: on a 4x4x2 grid with cells 6 and 11 refined, every controller
+    queues the unrefine of a child of each (different children of 6, the
+    same child of 11); the one-controller oracle applies every rank's
+    requests in rank order, so it queues one child a family.  Returns
+    (hashes of the leaves, owners and the "mean" / "sum" remapped fields by
+    cell id, the arrays)."""
+    from dccrg_tpu_torch.utils.verify import verify_grid
+
+    g = _grid(ctl, D, (4, 4, 2), max_ref=1)
+    for cell, _ in C2_FAMILIES:
+        assert g.refine_completely(cell)
+    g.stop_refining()
+    cells = g.get_cells()
+    vals = {"rho": np.sin(cells.astype(np.float64)),
+            "q": np.cos(3.0 * cells.astype(np.float64))}
+    st = g.state_from_host({"rho": ((), np.float64), "q": ((), np.float64)},
+                           cells, vals)
+    for cell, child in C2_FAMILIES:
+        kids = g.mapping.get_all_children(np.asarray([cell], np.uint64))[0]
+        for p in _ranks(ctl, nproc):
+            assert g.unrefine_completely(int(kids[child(p)]))
+    g.stop_refining()
+    st = g.remap_state(st, policy={"rho": {"unrefine": "mean"},
+                                   "q": {"unrefine": "sum"}})
+    verify_grid(g)
+    ids = g.get_cells()
+    out = {"ids": ids, "owner": g.leaves.owner.astype(np.int64),
+           "rho": g.get_cell_data(st, "rho", ids), "q": g.get_cell_data(st, "q", ids)}
+    return {k: _hash(v) for k, v in out.items()} | {"n_leaves": int(len(ids))}, out
+
+
+#: C3's unsigned fields, filled with every bit (uint64 past 2**63)
+C3_FIELDS = {"u16": np.uint16, "u32": np.uint32, "u64": np.uint64}
+
+
+def staged_unsigned(ctl, D, chunk=20):
+    """C3: a 12x12 Game of Life board at 30% alive, cells 1-29 weighted 4,
+    migrated by the staged balance in chunks of ``chunk`` cells together
+    with uint16 / uint32 / uint64 fields; two turns after it.  Returns
+    (hashes of the owners, every field by cell id and the alive set after
+    the turns, the arrays)."""
+    from dccrg_tpu_torch import GameOfLife
+
+    g = _grid(ctl, D, (12, 12, 1))
+    cells = g.get_cells()
+    rng = np.random.default_rng(3)
+    gol = GameOfLife(g, allow_dense=False)
+    s = gol.new_state(alive_cells=cells[rng.random(len(cells)) < 0.3])
+    extra = {k: rng.integers(0, np.iinfo(t).max, len(cells), dtype=t, endpoint=True)
+             for k, t in C3_FIELDS.items()}
+    s = {**s, **g.state_from_host({k: ((), t) for k, t in C3_FIELDS.items()},
+                                  cells, extra)}
+    for c in range(1, 30):
+        g.set_cell_weight(c, 4.0)
+    g.initialize_balance_load()
+    while g.continue_balance_load(s, max_cells=chunk):
+        pass
+    s = g.finish_balance_load(s)
+    out = {"owner": g.leaves.owner.astype(np.int64)}
+    for k in s:
+        out[k] = g.get_cell_data(s, k, cells)
+    gol = GameOfLife(g, allow_dense=False)
+    s = gol.run(g.update_copies_of_remote_neighbors(s), 2)
+    out["alive"] = np.sort(gol.alive_cells(s))
+    return {k: _hash(v) for k, v in out.items()}, out
+
+
+# ------------------------------------------------ the dense slab ring (D1, D3)
+
+def ring_check(ctl, D, per_slot=3):
+    """The controller ring's planes of a ``[D, per_slot, 2, 5]`` stack of
+    distinct values (this controller's slots) against one controller's
+    roll of the whole stack, for float32 and int64; returns the planes'
+    hash (every slot, a collective)."""
+    import torch
+
+    from dccrg_tpu_torch.parallel.dense import HaloExtend
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    slots = ctl.local_slots(D)
+    out = []
+    for dtype in (torch.float32, torch.int64):
+        full = torch.arange(D * per_slot * 10, dtype=dtype).reshape(D, per_slot, 2, 5)
+        ring = HaloExtend(D, ctl)
+        below, above = ring.planes(full[slots.start:slots.stop].clone())
+        want_lo = torch.roll(full[:, -1:], 1, 0)[slots.start:slots.stop]
+        want_hi = torch.roll(full[:, :1], -1, 0)[slots.start:slots.stop]
+        assert torch.equal(below, want_lo) and torch.equal(above, want_hi), (
+            f"ring planes differ on slots {list(slots)}")
+        sent = 2 * 10 * full.element_size() if ctl.multi else 0
+        assert ring.transport_bytes == sent, (ring.transport_bytes, sent)
+        out += [fetch(below), fetch(above)]
+    return _hash(np.concatenate([a.reshape(-1).view(np.uint8) for a in out]))
+
+
+#: dense advection's forms: nz (by the slot count D), dtype, ``dense_kind``
+#: by D ("blocked" takes kernel B2, "plane" B3, "plain" the torch step)
+ADV_FORMS = {
+    "blocked": (lambda D: 48, np.float32, {8: ("blocked_direct", 2),
+                                           6: ("blocked_direct", 8)}),
+    "plane": (lambda D: 3 * D, np.float32, {8: ("plane",), 6: ("plane",)}),
+    "plain": (lambda D: 48, np.float64, {8: ("xla",), 6: ("xla",)}),
+}
+
+
+def adv_setup(ctl, D, form, periodic_z):
+    """A dense advection model on a 6x5xnz grid of D slots, its initial
+    state with a vz that crosses every z face (all six faces carry flux,
+    the open z ends too) and a dt."""
+    from dccrg_tpu_torch import Advection
+
+    nz_of, dtype, _ = ADV_FORMS[form]
+    nz = nz_of(D)
+    g = _grid(ctl, D, (6, 5, nz), hood=0, periodic=(True, True, periodic_z),
+              cell=(1 / 6, 1 / 5, 1 / nz))
+    adv = Advection(g, dtype=dtype)
+    s = adv.initialize_state()
+    cells = g.get_cells()
+    vz = 0.15 + 0.3 * np.sin(2 * np.pi * g.geometry.get_center(cells)[:, 2])
+    s = adv.set_cell_data(s, "vz", cells, vz)
+    return adv, s, 0.4 * adv.max_time_step(s)
+
+
+def adv_case(ctl, D, form, periodic_z, steps=6):
+    """Two steps, a run of ``steps``, the refinement indicator, the mass and
+    the CFL limit of :func:`adv_setup`'s model; the run's ring bytes."""
+    from dccrg_tpu_torch.convert import state_to_numpy
+
+    adv, s, dt = adv_setup(ctl, D, form, periodic_z)
+    assert adv.dense is not None and not adv.fused
+    out = {"kind": list(adv.dense_kind)}
+    for i in range(2):
+        s = adv.step(s, dt)
+        out[f"step{i}"] = _hash(state_to_numpy(s)["density"])
+    b0 = adv._extend.transport_bytes
+    s = adv.run(s, steps, dt)
+    out["run_bytes"] = adv._extend.transport_bytes - b0
+    out["run"] = _hash(state_to_numpy(s)["density"])
+    md = adv.compute_max_diff(s, 0.25)["max_diff"]
+    out["max_diff"] = _hash(state_to_numpy({"m": md})["m"])
+    out["mass"] = adv.total_mass(s)
+    out["max_dt"] = adv.max_time_step(s)
+    ids = adv.grid.get_cells()[::7]
+    out["by_id"] = _hash(adv.get_cell_data(s, "density", ids))
+    return out
+
+
+def board_setup(ctl, D, periodic_y):
+    """The dense 2-D board: 10x24 (24 rows divide over 8 and 6 slots) at
+    30% alive."""
+    from dccrg_tpu_torch import GameOfLife
+
+    g = _grid(ctl, D, (10, 24, 1), periodic=(False, periodic_y, False))
+    gol = GameOfLife(g)
+    cells = g.get_cells()
+    alive = cells[np.random.default_rng(5).random(len(cells)) < 0.3]
+    return gol, gol.new_state(alive_cells=alive)
+
+
+def board_case(ctl, D, periodic_y, turns=12):
+    gol, s = board_setup(ctl, D, periodic_y)
+    assert gol.dense2d is not None and not gol.fused
+    b0 = gol._ring.transport_bytes
+    s = gol.run(s, turns)
+    return {"alive": _hash(np.sort(gol.alive_cells(s))),
+            "run_bytes": gol._ring.transport_bytes - b0}
+
+
+def vlasov_setup(ctl, D, dtype, periodic_z, refine=False):
+    """Vlasov with nv = 2 on a dense 4x4x48 slab grid of D slots, or (with
+    ``refine``) the row layout on an 8^3 grid with a ball refined; its
+    initial state and a dt."""
+    from dccrg_tpu_torch import Vlasov
+
+    if refine:
+        g = _grid(ctl, D, (8, 8, 8), max_ref=1, hood=0,
+                  periodic=(True, True, periodic_z), cell=(1 / 8,) * 3)
+        ids = g.get_cells()
+        g.refine_completely_many(ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5,
+                                                    axis=1) < 0.3])
+        g.stop_refining()
+    else:
+        g = _grid(ctl, D, (4, 4, 48), hood=0, periodic=(True, True, periodic_z),
+                  cell=(1 / 4, 1 / 4, 1 / 48))
+    vl = Vlasov(g, nv=2, dtype=dtype)
+    s = vl.initialize_state()
+    return vl, s, vl._scalar(0.4 * vl.max_time_step())
+
+
+def vlasov_case(ctl, D, dtype, periodic_z, refine=False, steps=4):
+    from dccrg_tpu_torch.convert import state_to_numpy
+
+    vl, s, dt = vlasov_setup(ctl, D, dtype, periodic_z, refine)
+    out = {"fused_block": vl._fused_block, "dense": vl.info is not None}
+    b0 = vl._extend.transport_bytes if vl.info is not None else 0
+    s1 = vl.step(s, dt)
+    s = vl.run(s1, steps, dt)
+    if vl.info is not None:
+        out["run_bytes"] = vl._extend.transport_bytes - b0
+        out["step"] = _hash(state_to_numpy(s1)["f"])
+        out["run"] = _hash(state_to_numpy(s)["f"])
+    else:
+        ids = vl.grid.get_cells()
+        out["step"] = _hash(vl.grid.get_cell_data(s1, "f", ids))
+        out["run"] = _hash(vl.grid.get_cell_data(s, "f", ids))
+    out["mass"] = vl.total_mass(s)
+    out["density"] = _hash(vl.density(s))
+    return out
+
+
+def adapt_setup(ctl, D):
+    """Dense f64 advection on a periodic 6x6x24 grid that may refine once."""
+    from dccrg_tpu_torch import Advection
+
+    g = _grid(ctl, D, (6, 6, 24), max_ref=1, hood=0, periodic=(True,) * 3,
+              cell=(1 / 6, 1 / 6, 1 / 24))
+    adv = Advection(g)
+    s = adv.initialize_state()
+    return adv, s, 0.4 * adv.max_time_step(s)
+
+
+def adapt_case(ctl, D):
+    """Steps on the dense layout, ``check_for_adaptation`` and
+    ``adapt_grid`` (the hand-off to the row layout), steps after it."""
+    adv, s, dt = adapt_setup(ctl, D)
+    assert adv.dense is not None
+    for _ in range(3):
+        s = adv.step(s, dt)
+    s = adv.check_for_adaptation(s)
+    adv, s, new_cells, removed = adv.adapt_grid(s)
+    assert adv.dense is None and len(new_cells)
+    for _ in range(3):
+        s = adv.step(s, dt)
+    g = adv.grid
+    ids = g.get_cells()
+    return {"ids": _hash(ids), "owner": _hash(g.leaves.owner.astype(np.int64)),
+            "new_cells": int(len(new_cells)),
+            "rho": _hash(g.get_cell_data(s, "density", ids)),
+            "mass": adv.total_mass(s)}
+
+
+#: the dense cases of :func:`dense_scenarios`, by name
+DENSE_CASES = {
+    "adv_blocked_periodic": lambda c, D: adv_case(c, D, "blocked", True),
+    "adv_blocked_open": lambda c, D: adv_case(c, D, "blocked", False),
+    "adv_plane_periodic": lambda c, D: adv_case(c, D, "plane", True),
+    "adv_plane_open": lambda c, D: adv_case(c, D, "plane", False),
+    "adv_plain_periodic": lambda c, D: adv_case(c, D, "plain", True),
+    "adv_plain_open": lambda c, D: adv_case(c, D, "plain", False),
+    "board_open": lambda c, D: board_case(c, D, False),
+    "board_periodic": lambda c, D: board_case(c, D, True),
+    "vlasov_f32_open": lambda c, D: vlasov_case(c, D, np.float32, False),
+    "vlasov_f64_periodic": lambda c, D: vlasov_case(c, D, np.float64, True),
+    "vlasov_gather": lambda c, D: vlasov_case(c, D, np.float64, False, refine=True),
+    "adapt_from_dense": adapt_case,
+}
+
+
+def dense_scenarios(ctl, nproc: int, D: int) -> dict:
+    """Every dense case on D slots (the one-controller oracle runs them on
+    the same slots alone), and the ring's planes."""
+    res = {"nproc": nproc, "n_devices": D, "ring": ring_check(ctl, D)}
+    for name, case in DENSE_CASES.items():
+        res[name] = case(ctl, D)
     return res
 
 
@@ -277,9 +574,15 @@ def main() -> None:
 
     D = int(sys.argv[1])
     workdir = sys.argv[2] if len(sys.argv) > 2 else tempfile.gettempdir()
+    mode = sys.argv[3] if len(sys.argv) > 3 else "scenarios"
     ctl = mesh.setup(backend="gloo", device="cpu", timeout_s=90)
     try:
-        res = scenarios(ctl, ctl.size, D, workdir)
+        if mode == "dense":
+            res = dense_scenarios(ctl, ctl.size, D)
+        elif mode == "ring":
+            res = {"ring": ring_check(ctl, D)}
+        else:
+            res = scenarios(ctl, ctl.size, D, workdir)
     finally:
         mesh.teardown()
     mesh.result(res)
