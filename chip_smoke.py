@@ -310,8 +310,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 grid (nv = 4, run(5): B9 two launches a step); every slot's
                 result bitwise equal to the oracle's, the ring's bytes two
                 planes an exchange, the launches, bytes a step and wall ms a
-                step logged beside the oracle's.  ``python3 chip_smoke.py
-                --spmd-only`` runs this phase alone.
+                step logged beside the oracle's.  And the models (D2, D4,
+                D5) in the same processes, each against the oracle on the
+                same slots (SPMD_MODELS): the bench's Poisson grid (refined
+                32^3, 48,000 leaves, 64^3 voxels, f32, 60 iterations with no
+                early stop) through the flat voxel operator across
+                controllers (``BLOCK``: the ring's planes each matvec) and
+                through the rolled operator (``HSFC``: B9 pack + merge each
+                ghost refresh); 200,000 particles on the refined, balanced
+                16^3 grid (run(20), two exchanges a step, B9 on each);
+                the refined 48^3 grid's ``sharded`` form (run(50)) and
+                boxed passes (20 steps) and refined3's ``ml`` form (f64,
+                run(50)), all ``BLOCK``, riding the ring with no kernel;
+                the solution and iterations, the count, positions and lost
+                count, the density bitwise equal to the oracle's, the
+                operator space or flat kind, B9's launches a controller and
+                no twin checked; wall ms a step or iteration and ring or
+                transport bytes logged beside the oracle's.  ``python3
+                chip_smoke.py --spmd-only`` runs this phase alone.
 
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
 each sub-step of 30 and 31, and (in each controller) each part of 32
@@ -606,7 +622,7 @@ SPMD_SIZES = {
     "small": {"board": 60, "n": 12, "turns": 20, "steps": 5, "reps": 5},
 }
 #: the phase's budget, process start-ups included (logged beside its time)
-SPMD_BUDGET_S = 60.0
+SPMD_BUDGET_S = 90.0
 #: phase 32's dense cases (D1, D3): (controllers, slots a controller) of
 #: each; a case runs in the launch of its controller count, and the oracle
 #: runs it on one controller with the same slots.  "plane" takes 3 x 1
@@ -628,6 +644,32 @@ SPMD_DENSE = {
 }
 SPMD_DENSE_STEPS = {"headline": 50, "plane": 20, "board": 200, "vlasov": 20,
                     "vlasov_amr": 5}
+#: phase 32's models (D2, D4, D5), in the SPMD_CONTROLLERS launch at the
+#: bench's widths ("full") and in the 3 x 2 launch at "small" ones (by the
+#: slot count D: edges 2D, so the voxel z-slabs hold whole coarse blocks):
+#: the Poisson grid (bench.py:461-530: 32^3, the ball r < 0.25 refined
+#: once, f32, the bench's rhs; ``BLOCK`` for the flat operator's voxel
+#: z-slabs), the refined PIC grid (bench.py:52-53,431-450: 200,000
+#: particles of seed 1 on 16^3, the ball r < 0.25 refined once, HSFC
+#: balanced), the refined grid (bench.py:41-42: 48^3, the ball r < 0.3
+#: around (0.3, 0.5, 0.5), f32) for the ``sharded`` form and the boxed
+#: passes, refined3 (bench.py:43-45: 16^3, balls r < 0.6 and r < 0.55,
+#: f64) for ``ml``, all three ``BLOCK``.  Steps are cut: 60 iterations as
+#: the bench, run(20) particle steps (the bench: 50), run(50) flat steps
+#: (phase 27: 200), 20 boxed steps (phase 24: 200)
+SPMD_MODELS = {
+    "full": lambda D: {"poisson": 32, "pic": (200_000, 16), "refined": 48,
+                       "refined3": (16, (0.6, 0.55))},
+    "small": lambda D: {"poisson": 2 * D, "pic": (20_000, 2 * D), "refined": 2 * D,
+                        "refined3": (2 * D, (0.35, 0.25))},
+}
+#: the rolled Poisson operator's partition by slot count: its offset
+#: decomposition refuses the slabs that cut the ball on 8 BLOCK slots (17.7%
+#: exceptions on two of them, over its 15%), not HSFC's; on 6 slots of the
+#: small grid BLOCK's and not HSFC's
+SPMD_ROLLED_LB = {8: "HSFC", 6: "BLOCK"}
+SPMD_MODEL_STEPS = {"poisson": 60, "poisson_rolled": 60, "pic_refined_lb": 20,
+                    "sharded": 50, "ml": 50, "boxed": 20}
 
 
 def spmd_run(ctl, nproc, D, wd, device, size, dense=None) -> dict:
@@ -672,7 +714,7 @@ def spmd_run(ctl, nproc, D, wd, device, size, dense=None) -> dict:
         return out, LAUNCHES["ring_copy"], others, sum(PLAIN_CALLS.values()), secs
 
     ranks = [ctl.rank] if ctl.multi else list(range(nproc))
-    res = {"rank": ctl.rank, "backend": ctl.backend or "none"}
+    res = {"rank": ctl.rank, "backend": ctl.backend or "none", "n_devices": D}
     t0 = time.perf_counter()
 
     n = size["board"]
@@ -760,8 +802,141 @@ def spmd_run(ctl, nproc, D, wd, device, size, dense=None) -> dict:
     del ga, adv, sa, g3, s3
     if dense is not None:
         res["dense"] = spmd_dense(ctl, nproc, device, SPMD_DENSE[dense])
+    res["models"] = spmd_models(ctl, nproc, D, device, SPMD_MODELS[
+        "full" if size == SPMD_SIZES["full"] else "small"](D))
     res["s"] = time.perf_counter() - t0
     return res
+
+
+def spmd_models(ctl, nproc, D, device, widths) -> dict:
+    """Phase 32's models (D2, D4, D5) on the controllers ``ctl``
+    (``mesh.SINGLE``: the oracle on the same D slots): Poisson through the
+    flat voxel operator (its z-rolls' end planes over the ring) and the
+    rolled one (ghosts through B9 and the transport), particles on the
+    refined, balanced grid (two exchanges a step, B9 on each), and the
+    refined run's ``sharded`` and ``ml`` flat forms and boxed passes on the
+    ring.  Each case's timed part runs with the counts at 0.  Returns, a
+    case: hashes of the result by cell id, the form that engaged, the
+    launches and twin calls, the ring or transport bytes and wall ms a step
+    (an iteration)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, Particles, Poisson
+    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
+    from dccrg_tpu_torch.utils.collectives import barrier, fetch
+
+    def h(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    def sync():
+        barrier("spmd.models")
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def grid(n, radii, center, max_ref, lb, hood=0):
+        g = (Grid().set_initial_length((n, n, n)).set_neighborhood_length(hood)
+             .set_periodic(True, True, True).set_maximum_refinement_level(max_ref)
+             .set_load_balancing_method(lb)
+             .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                           level_0_cell_length=(1.0 / n,) * 3)
+             .initialize(n_devices=D, device=device, controllers=ctl))
+        for rad in radii:
+            ids = g.get_cells()
+            r = np.linalg.norm(g.geometry.get_center(ids) - np.asarray(center), axis=1)
+            lv = g.mapping.get_refinement_level(ids)
+            g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
+            g.stop_refining()
+        return g
+
+    def drive(fn, counter, steps):
+        """``fn()`` with the counts at 0: (its value, a record of the
+        launches, twin calls, bytes ``counter()`` grew by and wall ms a
+        step)."""
+        sync()
+        reset_counts()
+        b0 = counter()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t
+        return out, {"launches": {k: v for k, v in LAUNCHES.items() if v},
+                     "plain": sum(PLAIN_CALLS.values()), "steps": steps,
+                     "bytes": counter() - b0, "ms": secs / steps * 1e3}
+
+    out = {}
+    # Poisson: the flat voxel operator (BLOCK) and the rolled one
+    for case, lb, kw in (("poisson", "BLOCK", {}),
+                         ("poisson_rolled", SPMD_ROLLED_LB[D],
+                          {"allow_flat": False, "allow_rolled": True})):
+        iters = SPMD_MODEL_STEPS[case]
+        g = grid(widths["poisson"], (0.25,), (0.5, 0.5, 0.5), 1, lb)
+        cells = g.get_cells()
+        c = g.geometry.get_center(cells)
+        rhs = np.sin(2 * np.pi * c[:, 0]) * np.cos(2 * np.pi * c[:, 1])
+        p = Poisson(g, dtype=np.float32, **kw)
+        s = p.initialize_state(rhs - rhs.mean())
+        ring = p._flat_ring if p._flat_ring is not None else p._exchange
+        counter = (lambda: 0) if ring is None else (lambda r=ring: r.transport_bytes)
+        (o, res, it), rec = drive(lambda: p.solve(
+            s, max_iterations=iters, stop_residual=0.0,
+            stop_after_residual_increase=float("inf")), counter, iters)
+        sol = g.get_cell_data(o, "solution", cells)
+        rec.update(hashes={"solution": h(sol), "iterations": int(it), "residual": float(res)},
+                   form=p.operator_space, n_leaves=len(cells),
+                   finite=bool(np.isfinite(sol).all()))
+        out[case] = rec
+        del g, p, s, o
+    # particles on the refined, HSFC-balanced grid
+    n_pts, n_pic = widths["pic"]
+    g = grid(n_pic, (0.25,), (0.5, 0.5, 0.5), 1, "HSFC", hood=1)
+    g.balance_load()
+    pts = np.random.default_rng(1).uniform(0.0, 1.0, size=(n_pts, 3))
+    occ = np.bincount(g.leaves.position(g.get_existing_cell(pts)))
+    pc = Particles(g, max_particles_per_cell=2 * int(occ.max()))
+    vel = pc.velocity_field(lambda c: np.stack(
+        [0.5 - c[:, 1], c[:, 0] - 0.5, np.full(len(c), 0.05)], axis=-1))
+    s = pc.new_state(pts)
+    steps = SPMD_MODEL_STEPS["pic_refined_lb"]
+    o, rec = drive(lambda: pc.run(s, steps, velocity=vel, dt=0.1 / n_pic),
+                   lambda: pc._exchange.transport_bytes, steps)
+    cells = g.get_cells()
+    pos = g.leaves.position(cells)
+    d, r = g.leaves.owner[pos], g.epoch.row_of[pos]
+    cnt = fetch(o["number_of_particles"])[d, r]
+    xyz = fetch(o["particles"])[d, r]
+    xyz[np.arange(pc.P)[None, :] >= cnt[:, None]] = 0
+    rec.update(hashes={"counts": h(cnt), "coords": h(xyz), "count": pc.count(o),
+                       "lost": pc.lost(o)},
+               form="device" if pc._dev_rebucket is not None else "host",
+               n_leaves=len(cells), P=pc.P, finite=bool(np.isfinite(xyz).all()))
+    out["pic_refined_lb"] = rec
+    del g, pc, s, o, xyz
+    # the refined run's flat forms and boxed passes (BLOCK: the z-slabs)
+    for case in ("sharded", "boxed", "ml"):
+        if case == "ml":
+            n3, radii = widths["refined3"]
+            g = grid(n3, radii, (0.5, 0.5, 0.5), 2, "BLOCK")
+            dtype = np.float64
+        else:
+            g = grid(widths["refined"], (0.3,), (0.3, 0.5, 0.5), 1, "BLOCK")
+            dtype = np.float32
+        adv = Advection(g, dtype=dtype)
+        s = adv.initialize_state()
+        dt = 0.4 * adv.max_time_step(s)
+        run = adv._boxed_run if case == "boxed" else adv._flat_run.run
+        steps = SPMD_MODEL_STEPS[case]
+        o, rec = drive(lambda: run(s, steps, dt), lambda: run.ring.transport_bytes, steps)
+        cells = g.get_cells()
+        rho = g.get_cell_data(o, "density", cells)
+        rec.update(hashes={"density": h(rho)}, form=adv._flat_kind,
+                   prefer_boxed=adv._prefer_boxed, n_leaves=len(cells),
+                   finite=bool(np.isfinite(rho).all()))
+        out[case] = rec
+        del g, adv, s, o
+    return out
 
 
 def spmd_dense(ctl, nproc, device, widths) -> dict:
@@ -1014,6 +1189,7 @@ def spmd_phase(dev, card, device="cuda"):
             f"{one['gol']['alive_hash']}, density {one['advection']['rho_hash']}, owners "
             f"{one['advection']['owners_hash']}, checkpoint {one['ckpt']['file_hash']}")
         spmd_dense_check(res, one, nproc, backend, device, card)
+        spmd_models_check(res, one, nproc, backend, device, card)
         return res
 
     try:
@@ -1099,6 +1275,55 @@ def spmd_dense_check(res, one, nproc, backend, device, card):
                 f"controller x {nproc * per} slots: launches {want['launches']}, wall ms a "
                 f"step {want['ms']!r}; {'dense kind ' + str(rec['kind']) if 'kind' in rec else ''}"
                 f" bitwise equal on {card}")
+
+
+#: phase 32's models: the form each engages (``operator_space``,
+#: ``_flat_kind``, the re-bucket) and what it launches a controller in its
+#: timed part: B9 two an exchange around the transport (pack and merge) for
+#: the rolled operator (one ghost refresh an apply: the initial residual's
+#: and two an iteration) and the particles (counts and coordinates each
+#: step), nothing for the forms that ride the ring (B8 and B5 / B6 are one-
+#: slot kernels)
+SPMD_MODEL_FORMS = {"poisson": "flat", "poisson_rolled": "rolled",
+                    "pic_refined_lb": "device", "sharded": "sharded",
+                    "boxed": "sharded", "ml": "ml"}
+
+
+def _model_launches(case, steps):
+    return {"poisson_rolled": {"ring_copy": 2 * (2 * steps + 1)},
+            "pic_refined_lb": {"ring_copy": 4 * steps}}.get(case, {})
+
+
+def spmd_models_check(res, one, nproc, backend, device, card):
+    """Phase 32's models: every controller's result (by cell id) bitwise
+    equal to the oracle's on the same slots, the form that engaged, the
+    launches a controller and no twin (on the card), bytes sent; a line a
+    controller with its wall ms a step and bytes beside the oracle's."""
+    for case, want in one["models"].items():
+        for r in res:
+            rec = r["models"][case]
+            check(rec["hashes"] == want["hashes"],
+                  f"spmd {case} {nproc} controllers {backend}: controller {r['rank']} "
+                  f"{rec['hashes']} != one controller {want['hashes']}")
+            check(rec["finite"], f"spmd {case}: non-finite result")
+            check(rec["form"] == want["form"] == SPMD_MODEL_FORMS[case]
+                  and not rec.get("prefer_boxed"),
+                  f"spmd {case}: controller {r['rank']} took {rec['form']} "
+                  f"(one controller {want['form']})")
+            if device == "cuda":
+                check(rec["launches"] == _model_launches(case, rec["steps"])
+                      and not rec["plain"],
+                      f"spmd {case}: controller {r['rank']} launches {rec['launches']}, "
+                      f"twins {rec['plain']}")
+            check(rec["bytes"] > 0, f"spmd {case}: controller {r['rank']} sent nothing")
+            unit = "iteration" if case.startswith("poisson") else "step"
+            log(f"[spmd models] {case} ({rec['form']}, {rec['n_leaves']} leaves) {nproc} "
+                f"controllers x {r['n_devices'] // nproc} slots ({backend}), controller "
+                f"{r['rank']}: launches {rec['launches']} in "
+                f"{rec['steps']} {unit}s, bytes a {unit} {rec['bytes'] / rec['steps']!r} "
+                f"({rec['bytes']} in all), wall ms a {unit} {rec['ms']!r}; one controller: "
+                f"launches {want['launches']}, wall ms a {unit} {want['ms']!r}; "
+                f"{want['hashes']} bitwise equal on {card}")
 
 
 def resilience_phase(dev, card, drive, refined):

@@ -49,7 +49,11 @@ Under several controllers (``parallel/mesh.py``) the dense layout holds
 this controller's slots, ``[len(grid.slots), nz_local, ny, nx]``: the z
 ring's end planes cross the transport (``HaloExtend``'s controller form),
 reads are collectives and the sums keep the one-controller order, so
-every result is bitwise one controller's on the same slots.
+every result is bitwise one controller's on the same slots.  On a refined
+grid ``run`` takes the same form there as on one controller: the
+``sharded`` and ``ml`` flat forms and the boxed passes hold this
+controller's slots and ride the same z ring (B5 and B6 are one-slot
+kernels, and several controllers mean at least two slots).
 
 On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
 that fails to build or launch raises: there is no fallback to another path.
@@ -88,6 +92,7 @@ from ..parallel.dense import HaloExtend
 from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, ordered_sum, split_rows)
+from ..utils.collectives import assert_agreement
 
 __all__ = ["Advection", "build_face_tables", "build_split_tables",
            "FLAT_BOXED_EDGE", "ML_BOXED_EDGE"]
@@ -307,11 +312,13 @@ class _FlatRun:
 
 class _XlaFlatRun:
     """One of the flat XLA forms (``"ml"``, ``"sharded"``): its
-    ``run(state, steps, dt)`` and per-slot voxel ``shape``."""
+    ``run(state, steps, dt)``, per-slot voxel ``shape`` and z ``ring``
+    (``HaloExtend``)."""
 
     def __init__(self, run, shape):
         self.run = run
         self.shape = tuple(shape)
+        self.ring = run.ring
 
 
 class Advection:
@@ -372,10 +379,6 @@ class Advection:
                 grid, self.hood_id, host, self.dtype)
             self._ar = torch.arange(grid.n_devices, device=self.device)[:, None]
             return
-        if grid.controllers.multi:
-            # ``run`` refuses the flat forms under several controllers; the
-            # gather step needs none of their tables
-            return
         if self.allow_boxed:
             self._boxed = _UNBUILT
         self._flat_run = self._build_flat_run()
@@ -392,6 +395,10 @@ class Advection:
                 boxed_vol = sum(int(np.prod(b.shape))
                                 for b in self.boxed.boxes.values())
                 self._prefer_boxed = self._flat_n_vox > edge * boxed_vol
+        # replicated host metadata decides the form: the same on every
+        # controller, or no rank may step
+        assert_agreement("Advection run form",
+                         f"{self._flat_kind} {self._prefer_boxed}".encode())
 
     @property
     def boxed(self):
@@ -906,10 +913,6 @@ class Advection:
         step (the split step with ``overlap``) per step."""
         steps, dt = int(steps), self._scalar(dt)
         if self.dense is None:
-            if self.use_kernels:
-                require_single(self.grid.controllers, "Advection.run through "
-                               "the flat forms (use_kernels=True; step() and "
-                               "use_kernels=False take the gather step)", "D2")
             if self._prefer_boxed:
                 self._record_run("boxed", steps, state)
                 return self._boxed_run(state, steps, dt)

@@ -40,6 +40,11 @@ The z axis runs in one of two statically chosen modes:
   delivered exactly once per receiving cell; the per-step cross-slot
   traffic is 2 rho planes per level.
 
+Under several controllers (``parallel/mesh.py``) every controller builds the
+per-level tables for all slots from the replicated layout and keeps its own
+block of slots; the z ring is the controllers' slab ring (``HaloExtend``'s
+controller form: the two crossing planes a level over the transport).
+
 Velocities are loop-invariant inside a run, so all weights and upwind
 selections are computed once at run start; the loop body touches only
 density.  Produces the same update as the general gather path
@@ -100,8 +105,10 @@ def _pad_axis(x, dim, wrap):
 
 def build_boxed_run(adv, layout):
     """The ``run(state, steps, dt) -> state`` of ``adv`` (an ``Advection``
-    model) over ``layout`` (a ``BoxedLayout``).  Payloads are the model's
-    ``[D, R]`` rows; every array below carries the slot axis first."""
+    model) over ``layout`` (a ``BoxedLayout``), its z ring as
+    ``run.ring``.  Payloads are the model's ``[D, R]`` rows (this
+    controller's ``[len(slots), R]``); every array below carries the slot
+    axis first, this controller's slots of it."""
     dtype = np.dtype(adv.dtype)
     grid = adv.grid
     device = grid.device
@@ -115,7 +122,9 @@ def build_boxed_run(adv, layout):
     lvl_index = {b.level: i for i, b in enumerate(boxes)}
     pair_of_fine = {pr.fine_level: pr for pr in layout.pairs}
     L = len(boxes)
-    ring = HaloExtend(D)
+    ring = HaloExtend(D, grid.controllers)
+    # this controller's block of slots: k in [k0, k0 + Dl)
+    k0, Dl = grid.slots.start, len(grid.slots)
 
     def put(a, dt=None):
         t = torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -215,14 +224,15 @@ def build_boxed_run(adv, layout):
                 m[d][tuple(sl)] = False
 
         # z-slab stacking: slot k's padded rows are [k*nzl, k*nzl+nzl+2)
-        # of the global padded array; one slot: the whole padded box
-        def slab_pad(arr_g, nzl=nzl):               # padded global -> [D, ...]
+        # of the global padded array; one slot: the whole padded box.  This
+        # controller's slots only
+        def slab_pad(arr_g, nzl=nzl):               # padded global -> [Dl, ...]
             return np.stack([arr_g[..., k * nzl:k * nzl + nzl + 2, :, :]
-                             for k in range(D)])
+                             for k in range(k0, k0 + Dl)])
 
-        def slab_int(arr_g, nzl=nzl):               # interior global -> [D, ...]
+        def slab_int(arr_g, nzl=nzl):               # interior global -> [Dl, ...]
             return np.stack([arr_g[..., k * nzl:(k + 1) * nzl, :, :]
-                             for k in range(D)])
+                             for k in range(k0, k0 + Dl)])
 
         m_same_s = slab_pad(m_same)                 # [D, 3, nzl+2, by+2, bx+2]
         m_lowf_s = slab_pad(m_lowf)
@@ -235,10 +245,10 @@ def build_boxed_run(adv, layout):
         rows_s = slab_int(b.rows.reshape(bz, by, bx))
         leaf_s = slab_int(b.leaf_mask)
 
-        # final scatter: the flat [D*R] row of every leaf and its flat
-        # [D*nzl*by*bx] slab position (leaves only, no pad lanes)
-        k_idx, pos = np.nonzero(leaf_s.reshape(D, -1))
-        dst = k_idx * R + rows_s.reshape(D, -1)[k_idx, pos]
+        # final scatter: the flat [Dl*R] row of every leaf and its flat
+        # [Dl*nzl*by*bx] slab position (leaves only, no pad lanes)
+        k_idx, pos = np.nonzero(leaf_s.reshape(Dl, -1))
+        dst = k_idx * R + rows_s.reshape(Dl, -1)[k_idx, pos]
         src_pos = k_idx * (nzl * by * bx) + pos
 
         area = np.array(
@@ -257,7 +267,7 @@ def build_boxed_run(adv, layout):
         )
         statics.append(
             dict(
-                rows=put(rows_s.reshape(D, -1), torch.int64),
+                rows=put(rows_s.reshape(Dl, -1), torch.int64),
                 leaf=put(leaf_s),
                 use_rho=put(use_rho_s),
                 m_same=put(m_same_s),
@@ -394,7 +404,7 @@ def build_boxed_run(adv, layout):
         x = _pad_axis(x, 2, covers[1])
         return _pad_axis(x, 3, covers[0])
 
-    shapes = [(D,) + tuple(s["leaf"].shape[1:]) for s in statics]
+    shapes = [(Dl,) + tuple(s["leaf"].shape[1:]) for s in statics]
 
     def to_slab(flat, li):
         st = statics[li]
@@ -487,4 +497,5 @@ def build_boxed_run(adv, layout):
             "flux": torch.zeros_like(state["flux"]),
         }
 
+    run.ring = ring
     return run

@@ -31,6 +31,21 @@ Float32 on one device slot with a flat layout of at most two levels that
 fits (``bicg_fits``) solves in one launch of the whole-solve kernel
 (``ops/poisson_kernel.py::bicg_solve``; its twin on CPU tensors).  There is
 no fallback: a kernel that fails to build or launch raises.
+
+The BiCG dots add one partial a slot, in slot order
+(``utils/collectives.slot_sum``); one slot keeps its single sum.  So the
+iteration count and the solution are the same bits on any controller
+layout of the same slots.
+
+Under several controllers (``parallel/mesh.py``) every controller builds the
+replicated factors and tables and keeps its own slots' rows: the flat
+operator holds its block of z-slabs and takes the z-rolls' end planes over
+the slab ring; the rolled and gather operators refresh ghosts through the
+grid's halo (kernel B9, the transport, B9); the dots' partials meet in one
+all-gather.  Every controller asserts that it took the same operator space.
+The whole-solve kernel B8 stays a one-slot kernel, as in the JAX package:
+several controllers always mean at least two slots, so their solves run the
+torch loop.
 """
 from __future__ import annotations
 
@@ -41,7 +56,9 @@ from ..convert import numpy_dtype, torch_dtype
 from ..ops.flat_poisson import build_flat_poisson, make_flat_poisson_apply
 from ..ops.poisson_kernel import bicg_fits, bicg_loop, bicg_solve
 from ..ops.rolled_gather import build_rolled_matvec_multi, make_rolled_apply_multi
+from ..parallel.dense import HaloExtend
 from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
+from ..utils.collectives import assert_agreement, fetch, slot_sum
 
 __all__ = ["Poisson"]
 
@@ -60,9 +77,6 @@ class Poisson:
     def __init__(self, grid, hood_id=None, dtype=np.float64,
                  solve_cells=None, skip_cells=None, allow_flat=True,
                  use_kernels=True, allow_rolled=None):
-        from ..parallel.mesh import require_single
-
-        require_single(getattr(grid, "controllers", None), "Poisson", "D4")
         self.grid = grid
         self.hood_id = hood_id
         self.dtype = numpy_dtype(dtype)
@@ -76,6 +90,7 @@ class Poisson:
         self._build_cell_types(solve_cells, skip_cells)
         self._build_factors()
         self._flat_tables = None
+        self._flat_ring = None
         self._flat = self._build_flat() if allow_flat else None
         # the rolled operator replaces the [R, K] row gather where the flat
         # operator does not engage; by default on CUDA only, mirroring the
@@ -86,10 +101,21 @@ class Poisson:
         self._rolled = (self._build_rolled()
                         if allow_rolled and self._flat is None else None)
         self._solve_fast = self._build_fast_solver()
+        space = ("flat" if self._flat is not None else
+                 "rolled" if self._rolled is not None else "gather")
+        #: the operator space the BiCG loop runs in: "flat", "rolled" or
+        #: "gather" (host metadata decides it: the same on every controller)
+        self.operator_space = space
+        assert_agreement("Poisson operator space",
+                         f"{space} {self._solve_fast is not None}".encode())
 
     def _put(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(
             self.torch_dtype if dtype is None else dtype)
+
+    def _put_slots(self, a, dtype=None):
+        """``_put`` of this controller's slots of a per-slot host table."""
+        return self._put(self.grid.slot_view(a), dtype)
 
     def _build_flat(self):
         """The flat voxel operator (``ops/flat_poisson.py``), engaged when the
@@ -103,7 +129,11 @@ class Poisson:
         if t is None:
             return None
         self._flat_tables = t
-        return make_flat_poisson_apply(t, self.torch_dtype, self.device)
+        ctl = self.grid.controllers
+        #: the flat operator's slab ring across controllers (None on one)
+        self._flat_ring = HaloExtend(t["n_devices"], ctl) if ctl.multi else None
+        return make_flat_poisson_apply(t, self.torch_dtype, self.device,
+                                       slots=self.grid.slots, ring=self._flat_ring)
 
     def _build_cell_types(self, solve_cells, skip_cells):
         """Per-leaf role array (reference cache_system_info,
@@ -233,13 +263,13 @@ class Poisson:
             type_rows[d, : len(lp)] = types[lp]
             type_rows[d, len(lp) : len(lp) + len(gp)] = types[gp]
 
-        self._scaling = self._put(scaling_rows)
+        self._scaling = self._put_slots(scaling_rows)
         # the [D, R, K] multiplier tables go to the device only when the
         # gather operator runs (the solver's gather space or residual())
         self._mult_np = (mult_fwd, mult_rev)
         self._mult_dev = [None, None]
         self._scaling_np = scaling_rows
-        self._solve_mask = self.tables.local_mask & self._put(
+        self._solve_mask = self.tables.local_mask & self._put_slots(
             type_rows == self.SOLVE_CELL, torch.bool)
         # leaf-level factors kept for the flat operator
         # (ops/flat_poisson.py): per-(leaf, axis) side factors + diagonal
@@ -251,9 +281,9 @@ class Poisson:
 
     def _mult_table(self, i):
         """Device copy of the [D, R, K] multiplier table ``i`` (0 = fwd,
-        1 = transpose), uploaded on first use."""
+        1 = transpose; this controller's slots), uploaded on first use."""
         if self._mult_dev[i] is None:
-            self._mult_dev[i] = self._put(self._mult_np[i])
+            self._mult_dev[i] = self._put_slots(self._mult_np[i])
         return self._mult_dev[i]
 
     def _mult_tables(self):
@@ -279,7 +309,8 @@ class Poisson:
             if t is None:
                 return None
             applies.append(make_rolled_apply_multi(t, self.torch_dtype,
-                                                   self.device))
+                                                   self.device,
+                                                   slots=self.grid.slots))
 
         def wrap(ap):
             return lambda x: ap(self._exchange({"v": x})["v"])
@@ -318,11 +349,25 @@ class Poisson:
         dev = self.device
         zero = torch.zeros((), dtype=self.torch_dtype, device=dev)
         f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=dev)
+        n_slots = self.grid.n_devices
+        n_local = len(self.grid.slots)
+
+        def dot(a, b):
+            """The masked dot: one slot its single sum; else a partial a
+            slot (each in its own buffer, so no partial's reduction depends
+            on where its slot sits in this controller's block), added in
+            slot order over every controller (``slot_sum``)."""
+            prod = torch.where(dot_mask, a * b, zero)
+            if n_slots == 1:
+                return prod.sum()
+            per = prod.reshape(n_local, -1)
+            return slot_sum(torch.stack([per[d].clone().sum()
+                                         for d in range(n_local)]))
+
         best_x, best_res, i = bicg_loop(
             apply_fwd, apply_rev,
             torch.where(solve_mask, lift(state["rhs"]), zero),
-            lift(state["solution"]), solve_mask,
-            lambda a, b: torch.where(dot_mask, a * b, zero).sum(),
+            lift(state["solution"]), solve_mask, dot,
             max_iterations, f64(stop_residual), f64(stop_after_increase),
         )
         sol = torch.where(self.tables.local_mask, project(best_x), zero)
@@ -424,7 +469,10 @@ class Poisson:
         return state, float(res), int(it)
 
     def residual(self, state) -> float:
+        """||rhs - A·solution|| over the solve cells, on the gather
+        operator: a collective under several controllers (every slot's
+        rows gathered, one sum of squares, one ``sqrt``)."""
         Ax, _ = self._apply(state["solution"], self._mult_table(0))
         zero = torch.zeros((), dtype=Ax.dtype, device=Ax.device)
-        r = torch.where(self._solve_mask, state["rhs"] - Ax, zero).cpu().numpy()
+        r = fetch(torch.where(self._solve_mask, state["rhs"] - Ax, zero))
         return float(np.sqrt((r * r).sum()))

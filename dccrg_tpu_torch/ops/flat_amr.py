@@ -883,27 +883,40 @@ def build_flat_amr_sharded(grid):
 class _SlabRun:
     """What the two XLA forms share: the static row tables on the device,
     the per-slot voxel gather of a field, the z ring, and the write-back
-    ``where(wb_valid, out[wb_rows], density)``."""
+    ``where(wb_valid, out[wb_rows], density)``.
+
+    Under several controllers (``parallel/mesh.py``) every ``[D, ...]``
+    table is this controller's block of slots (:meth:`put_slots`), the ring
+    is the controllers' slab ring (``HaloExtend``'s controller form: two
+    planes over the transport a call), and the global z faces and open-z
+    masks keep the global slot index (:meth:`gface`)."""
 
     def __init__(self, grid, tables, dtype):
         from ..parallel.dense import HaloExtend
 
+        self.grid = grid
         self.device = grid.device
         self.dtype = dtype
+        #: every slot (``D``) and this controller's (``Dl``, from ``lo``)
         self.D = tables["n_devices"]
+        self.Dl, self.lo = len(grid.slots), grid.slots.start
         self.shape = tuple(tables["shape"])
-        self.ring = HaloExtend(self.D)
-        self.rows = self.put(tables["rows"], torch.int64)
-        self.wb_rows = self.put(tables["wb_rows"], torch.int64)
-        self.wb_valid = self.put(tables["wb_valid"], torch.bool)
+        self.ring = HaloExtend(self.D, grid.controllers)
+        self.rows = self.put_slots(tables["rows"], torch.int64)
+        self.wb_rows = self.put_slots(tables["wb_rows"], torch.int64)
+        self.wb_valid = self.put_slots(tables["wb_valid"], torch.bool)
 
     def put(self, a, dt=None):
         t = torch.as_tensor(np.ascontiguousarray(a), device=self.device)
         return t if dt is None else t.to(dt)
 
+    def put_slots(self, a, dt=None):
+        """:meth:`put` of this controller's slots of a ``[D, ...]`` table."""
+        return self.put(self.grid.slot_view(np.asarray(a)), dt)
+
     def field(self, rows_state):
         return (torch.gather(rows_state, 1, self.rows)
-                .reshape((self.D,) + self.shape).to(self.dtype))
+                .reshape((self.Dl,) + self.shape).to(self.dtype))
 
     def zext(self, v):
         below, above = self.ring.planes(v)
@@ -911,9 +924,10 @@ class _SlabRun:
 
     def gface(self):
         """Global z face index ``slot*nzl - 1 + j`` of the nzl+1 faces of
-        each slot's ringed slab, ``[D, nzl+1, 1, 1]``."""
+        each slot's ringed slab, ``[Dl, nzl+1, 1, 1]`` (global slots)."""
         nzl = self.shape[0]
-        d = torch.arange(self.D, device=self.device).view(-1, 1, 1, 1)
+        d = torch.arange(self.lo, self.lo + self.Dl,
+                         device=self.device).view(-1, 1, 1, 1)
         j = torch.arange(nzl + 1, device=self.device).view(1, -1, 1, 1)
         return d * nzl - 1 + j
 
@@ -922,7 +936,7 @@ class _SlabRun:
 
     def write_back(self, state, out):
         rho_rows = state["density"]
-        vals = torch.gather(out.reshape(self.D, -1), 1, self.wb_rows)
+        vals = torch.gather(out.reshape(self.Dl, -1), 1, self.wb_rows)
         rho = torch.where(self.wb_valid, vals.to(rho_rows.dtype), rho_rows)
         return {**state, "density": rho,
                 "flux": torch.zeros_like(state["flux"])}
@@ -939,8 +953,9 @@ class _SlabRun:
 
 
 def make_flat_amr_run_sharded(grid, tables, dtype=torch.float32):
-    """``run(state, steps, dt) -> state`` of the multi-slot two-level flat
-    form (the JAX package's ``make_flat_amr_run_sharded``, plain torch):
+    """``run(state, steps, dt) -> state`` (its z ring as ``run.ring``) of the
+    multi-slot two-level flat form (the JAX package's
+    ``make_flat_amr_run_sharded``, plain torch):
     per step two ringed voxel planes and one weighted flux pass plus the
     intra-slab 2x2x2 pool/broadcast (coarse blocks never straddle slabs).
     The weights are computed once a run from the ringed velocity fields,
@@ -952,9 +967,9 @@ def make_flat_amr_run_sharded(grid, tables, dtype=torch.float32):
     nd = _np_dtype(dtype)
     inv_vf = float(nd.type(1.0 / tables["vol_f"]))
     inv_vc = float(nd.type(1.0 / tables["vol_c"]))
-    leaf = sr.put(tables["leaf_fine"])
-    leaf_ext = sr.put(tables["leaf_ext"])
-    full = (D, nzl1, ny1, nx1)
+    leaf = sr.put_slots(tables["leaf_fine"])
+    leaf_ext = sr.put_slots(tables["leaf_ext"])
+    full = (sr.Dl, nzl1, ny1, nx1)
     updf = leaf.to(dtype) * inv_vf
     pool = (~leaf).to(dtype)
     updc = pool * inv_vc
@@ -1001,11 +1016,13 @@ def make_flat_amr_run_sharded(grid, tables, dtype=torch.float32):
             Vc = Vc + (delta * updf + s * updc)
         return sr.write_back(state, Vc)
 
+    run.ring = sr.ring
     return run
 
 
 def make_flat_ml_run(grid, tables, dtype=torch.float32):
-    """``run(state, steps, dt) -> state`` of the multi-level flat form (the
+    """``run(state, steps, dt) -> state`` (its z ring as ``run.ring``) of the
+    multi-level flat form (the
     JAX package's ``make_flat_ml_run``, plain torch, any slot count): per
     step two ringed voxel planes, one weighted flux pass, and the reshape
     pyramid — the coarse leaves' block sums pooled down one 2x2x2
@@ -1018,13 +1035,13 @@ def make_flat_ml_run(grid, tables, dtype=torch.float32):
     area = tables["area_f"]
     cap_active = tables["cap_active"]
     kmax = _kmax(cap_active)
-    lev, lev_ext = sr.put(tables["lev"]), sr.put(tables["lev_ext"])
-    lidx, lidx_ext = sr.put(tables["lidx"]), sr.put(tables["lidx_ext"])
+    lev, lev_ext = sr.put_slots(tables["lev"]), sr.put_slots(tables["lev_ext"])
+    lidx, lidx_ext = sr.put_slots(tables["lidx"]), sr.put_slots(tables["lidx_ext"])
     # volume tables stored in f64, shipped in the run's dtype
-    updf = sr.put(tables["updf"], dtype)
-    pool = sr.put(tables["pool"], dtype)
-    caps = [sr.put(c, dtype) for c in tables["caps"]]
-    full = (D, nzl, nyv, nxv)
+    updf = sr.put_slots(tables["updf"], dtype)
+    pool = sr.put_slots(tables["pool"], dtype)
+    caps = [sr.put_slots(c, dtype) for c in tables["caps"]]
+    full = (sr.Dl, nzl, nyv, nxv)
 
     def down2(a):
         D_, nz_, ny_, nx_ = a.shape
@@ -1086,4 +1103,5 @@ def make_flat_ml_run(grid, tables, dtype=torch.float32):
             Vc = Vc + out_add
         return sr.write_back(state, Vc)
 
+    run.ring = sr.ring
     return run

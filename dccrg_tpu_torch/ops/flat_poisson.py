@@ -27,8 +27,17 @@ package's ``ops/flat_poisson.py``:
 :func:`build_flat_poisson` is a copy of the JAX package's host builder.
 :func:`make_flat_poisson_apply` is the torch form of its operator.  With D
 device slots the voxel grid is still the whole ``[nz, ny, nx]`` array (the
-slots are z-slabs of it): the z-rolls cross the slabs by themselves, and
-coarse blocks never straddle slabs, so the pooling needs no slab split.
+slots are z-slabs of it): the z-rolls cross the slabs by themselves.
+Under several controllers (``parallel/mesh.py``) a controller holds its own
+block of z-slabs, ``[len(slots) * nzl, ny, nx]``, exactly its slice of the
+one-controller array: the z-rolls roll the block and take its two end
+planes from the neighbouring controllers over the slab ring
+(``parallel/dense.py::HaloExtend.cross``, one transport batch a matvec),
+circular even where z is open (the one-controller roll wraps too and the
+weights zero the wrapped face).  The coarse pooling runs slot by slot on
+any slot count: coarse blocks never straddle slabs, so a slot's own roll
+chain is the whole array's up to the sign of zero, and every controller
+layout of the same slots computes the same bits.
 """
 from __future__ import annotations
 
@@ -160,20 +169,31 @@ def build_flat_poisson(grid, f_pos, f_neg, scaling_leaf, types_leaf,
     )
 
 
-def roll_apply(v, W, scaling, accumulate, transpose):
+def roll_apply(v, W, scaling, accumulate, transpose, cross=None):
     """``scaling·v + accumulate(C)`` on a voxel array, C the six face terms:
     per axis x, y, z ``wp·v[+1] + wn·v[-1]``, or with ``transpose`` the same
     weights with reversed rolls, ``(wp·v)[-1] + (wn·v)[+1]`` (Cᵀ).  ``W``
     holds the ``(wp, wn)`` pairs in x, y, z order; ``accumulate`` maps the
     per-voxel face sums to leaf-row totals.  Terms add left to right, as
     the JAX package's body and the whole-solve kernel add them (its start
-    from zeros differs only in the sign of zero)."""
+    from zeros differs only in the sign of zero).
+
+    ``cross``: where ``v`` is one controller's block of z-slabs, the slab
+    ring's crossing (``HaloExtend.cross``): the two z-rolls then take their
+    end planes from the neighbouring controllers, ``v``'s own for A·v and
+    ``wp·v`` / ``wn·v``'s for Aᵀ·v, in one exchange."""
     C = None
     for (wp, wn), ax in zip(W, (2, 1, 0)):
         if transpose:
-            a, b = torch.roll(wp * v, 1, ax), torch.roll(wn * v, -1, ax)
+            pv, nv = wp * v, wn * v
+            a, b = torch.roll(pv, 1, ax), torch.roll(nv, -1, ax)
+            if ax == 0 and cross is not None:
+                a[0], b[-1] = cross(pv[-1], nv[0])
         else:
-            a, b = wp * torch.roll(v, -1, ax), wn * torch.roll(v, 1, ax)
+            a, b = torch.roll(v, -1, ax), torch.roll(v, 1, ax)
+            if ax == 0 and cross is not None:
+                b[0], a[-1] = cross(v[-1], v[0])
+            a, b = wp * a, wn * b
         C = a + b if C is None else C + a + b
     return scaling * v + accumulate(C)
 
@@ -184,15 +204,17 @@ def pool_two_level(C, coarse, orig, fine):
     even-aligned -1-roll chain, x then y then z), park the total at the
     block origin, then broadcast it back over the block.  The wrap planes
     only land on positions the orig/odd masking zeroes (blocks are
-    2-aligned), so the chain is exact on the whole array."""
+    2-aligned), so the chain is exact on the whole array, and on each slot's
+    slab of a ``[S, nzl, ny, nx]`` stack (the rolls take the last three
+    axes)."""
     s = C * coarse
-    s = s + torch.roll(s, -1, 2)
-    s = s + torch.roll(s, -1, 1)
-    s = s + torch.roll(s, -1, 0)
+    s = s + torch.roll(s, -1, -1)
+    s = s + torch.roll(s, -1, -2)
+    s = s + torch.roll(s, -1, -3)
     s = s * orig
-    s = s + torch.roll(s, 1, 2)
-    s = s + torch.roll(s, 1, 1)
-    s = s + torch.roll(s, 1, 0)
+    s = s + torch.roll(s, 1, -1)
+    s = s + torch.roll(s, 1, -2)
+    s = s + torch.roll(s, 1, -3)
     return fine * C + s
 
 
@@ -207,28 +229,47 @@ def _up2(a):
         nz * 2, ny * 2, nx * 2)
 
 
-def make_flat_poisson_apply(tables, dtype, device):
+def make_flat_poisson_apply(tables, dtype, device, slots=None, ring=None):
     """Returns ``(apply_fwd, apply_rev, voxelize, writeback, masks)``.
 
     ``apply_*`` map a voxel array to A·v / Aᵀ·v in voxel layout (coarse
     rows' results replicated over their blocks).  ``voxelize`` lifts a
     ``[D, R]`` row array onto the voxel grid; ``writeback`` projects a
     voxel array onto ``[D, R]`` rows.  ``masks`` holds the ``solve`` and
-    ``dot`` voxel masks (bool)."""
+    ``dot`` voxel masks (bool).
+
+    ``slots``: this controller's block of the D slots (a ``range``; default
+    all of them): the voxel arrays are its z-slabs ``[len(slots) * nzl, ny,
+    nx]`` and the rows its ``[len(slots), R]``.  ``ring``: the controllers'
+    slab ring (a ``HaloExtend`` over D slots) whose crossing feeds the
+    z-rolls' end planes; None on one controller."""
     D = tables["n_devices"]
-    shape = tuple(tables["shape"])
+    slots = range(D) if slots is None else slots
+    nz, ny, nx = (int(v) for v in tables["shape"])
+    nzl, Dl = nz // D, len(slots)
+    shape = (Dl * nzl, ny, nx)
+    z0, z1 = slots.start * nzl, slots.stop * nzl
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dt)
-    fine_f = put(tables["fine"], dtype)
-    coarse_f = put(~tables["fine"], dtype)
-    orig_f = put(tables["orig"], dtype)
-    scaling = put(tables["scaling"], dtype)
-    W = [(put(wp, dtype), put(wn, dtype)) for wp, wn in tables["weights"]]
+    # this controller's z-slabs of a whole-grid voxel array
+    loc = lambda a, dt: put(np.asarray(a)[z0:z1], dt)
+    fine_f = loc(tables["fine"], dtype)
+    coarse_f = loc(~tables["fine"], dtype)
+    orig_f = loc(tables["orig"], dtype)
+    scaling = loc(tables["scaling"], dtype)
+    W = [(loc(wp, dtype), loc(wn, dtype)) for wp, wn in tables["weights"]]
     has_coarse = tables["has_coarse"]
     vl = int(tables.get("vl", 1))
     cap_active = tables.get("cap_active") or []
     kmax = max((k for k in range(len(cap_active)) if cap_active[k]),
                default=-1)
-    caps = [put(m, dtype) for m in (tables.get("cap_masks") or [])]
+    # the capture masks at their doubling's resolution: slabs hold whole
+    # coarse blocks, so the block's slice is z0 / f .. z1 / f
+    caps = [put(np.asarray(m)[z0 >> (k + 1):z1 >> (k + 1)], dtype)
+            for k, m in enumerate(tables.get("cap_masks") or [])]
+    cross = None if ring is None else ring.cross
+    # the two-level pooling runs slot by slot (``pool_two_level``)
+    slabs = (Dl, nzl, ny, nx)
+    fine_s, coarse_s, orig_s = (a.view(slabs) for a in (fine_f, coarse_f, orig_f))
 
     def accum_ml(C):
         """Multi-level leaf-row totals: the reshape pyramid (plain block
@@ -256,29 +297,34 @@ def make_flat_poisson_apply(tables, dtype, device):
             return C
         if vl >= 2:
             return accum_ml(C)
-        return pool_two_level(C, coarse_f, orig_f, fine_f)
+        if D == 1:
+            return pool_two_level(C, coarse_f, orig_f, fine_f)
+        return pool_two_level(C.view(slabs), coarse_s, orig_s,
+                              fine_s).view(shape)
 
     def apply_fwd(v):
-        return roll_apply(v, W, scaling, accumulate, False)
+        return roll_apply(v, W, scaling, accumulate, False, cross)
 
     def apply_rev(v):
-        return roll_apply(v, W, scaling, accumulate, True)
+        return roll_apply(v, W, scaling, accumulate, True, cross)
 
     # one path for any D: rows [D, n_loc] (slot d's z-slab voxels, slabs in
-    # slot order along z) and wb_rows [D, R] (slab-local flat voxels)
-    rows = put(np.asarray(tables["rows"]).reshape(D, -1), torch.int64)
-    wb_rows = put(np.asarray(tables["wb_rows"]).reshape(D, -1), torch.int64)
-    wb_valid = put(np.asarray(tables["wb_valid"]).reshape(D, -1), torch.bool)
-    slot = torch.arange(D, device=device)[:, None]
+    # slot order along z) and wb_rows [D, R] (slab-local flat voxels), this
+    # controller's slots of them
+    sl = slice(slots.start, slots.stop)
+    rows = put(np.asarray(tables["rows"]).reshape(D, -1)[sl], torch.int64)
+    wb_rows = put(np.asarray(tables["wb_rows"]).reshape(D, -1)[sl], torch.int64)
+    wb_valid = put(np.asarray(tables["wb_valid"]).reshape(D, -1)[sl], torch.bool)
+    slot = torch.arange(Dl, device=device)[:, None]
 
     def voxelize(row_arr):
         return row_arr[slot, rows].reshape(shape).to(dtype)
 
     def writeback(vox_arr):
-        flat = vox_arr.reshape(D, -1)
+        flat = vox_arr.reshape(Dl, -1)
         zero = torch.zeros((), dtype=vox_arr.dtype, device=vox_arr.device)
         return torch.where(wb_valid, torch.gather(flat, 1, wb_rows), zero)
 
-    masks = dict(solve=put(tables["solve"], torch.bool),
-                 dot=put(tables["dot_mask"], torch.bool))
+    masks = dict(solve=loc(tables["solve"], torch.bool),
+                 dot=loc(tables["dot_mask"], torch.bool))
     return apply_fwd, apply_rev, voxelize, writeback, masks

@@ -160,29 +160,52 @@ def build_rolled_matvec_multi(nbr_rows, mult, scaling, *,
             "exc_idx": exc_idx, "exc_w": exc_w, "scaling": scaling}
 
 
-def make_rolled_apply_multi(tables, dtype, device):
+def make_rolled_apply_multi(tables, dtype, device, slots=None):
     """``apply(x: [D, R]) -> [D, R]`` from :func:`build_rolled_matvec_multi`
     tables, on ``device``: per-slot rolls along the row axis (offsets
-    ascending), then every slot's exceptions in one ``index_add_`` over the
-    flattened rows.  Ghost rows are the caller's to refresh first."""
+    ascending), then the exceptions by ``index_add_`` over the flattened
+    rows.  Ghost rows are the caller's to refresh first.
+
+    The exceptions go in rounds, the k-th exception of every row in round k,
+    so no round adds twice to one row: the sum is the entry order's (that of
+    one sequential ``index_add_``), and a CUDA ``index_add_``'s atomics
+    cannot reorder it.  The zero-weight entries that pad the slots' lists
+    add nothing and are left out.  ``slots``: this controller's block of the D slots
+    (a ``range``, default all): ``x`` is then ``[len(slots), R]``."""
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dt)
+    D = np.asarray(tables["scaling"]).shape[0]
+    sl = slice(0, D) if slots is None else slice(slots.start, slots.stop)
     offsets = list(tables["offsets"])
-    weights = put(tables["weights"], dtype)            # [D, T, R]
-    scaling = put(tables["scaling"], dtype)            # [D, R]
+    weights = put(np.asarray(tables["weights"])[sl], dtype)   # [D, T, R]
+    scaling = put(np.asarray(tables["scaling"])[sl], dtype)   # [D, R]
     D, R = scaling.shape
     base = np.arange(D, dtype=np.int64)[:, None] * R
-    exc_src = put((base + tables["exc_idx"]).reshape(-1), torch.int64)
-    exc_dst = put((base + tables["exc_r"]).reshape(-1), torch.int64)
-    exc_w = put(tables["exc_w"].reshape(-1), dtype)
-    has_exc = exc_w.numel() > 0
+    src = (base + np.asarray(tables["exc_idx"])[sl]).reshape(-1)
+    dst = (base + np.asarray(tables["exc_r"])[sl]).reshape(-1)
+    w = np.asarray(tables["exc_w"])[sl].reshape(-1)
+    # the per-slot right-padding (zero weights at row 0) adds only zeros:
+    # dropped, it would otherwise make a round of every pad entry
+    real = w != 0
+    src, dst, w = src[real], dst[real], w[real]
+    # each entry's rank among the earlier entries of its row
+    order = np.argsort(dst, kind="stable")
+    ds = dst[order]
+    first = np.r_[0, np.flatnonzero(np.diff(ds)) + 1] if len(ds) else np.zeros(0, np.int64)
+    rank = np.empty(len(dst), np.int64)
+    rank[order] = np.arange(len(ds)) - np.repeat(first, np.diff(np.r_[first, len(ds)]))
+    rounds = [(put(dst[rank == k], torch.int64), put(src[rank == k], torch.int64),
+               put(w[rank == k], dtype))
+              for k in range(int(rank.max()) + 1 if len(rank) else 0)]
 
     def apply(x):
         y = scaling * x
         for t, o in enumerate(offsets):
             y = y + weights[:, t] * torch.roll(x, -o, 1)
-        if has_exc:
-            y = y.reshape(-1).index_add_(
-                0, exc_dst, exc_w * x.reshape(-1)[exc_src]).reshape(D, R)
+        if rounds:
+            xf, y = x.reshape(-1), y.reshape(-1)
+            for exc_dst, exc_src, exc_w in rounds:
+                y = y.index_add_(0, exc_dst, exc_w * xf[exc_src])
+            y = y.reshape(D, R)
         return y
 
     return apply

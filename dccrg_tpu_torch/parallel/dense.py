@@ -161,15 +161,26 @@ class HaloExtend:
                            "D7")
         # the ring's two crossings: this block's first slot receives from
         # the previous controller's last, its last from the next one's first
+        below[0], above[-1] = self.cross(top[-1], bot[0])
+        return below, above
+
+    def cross(self, up: torch.Tensor, down: torch.Tensor):
+        """The controller ring's two crossings alone: send ``up`` to rank
+        ``(r + 1) % P`` and ``down`` to rank ``(r - 1) % P``; return what
+        arrives ``(from below, from above)`` — the previous rank's ``up``
+        and the next rank's ``down``.  One transport batch; every
+        controller calls it in the same order.  Under one controller the
+        ring closes on itself: ``(up, down)``."""
+        if self.controllers is None:
+            return up, down
         ctl = self.controllers
-        up, down = (ctl.rank + 1) % ctl.size, (ctl.rank - 1) % ctl.size
-        recv_lo, recv_hi = torch.empty_like(below[0]), torch.empty_like(above[-1])
+        to_up, to_down = (ctl.rank + 1) % ctl.size, (ctl.rank - 1) % ctl.size
+        recv_lo = torch.empty(up.shape, dtype=up.dtype, device=up.device)
+        recv_hi = torch.empty(down.shape, dtype=down.dtype, device=down.device)
         # canonical order on every rank: sends (up, down), receives (below,
         # above); with P = 2 both go to one peer, and its k-th receive from
         # this rank meets this rank's k-th send
         self._transport.exchange(
-            [(up, top[-1].contiguous()), (down, bot[0].contiguous())],
-            [(down, recv_lo), (up, recv_hi)])
-        below[0] = recv_lo
-        above[-1] = recv_hi
-        return below, above
+            [(to_up, up.contiguous()), (to_down, down.contiguous())],
+            [(to_down, recv_lo), (to_up, recv_hi)])
+        return recv_lo, recv_hi

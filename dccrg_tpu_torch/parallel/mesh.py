@@ -98,9 +98,6 @@ class Controllers:
 
 #: the multi-controller forms not ported yet (``ROADMAP.md`` queue D)
 NOT_PORTED = {
-    "D2": "the flat forms with B5 / B6 and the boxed passes",
-    "D4": "Poisson, with B8 and the sharded torch solve",
-    "D5": "particles",
     "D6": "the split-phase overlap steps",
     "D7": "cohorts and the fleet",
     "D9": "the resilience layer (lineage commits, rescale, supervision)",

@@ -31,6 +31,7 @@ __all__ = [
     "barrier",
     "all_gather",
     "all_reduce",
+    "slot_sum",
     "some_reduce",
     "some_reduce_p2p",
     "halo_peers",
@@ -129,6 +130,24 @@ def fetch(x, dtype=None) -> np.ndarray:
         if process_count() > 1:
             out = np.concatenate(_gather_bytes(out), axis=0)
     return out if dtype is None else out.astype(dtype, copy=False)
+
+
+def slot_sum(partials):
+    """The sum over every slot of per-slot partials, ``partials`` a
+    ``[len(slots)]`` device tensor of this controller's slots, added in slot
+    order: the same bits on any controller layout of the same slots.  Under
+    several controllers the partials of all of them arrive by an all-gather
+    (:func:`fetch`), never by a backend all-reduce, whose order is the
+    backend's.  A collective: every controller calls it in the same
+    order."""
+    import torch
+
+    if process_count() > 1:
+        partials = torch.from_numpy(fetch(partials)).to(partials.device)
+    acc = partials[0]
+    for i in range(1, partials.shape[0]):
+        acc = acc + partials[i]
+    return acc
 
 
 def _process_allgather(x: np.ndarray) -> np.ndarray:

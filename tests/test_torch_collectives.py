@@ -206,14 +206,6 @@ def _grid(length, D=2, max_ref=0, hood=1, refine=False):
     return g
 
 
-def _advection_flat_run():
-    from dccrg_tpu_torch import Advection
-
-    adv = Advection(_grid((4, 4, 4), max_ref=1, hood=0, refine=True),
-                    allow_dense=False)
-    adv.run(adv.grid.new_state(adv.spec), 1, 0.01)
-
-
 def _advection_overlap():
     from dccrg_tpu_torch import Advection
 
@@ -263,18 +255,6 @@ def _dense_ring_members():
                                              members=True)
 
 
-def _poisson():
-    from dccrg_tpu_torch import Poisson
-
-    Poisson(_grid((4, 4, 4), hood=0))
-
-
-def _particles():
-    from dccrg_tpu_torch import Particles
-
-    Particles(_grid((4, 4, 4), hood=1))
-
-
 def _lineage():
     from dccrg_tpu_torch.resilience import CheckpointLineage
 
@@ -291,7 +271,6 @@ def _rescale():
 
 
 @pytest.mark.parametrize("path,item", [
-    (_advection_flat_run, "D2"), (_poisson, "D4"), (_particles, "D5"),
     (_advection_overlap, "D6"), (_gol_overlap, "D6"), (_vlasov_overlap, "D6"),
     (_advection_cohort, "D7"), (_gol_cohort, "D7"), (_vlasov_cohort, "D7"),
     (_vlasov_wide, "D7"), (_dense_ring_members, "D7"),
@@ -331,3 +310,71 @@ def test_gather_paths_build_across_controllers():
     assert tuple(vl.initialize_state()["f"].shape) == (1, 2, 4, 4, 8)
     rows = Vlasov(_grid((4, 4, 4), max_ref=1, hood=0, refine=True), 2)
     assert rows.info is None and rows._dev["bnd_pos"].shape[1] == 1
+
+
+@pytest.mark.parametrize("space", ["flat", "rolled", "gather"])
+def test_poisson_builds_across_controllers(space):
+    """Poisson in each operator space under P > 1, this controller's slots
+    only (controller 0 of 2 holds slot 0 of 2): the flat operator's block of
+    z-slabs and its ring, the rolled and gather tables' rows."""
+    from dccrg_tpu_torch import Poisson
+
+    g = _grid((4, 4, 4), max_ref=1, hood=0, refine=True)
+    p = Poisson(g, allow_flat=space == "flat", allow_rolled=space == "rolled")
+    assert p.operator_space == space and p._solve_fast is None
+    assert tuple(p._scaling.shape) == (1, g.epoch.R)
+    assert tuple(p._solve_mask.shape) == (1, g.epoch.R)
+    if space == "gather":
+        assert tuple(p._mult_table(0).shape) == (1,) + g.epoch.hoods[None].nbr_rows.shape[1:]
+    if space == "flat":
+        _fwd, _rev, voxelize, writeback, masks = p._flat
+        # 8 voxel planes over 2 slots: this controller's 4
+        assert tuple(masks["solve"].shape) == (4, 8, 8)
+        vox = voxelize(torch.ones(1, g.epoch.R, dtype=torch.float64))
+        assert tuple(vox.shape) == (4, 8, 8)
+        assert tuple(writeback(vox).shape) == (1, g.epoch.R)
+
+
+def test_particles_build_across_controllers():
+    """Particles under P > 1: the state, the re-bucket's tables and a
+    velocity field hold this controller's slots."""
+    from dccrg_tpu_torch import Particles
+
+    g = _grid((4, 4, 4), max_ref=1, hood=1, refine=True)
+    pc = Particles(g, 8, dtype=np.float64)
+    assert pc._dev_rebucket is not None
+    s = pc.new_state(np.random.default_rng(1).uniform(0, 1, (20, 3)))
+    assert tuple(s["particles"].shape) == (1, g.epoch.R, 8, 3)
+    assert tuple(s["number_of_particles"].shape) == (1, g.epoch.R)
+    assert pc.velocity_field(lambda c: c).shape == (2, g.epoch.R, 3)
+    assert tuple(pc._velocity(pc.velocity_field(lambda c: c)).shape) == (1, g.epoch.R, 3)
+
+
+def _three_level_grid():
+    g = _grid((4, 4, 8), max_ref=2, hood=0)
+    for _ in range(2):
+        ids = g.get_cells()
+        lv = g.mapping.get_refinement_level(ids)
+        g.refine_completely(int(ids[lv == lv.max()][0]))
+        g.stop_refining()
+    return g
+
+
+@pytest.mark.parametrize("form", ["sharded", "ml", "boxed"])
+def test_flat_forms_build_across_controllers(form):
+    """Advection's refined run forms under P > 1: the ``sharded`` and
+    ``ml`` flat forms and the boxed passes build on this controller's slots
+    and its slab ring (``HaloExtend``'s controller form)."""
+    from dccrg_tpu_torch import Advection
+
+    if form == "ml":
+        g = _three_level_grid()
+    else:
+        g = _grid((4, 4, 4), max_ref=1, hood=0, refine=True)
+    adv = Advection(g, dtype=np.float32)
+    assert adv._flat_kind == ("ml" if form == "ml" else "sharded")
+    assert not adv._prefer_boxed
+    if form == "boxed":
+        assert adv._boxed_run is not None and adv.boxed.n_devices == 2
+    else:
+        assert adv._flat_run is not None

@@ -14,8 +14,9 @@ in this process (8 CPU devices), to the tolerances of
 ``tests/test_multiprocess.py``.  The worker also holds two repairs:
 per-controller unrefines of one sibling family commit one parent (C2),
 and the staged balance migrates unsigned fields (C3).  Scenarios 6 (flat
-Poisson) and 8 (particles) wait for their multi-controller forms
-(``ROADMAP.md`` D4, D5); the dense slab ring's cases are
+Poisson) and 8 (particles), with Poisson's other operator spaces, the
+particles' remap and the refined advection run's flat and boxed forms, are
+``tests/test_torch_models_spmd.py``; the dense slab ring's cases are
 ``tests/test_torch_dense_ring.py``.
 """
 import hashlib

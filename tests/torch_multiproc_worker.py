@@ -11,6 +11,8 @@ slots, the gather advection with per-controller adaptation requests and
 balance, per-controller unrefines of one sibling family (C2) and the
 staged migration of unsigned fields (C3); ``dense`` runs the dense slab
 ring's cases (:func:`dense_scenarios`, ``tests/test_torch_dense_ring.py``);
+``models`` Poisson, particles and the refined advection run's flat and boxed
+forms (:func:`model_scenarios`, ``tests/test_torch_models_spmd.py``);
 ``ring`` the ring's planes alone.  Each function with the single
 controller is the one-controller oracle: it applies every rank's requests
 itself, in rank order.
@@ -513,6 +515,257 @@ def dense_scenarios(ctl, nproc: int, D: int) -> dict:
     return res
 
 
+# ------------------- Poisson (D4), particles (D5), the flat and boxed forms (D2)
+
+def _slabs_hash(ctl, D, vox, nzl):
+    """Hash of a flat voxel block ``[len(slots) * nzl, ny, nx]`` as every
+    slot's ``[D, nzl, ny, nx]`` (a collective)."""
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    return _hash(fetch(vox.reshape(len(ctl.local_slots(D)), nzl, *vox.shape[1:])))
+
+
+def poisson_s6(ctl, D):
+    """The JAX worker's scenario 6: the flat voxel BiCG on an n = D periodic
+    uniform grid, hood 0, f64, 25 iterations with no early stop.  Returns
+    the model, the solve's output state, residual and iterations."""
+    from dccrg_tpu_torch import Poisson
+
+    g = _grid(ctl, D, (D, D, D), hood=0, periodic=(True,) * 3,
+              cell=(1.0 / D,) * 3)
+    cells = g.get_cells()
+    cen = g.geometry.get_center(cells)
+    p = Poisson(g)
+    s = p.initialize_state(np.sin(2 * np.pi * cen[:, 0]) * np.cos(2 * np.pi * cen[:, 1]))
+    out, res, it = p.solve(s, max_iterations=25, stop_residual=0.0,
+                           stop_after_residual_increase=float("inf"))
+    return p, out, res, it
+
+
+def refined_poisson_grid(ctl, D, periodic_z=True, levels=1):
+    """A 4x4x24 grid (24 level-0 planes divide over 8 and 6 slots) with a
+    ball refined ``levels`` times, ``BLOCK``: the voxel z-slab ownership
+    the flat operator takes."""
+    g = _grid(ctl, D, (4, 4, 24), max_ref=levels, hood=0, lb="BLOCK",
+              periodic=(True, True, periodic_z), cell=(0.25, 0.25, 1 / 24))
+    for rad in (0.2, 0.1)[:levels]:
+        ids = g.get_cells()
+        lv = g.mapping.get_refinement_level(ids)
+        r = np.linalg.norm(g.geometry.get_center(ids) - 0.5, axis=1)
+        g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
+        g.stop_refining()
+    return g
+
+
+def _rhs(g):
+    c = g.geometry.get_center(g.get_cells())
+    return np.sin(2 * np.pi * c[:, 0]) * np.cos(2 * np.pi * c[:, 1]) * (1.0 + c[:, 2])
+
+
+def poisson_solve(ctl, D, space, periodic_z=True, iterations=30):
+    """Poisson in operator space ``space`` on :func:`refined_poisson_grid`,
+    f64, a seeded rhs: the model and its solve of ``iterations``, no early
+    stop."""
+    from dccrg_tpu_torch import Poisson
+
+    g = refined_poisson_grid(ctl, D, periodic_z)
+    p = Poisson(g, allow_flat=space == "flat", allow_rolled=space == "rolled")
+    assert p.operator_space == space, (p.operator_space, space)
+    s = p.initialize_state(_rhs(g))
+    out, res, it = p.solve(s, max_iterations=iterations, stop_residual=0.0,
+                           stop_after_residual_increase=float("inf"))
+    return p, out, res, it
+
+
+def poisson_case(ctl, D, fn):
+    p, out, res, it = fn(ctl, D)
+    g = p.grid
+    sol = g.get_cell_data(out, "solution", g.get_cells())
+    rec = {"space": p.operator_space, "iterations": int(it), "residual": float(res),
+           "solution": _hash(sol), "gather_residual": p.residual(out)}
+    if p.operator_space == "flat":
+        rec["n_devices"] = int(p._flat_tables["n_devices"])
+    return rec
+
+
+def flat_apply_case(ctl, D, periodic_z, levels=1):
+    """The flat operator's A·v and Aᵀ·v of a seeded row vector on a refined
+    grid: the voxel results, every slot's slab."""
+    import torch
+
+    from dccrg_tpu_torch import Poisson
+
+    g = refined_poisson_grid(ctl, D, periodic_z, levels)
+    p = Poisson(g)
+    assert p.operator_space == "flat"
+    fwd, rev, voxelize, writeback, _ = p._flat
+    cells = g.get_cells()
+    x = g.state_from_host({"x": ((), np.float64)}, cells, {
+        "x": np.random.default_rng(3).standard_normal(len(cells))})["x"]
+    v = voxelize(x)
+    nzl = p._flat_tables["shape"][0] // D
+    out = {"fwd": _slabs_hash(ctl, D, fwd(v), nzl),
+           "rev": _slabs_hash(ctl, D, rev(v), nzl),
+           "rows": _hash(g.get_cell_data({"y": writeback(fwd(v))}, "y", cells))}
+    assert torch.isfinite(v).all()
+    return out
+
+
+def particles_s8(ctl, D, dtype=np.float64):
+    """The JAX worker's scenario 8: 4x4xD, hood 1, the first cell refined,
+    120 particles from ``default_rng(42)``, ``run(5)`` at (0.03, 0.02,
+    0.11), dt 0.5, in ``dtype`` (float64: the JAX comparison's)."""
+    from dccrg_tpu_torch import Particles
+
+    g = _grid(ctl, D, (4, 4, D), max_ref=1, hood=1, periodic=(True,) * 3,
+              cell=(0.25, 0.25, 1.0 / D))
+    assert g.refine_completely(int(g.get_cells()[0]))
+    g.stop_refining()
+    pc = Particles(g, max_particles_per_cell=64, dtype=dtype)
+    assert pc._dev_rebucket is not None
+    s = pc.new_state(np.random.default_rng(42).uniform(0.0, 1.0, size=(120, 3)))
+    return pc, pc.run(s, 5, velocity=(0.03, 0.02, 0.11), dt=0.5)
+
+
+def _per_cell(pc, s):
+    """Every cell's count and coordinates (a collective), by cell id."""
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    g = pc.grid
+    pos = g.leaves.position(g.get_cells())
+    d, r = g.leaves.owner[pos], g.epoch.row_of[pos]
+    cnt = fetch(s["number_of_particles"])[d, r]
+    xyz = fetch(s["particles"])[d, r].copy()
+    xyz[np.arange(pc.P)[None, :] >= cnt[:, None]] = 0.0
+    return cnt, xyz
+
+
+def particles_record(pc, s):
+    cnt, xyz = _per_cell(pc, s)
+    return {"count": pc.count(s), "lost": pc.lost(s), "counts": _hash(cnt),
+            "coords": _hash(xyz), "positions": _hash(pc.positions(s))}
+
+
+def particles_s8_case(ctl, D):
+    pc, s = particles_s8(ctl, D)
+    rec = particles_record(pc, s)
+    assert rec["count"] == 120 and rec["lost"] == 0, rec
+    cells = pc.grid.get_cells()
+    rec["particles_of"] = _hash(np.concatenate(
+        [pc.particles_of(s, int(c)).reshape(-1) for c in cells[::3]]))
+    return rec
+
+
+def particles_adapt(ctl, D, host=False):
+    """Particles on a periodic 4x4x12 grid (a stretched geometry with
+    ``host``: the host re-bucket) through a refinement, an HSFC
+    ``balance_load`` and ``remap`` after each, three steps between."""
+    from dccrg_tpu_torch import Grid, Particles, StretchedCartesianGeometry
+
+    if host:
+        z = np.cumsum(np.r_[0.0, 1.05 ** np.arange(12)])
+        g = (Grid().set_initial_length((4, 4, 12)).set_maximum_refinement_level(1)
+             .set_neighborhood_length(1).set_periodic(True, True, True)
+             .set_geometry(StretchedCartesianGeometry,
+                           coordinates=(np.linspace(0, 1, 5), np.linspace(0, 1, 5),
+                                        z / z[-1]))
+             .initialize(n_devices=D, device="cpu", controllers=ctl))
+    else:
+        g = _grid(ctl, D, (4, 4, 12), max_ref=1, hood=1, periodic=(True,) * 3,
+                  cell=(0.25, 0.25, 1 / 12))
+    pc = Particles(g, max_particles_per_cell=48, dtype=np.float64)
+    assert (pc._dev_rebucket is None) == host
+    s = pc.new_state(np.random.default_rng(11).uniform(0.0, 1.0, size=(150, 3)))
+    vel = pc.velocity_field(lambda c: 0.02 + 0.05 * np.sin(2 * np.pi * c))
+    s = pc.run(s, 3, velocity=vel, dt=0.5)
+    ids = g.get_cells()
+    g.refine_completely_many(ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5,
+                                                axis=1) < 0.3])
+    g.stop_refining()
+    s = pc.remap(s)
+    s = pc.run(s, 3, velocity=(0.03, -0.02, 0.05), dt=0.5)
+    g.set_partitioning_option("LB_METHOD", "HSFC")
+    g.balance_load()
+    s = pc.remap(s)
+    s = pc.run(s, 3, velocity=pc.velocity_field(lambda c: 0.04 * np.cos(2 * np.pi * c)),
+               dt=0.5)
+    return pc, s
+
+
+def particles_adapt_case(ctl, D, host=False):
+    pc, s = particles_adapt(ctl, D, host)
+    rec = particles_record(pc, s)
+    rec["owner"] = _hash(pc.grid.leaves.owner.astype(np.int64))
+    assert rec["count"] + rec["lost"] == 150, rec
+    return rec
+
+
+def flat_adv_setup(ctl, D, form, periodic_z=True):
+    """Refined advection on the 4x4x24 ``BLOCK`` grid: one level refined
+    for ``sharded`` and ``boxed`` (f32), two for ``ml`` (f64); a seeded
+    density, vz and vy; the model, state and dt."""
+    from dccrg_tpu_torch import Advection
+
+    g = refined_poisson_grid(ctl, D, periodic_z, 2 if form == "ml" else 1)
+    dtype = np.float64 if form == "ml" else np.float32
+    adv = Advection(g, dtype=dtype)
+    assert adv._flat_kind == ("ml" if form == "ml" else "sharded"), adv._flat_kind
+    assert not adv._prefer_boxed
+    s = adv.initialize_state()
+    ids = g.get_cells()
+    cen = g.geometry.get_center(ids)
+    # density on every cell, the z ends included: an open z end loses mass
+    s = adv.set_cell_data(s, "density", ids,
+                          (1.0 + 0.5 * np.sin(2 * np.pi * cen.sum(1))).astype(dtype))
+    s = adv.set_cell_data(s, "vz", ids, (0.3 * np.sin(2 * np.pi * cen[:, 2])).astype(dtype))
+    s = adv.set_cell_data(s, "vy", ids, (0.2 + 0.1 * np.cos(2 * np.pi * cen[:, 1])).astype(dtype))
+    s = g.update_copies_of_remote_neighbors(s)
+    return adv, s, 0.3 * adv.max_time_step(s)
+
+
+def flat_adv_case(ctl, D, form, periodic_z=True, steps=6):
+    adv, s, dt = flat_adv_setup(ctl, D, form, periodic_z)
+    run = adv._boxed_run if form == "boxed" else adv._flat_run.run
+    ring = run.ring
+    b0 = ring.transport_bytes
+    out = run(s, steps, dt)
+    ids = adv.grid.get_cells()
+    rho = adv.get_cell_data(out, "density", ids)
+    return {"kind": adv._flat_kind, "density": _hash(rho),
+            "mass": adv.total_mass(out), "run_bytes": ring.transport_bytes - b0}
+
+
+#: the cases of :func:`model_scenarios`, by name
+MODEL_CASES = {
+    "poisson_s6": lambda c, D: poisson_case(c, D, poisson_s6),
+    "poisson_flat": lambda c, D: poisson_case(
+        c, D, lambda c, D: poisson_solve(c, D, "flat", False)),
+    "poisson_rolled": lambda c, D: poisson_case(
+        c, D, lambda c, D: poisson_solve(c, D, "rolled")),
+    "poisson_gather": lambda c, D: poisson_case(
+        c, D, lambda c, D: poisson_solve(c, D, "gather", False)),
+    "flat_apply_periodic": lambda c, D: flat_apply_case(c, D, True),
+    "flat_apply_open": lambda c, D: flat_apply_case(c, D, False),
+    "flat_apply_three_level": lambda c, D: flat_apply_case(c, D, False, 2),
+    "particles_s8": particles_s8_case,
+    "particles_adapt": particles_adapt_case,
+    "particles_host": lambda c, D: particles_adapt_case(c, D, host=True),
+    "adv_sharded_periodic": lambda c, D: flat_adv_case(c, D, "sharded", True),
+    "adv_sharded_open": lambda c, D: flat_adv_case(c, D, "sharded", False),
+    "adv_ml": lambda c, D: flat_adv_case(c, D, "ml", False),
+    "adv_boxed": lambda c, D: flat_adv_case(c, D, "boxed", True),
+}
+
+
+def model_scenarios(ctl, nproc: int, D: int) -> dict:
+    """Every case of MODEL_CASES on D slots (the one-controller oracle runs
+    them on the same slots alone)."""
+    res = {"nproc": nproc, "n_devices": D}
+    for name, case in MODEL_CASES.items():
+        res[name] = case(ctl, D)
+    return res
+
+
 def _p2p(ctl, nproc):
     """The JAX worker's scenario 7 exchanges among explicit peer sets."""
     from dccrg_tpu_torch.utils.collectives import _P2PTransport, some_reduce_p2p
@@ -579,6 +832,8 @@ def main() -> None:
     try:
         if mode == "dense":
             res = dense_scenarios(ctl, ctl.size, D)
+        elif mode == "models":
+            res = model_scenarios(ctl, ctl.size, D)
         elif mode == "ring":
             res = {"ring": ring_check(ctl, D)}
         else:
