@@ -327,10 +327,36 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 operator space or flat kind, B9's launches a controller and
                 no twin checked; wall ms a step or iteration and ring or
                 transport bytes logged beside the oracle's.  ``python3
-                chip_smoke.py --spmd-only`` runs this phase alone.
+                chip_smoke.py --spmd-only`` runs this phase and phase 33.
+
+33. spmd serve and lineage — (after 32) the split steps (D6), cohorts
+                (D7) and the lineage (D9) across controllers on the card
+                over gloo (``--child spmd33``, three launches), each against
+                this process's one controller on the same slots (sizes in
+                ``SPMD33``, layouts in ``SPMD33_COHORTS``): on 2 x 4 the
+                split step of the refined 48^3 grid (198,008 leaves, f32,
+                20 steps), Vlasov on the refined 16^3 grid (7,456 leaves x
+                512 bins, 10 steps) and the 500x500 board (50 turns), each
+                beside as many blocking gather steps (B9 two launches a step
+                a controller, wall ms a step logged); cohorts with
+                ``Cohort.step(k)``: the headline 128x128x64 (W = 4, k = 16,
+                32 steps, B2 one launch a step for all members), Vlasov 32^3
+                x 8^3 (W = 4, 10 steps, B7's explicit-edge member mode), the
+                split-phase refined grid (W = 4, k = 4, 10 steps, B9 on
+                member tables), the wide step (6^3 at neighbourhood length
+                2 on 2 x 1, W = 16, k = 4), the plane grid 128x128x63 on 3 x
+                1 (W = 4, 10 steps, B3), and a deadline ``Ensemble`` of 8
+                seeded headline scenarios; every member bitwise equal to the
+                oracle's and to its solo run.  Then the headline's lineage:
+                run(300) with a commit every 100 steps, controller 1 killed
+                by ``sigkill.post_commit`` after its second commit,
+                relaunched from ``latest_valid`` on 2 x 4, rescaled to 2 x 2
+                at step 250 and finished: bitwise equal to one controller's
+                uninterrupted run(300) on 8 slots; commit and rescale
+                seconds logged.
 
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
-each sub-step of 30 and 31, and (in each controller) each part of 32
+each sub-step of 30 and 31, and (in each controller) each part of 32 and 33
 drives its path and read just after.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
@@ -822,19 +848,12 @@ def spmd_models(ctl, nproc, D, device, widths) -> dict:
     import hashlib
 
     import numpy as np
-    import torch
 
     from dccrg_tpu_torch import Advection, CartesianGeometry, Grid, Particles, Poisson
-    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
-    from dccrg_tpu_torch.utils.collectives import barrier, fetch
+    from dccrg_tpu_torch.utils.collectives import fetch
 
     def h(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
-
-    def sync():
-        barrier("spmd.models")
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
 
     def grid(n, radii, center, max_ref, lb, hood=0):
         g = (Grid().set_initial_length((n, n, n)).set_neighborhood_length(hood)
@@ -852,19 +871,7 @@ def spmd_models(ctl, nproc, D, device, widths) -> dict:
         return g
 
     def drive(fn, counter, steps):
-        """``fn()`` with the counts at 0: (its value, a record of the
-        launches, twin calls, bytes ``counter()`` grew by and wall ms a
-        step)."""
-        sync()
-        reset_counts()
-        b0 = counter()
-        t = time.perf_counter()
-        out = fn()
-        sync()
-        secs = time.perf_counter() - t
-        return out, {"launches": {k: v for k, v in LAUNCHES.items() if v},
-                     "plain": sum(PLAIN_CALLS.values()), "steps": steps,
-                     "bytes": counter() - b0, "ms": secs / steps * 1e3}
+        return spmd_drive(device, fn, steps, counter)
 
     out = {}
     # Poisson: the flat voxel operator (BLOCK) and the rolled one
@@ -957,16 +964,9 @@ def spmd_dense(ctl, nproc, device, widths) -> dict:
     import torch
 
     from dccrg_tpu_torch import Advection, CartesianGeometry, GameOfLife, Grid, Vlasov
-    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
-    from dccrg_tpu_torch.utils.collectives import barrier
 
     def h(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
-
-    def sync():
-        barrier("spmd.dense")
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
 
     def grid(length, D, periodic=(True, True, True), hood=0, max_ref=0):
         return (Grid().set_initial_length(length).set_neighborhood_length(hood)
@@ -980,18 +980,7 @@ def spmd_dense(ctl, nproc, device, widths) -> dict:
         return {str(d): h(a[i]) for i, d in enumerate(g.slots)}
 
     def drive(fn, ring, steps):
-        """``fn()`` with the counts at 0: (its value, a record of the
-        launches, twin calls, ring bytes and wall ms a step)."""
-        sync()
-        reset_counts()
-        b0 = ring.transport_bytes
-        t = time.perf_counter()
-        out = fn()
-        sync()
-        secs = time.perf_counter() - t
-        return out, {"launches": {k: v for k, v in LAUNCHES.items() if v},
-                     "plain": sum(PLAIN_CALLS.values()), "steps": steps,
-                     "bytes": ring.transport_bytes - b0, "ms": secs / steps * 1e3}
+        return spmd_drive(device, fn, steps, lambda: ring.transport_bytes)
 
     out = {}
     cases = [c for c, (p, _) in SPMD_DENSE_LAYOUT.items() if p == nproc]
@@ -1075,9 +1064,44 @@ def child_spmd(wd, D, backend, size, device, dense) -> int:
     return 0
 
 
+def child_spmd33(wd, part, size, device) -> int:
+    """One controller of phase 33 (``--child spmd33 wd part size device``):
+    ``serve`` runs the split cases and the cohorts of this controller count
+    and writes its result to ``wd/serve33_<rank>.json`` before the killed
+    lineage run (its controller 1 dies there, so the launch fails by
+    design); ``plane`` runs the 3 x 1 cohort and ``resume`` the lineage's
+    relaunch, each printing its ``RESULT`` line."""
+    from dccrg_tpu_torch.parallel import mesh
+
+    ctl = mesh.setup(backend="gloo", device=None if device == "cuda" else device)
+    dev = ctl.device
+    sz = SPMD33[size]
+    try:
+        if part == "serve":
+            t0 = time.perf_counter()
+            res = {"rank": ctl.rank, "split": spmd33_split(ctl, 8, dev, sz),
+                   "cohorts": {c: spmd33_cohort(ctl, c, dev, sz) for c, v
+                               in SPMD33_COHORTS.items() if v[0] == ctl.size},
+                   "ensemble": spmd33_ensemble(ctl, dev, sz)}
+            res["s"] = time.perf_counter() - t0
+            _write_json(os.path.join(wd, f"serve33_{ctl.rank}.json"), res)
+            spmd33_lineage(ctl, 8, dev, sz, wd, "kill")
+            res = {"rank": ctl.rank, "killed": False}
+        elif part == "plane":
+            res = {"rank": ctl.rank, "plane": spmd33_cohort(ctl, "plane", dev, sz)}
+        else:
+            res = {"rank": ctl.rank, "lineage": spmd33_lineage(ctl, 8, dev, sz, wd, "resume")}
+    finally:
+        mesh.teardown()
+    mesh.result(res)
+    return 0
+
+
 def child_main(argv) -> int:
     if argv[0] == "spmd":
         return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5], argv[6])
+    if argv[0] == "spmd33":
+        return child_spmd33(*argv[1:5])
     kind, wd, device = argv[0], argv[1], argv[2]
     if kind == "headline":
         child_headline(wd, device)
@@ -1212,6 +1236,191 @@ def spmd_phase(dev, card, device="cuda"):
     return full
 
 
+def spmd_serve_phase(dev, card, device="cuda"):
+    """Phase 33: the split steps (D6), the cohorts (D7) and the lineage (D9)
+    across controllers, on one card over gloo.  Three launches of
+    ``--child spmd33``: 2 controllers x 4 slots run the split cases, the
+    cohorts of two controllers and the deadline ensemble, then the
+    headline's lineage run, where controller 1 dies after its second commit
+    (the launch fails by design; each controller wrote its results first);
+    3 x 1 run the plane cohort; 2 x 4 relaunch the lineage from
+    ``latest_valid``, rescale it to 2 x 2 and finish.  This process runs
+    the one-controller oracle of each beside it on the same slots (members
+    also against their solo runs).  Every controller must equal the oracle
+    bitwise, launch B9 in the split cases and the split cohort, and launch
+    B2, B3 and B7 once a step for all W members; the resumed, rescaled run
+    must end bitwise equal to the uninterrupted one.  Any failure raises;
+    the phase's seconds are logged beside its budget."""
+    import shutil
+    import threading
+
+    from dccrg_tpu_torch.parallel import halo_dma, mesh
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        from dccrg_tpu_torch.ops import dense_advection, vlasov_kernel
+
+        for build in (halo_dma._kernels, dense_advection._kernels,
+                      vlasov_kernel._kernels):
+            build()
+    size = "full" if device == "cuda" else "small"
+    sz = SPMD33[size]
+    wd = tempfile.mkdtemp(prefix="spmd33_")
+    env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": "",
+           "DCCRG_ENSEMBLE_VERIFY": "0"}
+    if device != "cuda":
+        env["OMP_NUM_THREADS"] = "1"
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda = device == "cuda"
+
+    def launch(part, nproc, oracle):
+        """``part`` on ``nproc`` controllers while ``oracle()`` runs here:
+        (the controllers' results or the launch's error, the oracle's)."""
+        argv = [sys.executable, os.path.abspath(__file__), "--child", "spmd33", wd, part,
+                size, device]
+        got = {}
+
+        def run():
+            try:
+                got["r"] = mesh.launch(argv, nproc, timeout_s=300, env=env, cwd=here)
+            except RuntimeError as e:
+                got["err"] = str(e)
+
+        th = threading.Thread(target=run)
+        th.start()
+        try:
+            one = oracle()
+        finally:
+            th.join()
+        return got, one
+
+    def same(label, got, want):
+        check(got == want, f"spmd33 {label}: a controller {got} != one controller {want}")
+
+    def launches_ok(label, rec, want):
+        check(not cuda or (rec["launches"] == want and not rec["plain"]),
+              f"spmd33 {label}: launches {rec['launches']}, twins {rec['plain']}, "
+              f"expected {want}")
+
+    try:
+        # 1. the split cases, the two-controller cohorts, the ensemble, then
+        # the lineage run controller 1 dies in
+        def oracle_a():
+            t0 = time.perf_counter()
+            out = {"split": spmd33_split(mesh.SINGLE, 8, dev, sz),
+                   "cohorts": {c: spmd33_cohort(mesh.SINGLE, c, dev, sz, solo=True)
+                               for c, v in SPMD33_COHORTS.items() if v[0] == 2},
+                   "ensemble": spmd33_ensemble(mesh.SINGLE, dev, sz, solo=True)}
+            out["s"] = time.perf_counter() - t0
+            out["lineage"] = spmd33_lineage(mesh.SINGLE, 8, dev, sz, wd, "one")
+            return out
+
+        got, one = launch("serve", 2, oracle_a)
+        check("r" not in got and "controller 1 exited with -9" in got.get("err", ""),
+              f"spmd33 lineage: the killed launch ended otherwise: {got}")
+        res = []
+        for rank in range(2):
+            with open(os.path.join(wd, f"serve33_{rank}.json")) as f:
+                res.append(json.load(f))
+        for case, want in one["split"].items():
+            steps = SPMD33_SPLIT_STEPS[case]
+            for r in res:
+                rec = r["split"][case]
+                same(f"split {case}", rec["hashes"], want["hashes"])
+                check(rec["finite"], f"spmd33 split {case}: non-finite")
+                for mode in ("split", "blocking"):
+                    launches_ok(f"split {case} {mode} controller {r['rank']}", rec[mode],
+                                {"ring_copy": 2 * steps})
+                check(rec["split"]["bytes"] > 0, f"spmd33 split {case}: nothing crossed")
+                log(f"[spmd serve] split {case} ({rec['n_leaves']} leaves), 2 controllers x 4 "
+                    f"slots, controller {r['rank']}: split {rec['split']['ms']!r} ms a step, "
+                    f"blocking {rec['blocking']['ms']!r} ms a step, B9 launches "
+                    f"{rec['split']['launches'].get('ring_copy', 0)} in {steps} split steps, "
+                    f"transport bytes a step {rec['split']['bytes'] / steps!r}; one controller "
+                    f"x 8 slots: split {want['split']['ms']!r}, blocking "
+                    f"{want['blocking']['ms']!r} ms a step; bitwise equal on {card}")
+        kernel = {"dense": "flux_update_blocked", "plane": "flux_update",
+                  "vlasov": "vlasov_step"}
+
+        def cohort_check(case, recs, want):
+            nproc, per, W, steps, k = SPMD33_COHORTS[case]
+            for r in recs:
+                rec = r[case] if case in r else r["cohorts"][case]
+                same(f"cohort {case}", rec["members"], want["members"])
+                check(rec["finite"], f"spmd33 cohort {case}: non-finite")
+                if case in kernel:
+                    # the member axis: one launch a step for all W members
+                    exp = {kernel[case]: steps}
+                elif case == "split":
+                    exp = {"ring_copy": 2 * steps}
+                else:
+                    # one wide exchange (pack and merge) every g steps of a
+                    # dispatch of k
+                    exp = {"ring_copy": 2 * -(-k // rec["g"]) * -(-steps // k)}
+                launches_ok(f"cohort {case} controller {r['rank']}", rec["rec"], exp)
+                check(rec["rec"]["bytes"] > 0, f"spmd33 cohort {case}: nothing crossed")
+                log(f"[spmd serve] cohort {case} ({rec['kind']}, form {rec['form']}) W={W} "
+                    f"k={k}, {nproc} controllers x {per} slots, controller {r['rank']}: "
+                    f"launches {rec['rec']['launches']} in {steps} steps, "
+                    f"{rec['rec']['ms']!r} ms a step, transport bytes a step "
+                    f"{rec['rec']['bytes'] / steps!r}; one controller: "
+                    f"{want['rec']['ms']!r} ms a step; every member bitwise equal to "
+                    f"the oracle's and to its solo run on {card}")
+
+        for case, want in one["cohorts"].items():
+            cohort_check(case, [{"rank": r["rank"], **r["cohorts"]} for r in res], want)
+        for r in res:
+            same("ensemble", r["ensemble"]["members"], one["ensemble"]["members"])
+            check(not cuda or (set(r["ensemble"]["rec"]["launches"]) == {"flux_update_blocked"}
+                               and not r["ensemble"]["rec"]["plain"]),
+                  f"spmd33 ensemble: launches {r['ensemble']['rec']['launches']}")
+            log(f"[spmd serve] deadline ensemble: {len(r['ensemble']['members'])} scenarios in "
+                f"{r['ensemble']['cohorts']} cohort(s), controller {r['rank']}: "
+                f"{r['ensemble']['rec']['ms']!r} ms a scenario-step, launches "
+                f"{r['ensemble']['rec']['launches']}; one controller "
+                f"{one['ensemble']['rec']['ms']!r} ms; every scenario bitwise equal to its "
+                f"solo run on {card}")
+        log(f"[spmd serve] 2 controllers: controller seconds {[r['s'] for r in res]!r}, "
+            f"oracle {one['s']!r}")
+
+        # 2. the plane cohort on 3 controllers x 1 slot
+        got3, one3 = launch("plane", 3, lambda: spmd33_cohort(mesh.SINGLE, "plane", dev, sz,
+                                                               solo=True))
+        check("r" in got3, f"spmd33 plane: the controllers failed: {got3.get('err')}")
+        cohort_check("plane", got3["r"], one3)
+
+        # 3. the lineage relaunched, rescaled and finished
+        got_l, _ = launch("resume", 2, lambda: None)
+        check("r" in got_l, f"spmd33 lineage: the relaunch failed: {got_l.get('err')}")
+        want = one["lineage"]
+        L = SPMD33_LINEAGE
+        for r in got_l["r"]:
+            lin = r["lineage"]
+            check(lin["gen"] == 2 and lin["step"] == 2 * L["every"],
+                  f"spmd33 lineage: resumed generation {lin['gen']} at step {lin['step']}")
+            check(lin["after"] == L["rescale_to"] and lin["dense_after"],
+                  f"spmd33 lineage: rescaled to {lin['after']} slots")
+            same("lineage", lin["density"], want["density"])
+            check(lin["finite"], "spmd33 lineage: non-finite density")
+            log(f"[spmd lineage] headline {sz['headline']} on 2 controllers x 4 slots: "
+                f"controller 1 killed after its second commit, controller {r['rank']} "
+                f"resumed generation {lin['gen']} at step {lin['step']} in "
+                f"{lin['resume_s']!r} s, rescaled to 2 x 2 at step {L['rescale_at']} in "
+                f"{lin['rescale_s']!r} s (commit {lin['rescale_commit_s']!r} s, re-landing "
+                f"{lin['rescale_reland_s']!r} s), run({L['steps']}) bitwise equal to one "
+                f"controller's uninterrupted run on 8 slots ({want['density']}) on {card}")
+        with open(os.path.join(wd, "commit33_0.json")) as f:
+            commit_s = json.load(f)
+        check(len(commit_s) == 2, f"spmd33 lineage: controller 0 committed {commit_s}")
+        log(f"[spmd lineage] commits of the killed run, controller 0: {commit_s!r} s "
+            f"(a generation of {sz['headline']} f32 cells x 4 fields, rank 0 writes); the "
+            f"lineage after the run: {sorted(os.listdir(os.path.join(wd, 'lineage33')))}")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[spmd serve] phase 33 seconds {secs!r} (budget {SPMD33_BUDGET_S!r}) on {card}")
+
+
 #: what each dense case of phase 32 launches a controller: the kernel and
 #: its launches for the run's steps (the plane case's step and run), B9 two
 #: an exchange around the transport (pack and merge) on vlasov_amr, none on
@@ -1324,6 +1533,344 @@ def spmd_models_check(res, one, nproc, backend, device, card):
                 f"({rec['bytes']} in all), wall ms a {unit} {rec['ms']!r}; one controller: "
                 f"launches {want['launches']}, wall ms a {unit} {want['ms']!r}; "
                 f"{want['hashes']} bitwise equal on {card}")
+
+
+#: phase 33's sizes: the bench's widths ("full"; the split phases' grids of
+#: phases 17, 18 and 19: the refined 48^3 grid, 198,008 leaves, f32; the
+#: refined 16^3 grid, 7,456 leaves x 512 bins; the 500x500 board; the
+#: cohorts' headline 128x128x64 and plane 128x128x63 f32 and Vlasov 32^3 x
+#: 8^3; the wide sweep's 6^3 at neighbourhood length 2) and "small" ones for
+#: the CPU rehearsal.  Steps are cut (phase 17: 200 split steps; phase 30:
+#: the same run(300)), never widths
+SPMD33 = {
+    "full": {"refined": 48, "vl": (16, 8), "board": RES_BOARD, "headline": RES_HEADLINE,
+             "plane": (128, 128, 63), "vlasov": ((32, 32, 32), 8), "wide": 6},
+    "small": {"refined": 12, "vl": (8, 2), "board": 60, "headline": (16, 16, 16),
+              "plane": (16, 16, 15), "vlasov": ((8, 8, 16), 2), "wide": 6},
+}
+#: the split cases' steps (turns), each beside as many blocking gather steps
+SPMD33_SPLIT_STEPS = {"advection": 20, "vlasov": 10, "gol": 50}
+#: the cohorts: (controllers, slots a controller, members W, steps, k)
+SPMD33_COHORTS = {"dense": (2, 4, 4, 32, 16), "plane": (3, 1, 4, 10, 10),
+                  "vlasov": (2, 4, 4, 10, 10), "split": (2, 4, 4, 10, 4),
+                  "wide": (2, 1, 16, 16, 4)}
+#: the deadline ensemble: scenarios, their steps (from a seed) and slots
+SPMD33_ENSEMBLE = (8, (8, 24), 8)
+#: the lineage: the run, a commit every so many steps, the rescale's step
+#: and slot count (2 controllers x 4 slots -> 2 x 2)
+SPMD33_LINEAGE = {"steps": RES_STEPS, "every": 100, "rescale_at": 250, "rescale_to": 4}
+#: the phase's budget, process start-ups included (logged beside its time)
+SPMD33_BUDGET_S = 90.0
+
+
+def _h(a):
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def spmd_drive(device, fn, steps, counter=lambda: 0):
+    """``fn()`` with the launch counts at 0, between two barriers and card
+    synchronisations: (its value, a record of the launches, twin calls,
+    bytes ``counter()`` grew by and wall ms a step)."""
+    import torch
+
+    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_counts
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    def sync():
+        barrier("spmd.drive")
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    reset_counts()
+    b0 = counter()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    secs = time.perf_counter() - t
+    return out, {"launches": {k: v for k, v in LAUNCHES.items() if v},
+                 "plain": sum(PLAIN_CALLS.values()), "steps": steps,
+                 "bytes": counter() - b0, "ms": secs / steps * 1e3}
+
+
+def spmd33_grid(ctl, D, device, n, radii=(), center=(0.5, 0.5, 0.5), hood=0, lb="RCB",
+                length=None):
+    """An n^3 periodic grid (``length``: another shape) of D slots over
+    ``ctl``, each ball of ``radii`` around ``center`` refined once more."""
+    import numpy as np
+
+    from dccrg_tpu_torch import CartesianGeometry, Grid
+
+    length = length or (n, n, n)
+    g = (Grid().set_initial_length(length).set_neighborhood_length(hood)
+         .set_periodic(True, True, True).set_maximum_refinement_level(len(radii))
+         .set_load_balancing_method(lb)
+         .set_geometry(CartesianGeometry, start=(0.0, 0.0, 0.0),
+                       level_0_cell_length=tuple(1.0 / m for m in length))
+         .initialize(n_devices=D, device=device, controllers=ctl))
+    for rad in radii:
+        ids = g.get_cells()
+        r = np.linalg.norm(g.geometry.get_center(ids) - np.asarray(center), axis=1)
+        lv = g.mapping.get_refinement_level(ids)
+        g.refine_completely_many(ids[(r < rad) & (lv == lv.max())])
+        g.stop_refining()
+    return g
+
+
+def spmd33_split(ctl, D, device, sz) -> dict:
+    """Phase 33's split cases (D6) on the controllers ``ctl`` (``mesh.SINGLE``:
+    the oracle on the same D slots): the split-phase step of Advection (the
+    refined 48^3 grid, f32), Vlasov (the refined 16^3 grid, 512 bins, f32)
+    and Game of Life (the 500x500 board), each run beside as many blocking
+    gather steps, with the counts at 0 around each.  Returns, a case: the
+    hashes of the split run's fields by cell id (equal to the blocking
+    run's, checked here), and a record of the split and the blocking run."""
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, GameOfLife, Grid, Vlasov
+
+    out = {}
+    for case, steps in SPMD33_SPLIT_STEPS.items():
+        if case == "advection":
+            g = spmd33_grid(ctl, D, device, sz["refined"], (0.3,), (0.3, 0.5, 0.5))
+            eager = Advection(g, dtype=np.float32, allow_dense=False, use_kernels=False)
+            split = Advection(g, dtype=np.float32, overlap=True)
+            s = split.initialize_state()
+            args = (0.4 * split.max_time_step(s),)
+            fields = ("density",)
+        elif case == "vlasov":
+            n, nv = sz["vl"]
+            g = spmd33_grid(ctl, D, device, n, (0.3,))
+            eager = Vlasov(g, nv=nv, dtype=np.float32)
+            split = Vlasov(g, nv=nv, dtype=np.float32, overlap=True)
+            s = split.initialize_state()
+            args = (float(np.float32(0.4 * split.max_time_step())),)
+            fields = ("f",)
+        else:
+            n = sz["board"]
+            g = (Grid().set_initial_length((n, n, 1)).set_neighborhood_length(1)
+                 .initialize(n_devices=D, device=device, controllers=ctl))
+            cells = g.get_cells()
+            eager, split = GameOfLife(g, allow_dense=False), GameOfLife(g, overlap=True)
+            s = eager.new_state(alive_cells=cells[np.random.default_rng(0).random(len(cells))
+                                                  < 0.3])
+            args = ()
+            fields = ("is_alive", "live_neighbor_count")
+        ex = g.halo()
+        bytes_ = lambda: ex.transport_bytes
+        sb, rec_b = spmd_drive(device, lambda: eager.run(s, steps, *args), steps, bytes_)
+        sf, rec_s = spmd_drive(device, lambda: split.run(s, steps, *args), steps, bytes_)
+        for f in fields:
+            check(torch.equal(sb[f], sf[f]), f"spmd33 split {case}: the split run != the "
+                  f"blocking run ({f})")
+        ids = g.get_cells()
+        vals = {f: g.get_cell_data(sf, f, ids) for f in fields}
+        out[case] = {"hashes": {f: _h(v) for f, v in vals.items()},
+                     "n_leaves": int(len(ids)), "split": rec_s, "blocking": rec_b,
+                     "finite": bool(all(np.isfinite(v.astype(np.float64)).all()
+                                        for v in vals.values()))}
+        del g, eager, split, s, sb, sf
+    return out
+
+
+def _cohort_states(model, s0, W, field):
+    """W members: ``s0`` with ``field`` scaled by 1 + 0.05 w."""
+    out = []
+    for w in range(W):
+        s = {k: v.clone() for k, v in s0.items()}
+        s[field] = s[field] * (1.0 + 0.05 * w)
+        out.append(s)
+    return out
+
+
+def spmd33_cohort(ctl, case, device, sz, solo=False) -> dict:
+    """One of phase 33's cohorts (SPMD33_COHORTS) on the controllers ``ctl``
+    (``mesh.SINGLE``: the oracle on the same slots, which with ``solo``
+    also runs every member alone and holds it bitwise against the cohort):
+    W members admitted into one cohort, ``Cohort.step(k)`` until every
+    member is done, the counts at 0 around the steps.  Returns the members'
+    hashes (every slot, or by cell id for the row layouts), the record of
+    the steps and the form."""
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, GameOfLife, Vlasov
+    from dccrg_tpu_torch.serve import Scenario, Scheduler
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    nproc, per, W, steps, k = SPMD33_COHORTS[case]
+    D = nproc * per
+    dt = None
+    if case in ("dense", "plane"):
+        g = spmd33_grid(ctl, D, device, 0, length=sz["headline" if case == "dense" else "plane"])
+        model = Advection(g, dtype=np.float32)
+        s0 = model.initialize_state()
+        dt = 0.4 * model.max_time_step(s0)
+        states, fields = _cohort_states(model, s0, W, "density"), ("density",)
+        counter, form = (lambda: model._extend.transport_bytes), list(model.dense_kind)
+    elif case == "vlasov":
+        length, nv = sz["vlasov"]
+        g = spmd33_grid(ctl, D, device, 0, length=length)
+        model = Vlasov(g, nv=nv, dtype=np.float32)
+        s0 = model.initialize_state()
+        dt = float(np.float32(0.4 * model.max_time_step()))
+        states, fields = _cohort_states(model, s0, W, "f"), ("f",)
+        counter, form = (lambda: model._extend.transport_bytes), model._fused_block
+    elif case == "split":
+        g = spmd33_grid(ctl, D, device, sz["refined"], (0.3,), (0.3, 0.5, 0.5))
+        model = Advection(g, dtype=np.float32, overlap=True)
+        s0 = model.initialize_state()
+        dt = 0.4 * model.max_time_step(s0)
+        states, fields = _cohort_states(model, s0, W, "density"), ("density",)
+        counter, form = (lambda: g.halo().transport_bytes), "split"
+    else:
+        moore = [(i, j, m) for i in (-1, 0, 1) for j in (-1, 0, 1) for m in (-1, 0, 1)
+                 if (i, j, m) != (0, 0, 0)]
+        g = spmd33_grid(ctl, D, device, sz["wide"], hood=2)
+        g.add_neighborhood(7, moore)
+        model = GameOfLife(g, hood_id=7, allow_dense=False)
+        cells = g.get_cells()
+        states = [model.new_state(alive_cells=cells[np.random.default_rng(w).random(len(cells))
+                                                    < 0.3]) for w in range(W)]
+        fields = ("is_alive", "live_neighbor_count")
+        counter, form = (lambda: g.halo().transport_bytes), "wide"
+    sched = Scheduler(verify=False, steps_per_dispatch=k)
+    tickets = [sched.submit(Scenario(model, s, steps, dt=dt)) for s in states]
+    sched.admit()
+    check(len(sched.cohorts) == 1, f"spmd33 cohort {case}: {len(sched.cohorts)} cohorts")
+    cohort = next(iter(sched.cohorts.values()))
+    if case == "wide":
+        check(cohort._wide is not None, "spmd33 cohort wide: the wide body did not engage")
+
+    def serve():
+        while cohort.active_mask().any():
+            cohort.step(k)
+        return [cohort.retire(int(slot)) for slot in cohort.finished_slots()]
+
+    _, rec = spmd_drive(device, serve, steps, counter)
+
+    def digest(res):
+        if case in ("split", "wide"):
+            ids = g.get_cells()
+            return {f: _h(g.get_cell_data(res, f, ids)) for f in fields}
+        return {f: _h(fetch(res[f])) for f in fields}
+
+    members = [digest(t.result) for t in tickets]
+    if solo:
+        for t, s, dig in zip(tickets, states, members):
+            for _ in range(steps):
+                s = model.step(s) if dt is None else model.step(s, dt)
+            check(digest(s) == dig, f"spmd33 cohort {case}: a member != its solo run")
+    finite = all(bool(torch.isfinite(t.result[f].to(torch.float32)).all())
+                 for t in tickets for f in fields)
+    return {"members": members, "form": form, "W": W, "k": k, "rec": rec,
+            "finite": finite, "kind": cohort.spec.kind, "g": cohort._wide_g(k)}
+
+
+def spmd33_ensemble(ctl, device, sz, solo=False) -> dict:
+    """Phase 33's deadline ensemble: SPMD33_ENSEMBLE's seeded headline
+    scenarios (density scaled, dt and steps from a seed), each with a
+    deadline read off this process's clock (controller 0's rule the
+    ticks), policy ``deadline``; each retires, hashed (every slot) and,
+    with ``solo``, held bitwise against its solo run."""
+    import numpy as np
+
+    from dccrg_tpu_torch import Advection
+    from dccrg_tpu_torch.serve import Ensemble
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    n, (lo, hi), D = SPMD33_ENSEMBLE
+    g = spmd33_grid(ctl, D, device, 0, length=sz["headline"])
+    model = Advection(g, dtype=np.float32)
+    s0 = model.initialize_state()
+    dt0 = 0.4 * model.max_time_step(s0)
+    rng = np.random.default_rng(33)
+    ens = Ensemble(policy="deadline", verify=False)
+    now = time.perf_counter()
+    runs = []
+    for i in range(n):
+        s = {k: v.clone() for k, v in s0.items()}
+        s["density"] = s["density"] * float(1.0 + rng.random())
+        steps, dt = int(rng.integers(lo, hi + 1)), dt0 * float(0.5 + 0.5 * rng.random())
+        t = ens.submit(model, s, steps=steps, dt=dt, tenant=f"t{i % 3}",
+                       deadline=now + float(rng.uniform(0.05, 3.0)))
+        runs.append((s, steps, dt, t))
+    _, rec = spmd_drive(device, ens.run, sum(r[1] for r in runs))
+    members = []
+    for s, steps, dt, t in runs:
+        check(t.status == "done", f"spmd33 ensemble: a scenario is {t.status}")
+        members.append(_h(fetch(t.result["density"])))
+        if solo:
+            for _ in range(steps):
+                s = model.step(s, dt)
+            check(_h(fetch(s["density"])) == members[-1],
+                  "spmd33 ensemble: a scenario != its solo run")
+    return {"members": members, "cohorts": len(ens.cohorts), "rec": rec}
+
+
+def spmd33_lineage(ctl, D, device, sz, wd, phase) -> dict:
+    """Phase 33's lineage on the headline (BLOCK): ``kill`` runs from the
+    start with a commit every SPMD33_LINEAGE["every"] steps, controller 1
+    armed to die right after its second commit (``sigkill.post_commit:1:0:
+    1:1``); ``resume`` lands the newest valid generation on D slots, runs
+    to the rescale's step, rescales to its slot count and finishes; ``one``
+    (the oracle) runs uninterrupted.  Returns the density by cell id, the
+    generation and step resumed from, the commit and rescale seconds."""
+    import numpy as np
+
+    from dccrg_tpu_torch import Advection
+    from dccrg_tpu_torch.resilience import CheckpointLineage, rescale
+    from dccrg_tpu_torch.resilience.inject import plane
+
+    L = SPMD33_LINEAGE
+    lin = CheckpointLineage(os.path.join(wd, "lineage33"), keep=3)
+    out = {"commit_s": [], "gen": None, "step": 0}
+    if phase == "resume":
+        t = time.perf_counter()
+        g, rows, hdr, gen = lin.latest_valid(headline_spec(), n_devices=D, device=device,
+                                             load_balancing_method="BLOCK")
+        adv, s = land_headline(g, rows)
+        out.update(gen=gen, step=int(hdr.decode()), resume_s=time.perf_counter() - t)
+        check(adv.dense is not None, "spmd33 lineage: the landed grid is not dense")
+    else:
+        g = spmd33_grid(ctl, D, device, 0, lb="BLOCK", length=sz["headline"])
+        adv = Advection(g, dtype=np.float32)
+        s = adv.initialize_state()
+        if phase == "kill" and ctl.rank == 1:
+            plane.arm("sigkill.post_commit", prob=1.0, seed=0, count=1, after=1)
+    # the velocities never change, so every run's dt is the same
+    dt = 0.4 * adv.max_time_step(s)
+    step = out["step"]
+    while step < L["steps"]:
+        if phase == "resume" and step == L["rescale_at"]:
+            t = time.perf_counter()
+            r = rescale(g, adv._dense_to_rows(s), headline_spec(), L["rescale_to"],
+                        lineage=lin)
+            g = r.grid
+            adv, s = land_headline(g, r.state)
+            out.update(rescale_s=time.perf_counter() - t, rescale_commit_s=r.commit_s,
+                       rescale_reland_s=r.reland_s, after=r.n_devices_after,
+                       dense_after=adv.dense is not None)
+        nxt = L["rescale_at"] if phase == "resume" and step < L["rescale_at"] else \
+            (step // L["every"] + 1) * L["every"]
+        nxt = min(nxt, L["steps"])
+        s = adv.run(s, nxt - step, dt)
+        step = nxt
+        if phase == "kill" and step % L["every"] == 0:
+            t = time.perf_counter()
+            lin.commit(g, adv._dense_to_rows(s), headline_spec(),
+                       user_header=str(step).encode())
+            out["commit_s"].append(time.perf_counter() - t)
+            _write_json(os.path.join(wd, f"commit33_{ctl.rank}.json"), out["commit_s"])
+    ids = g.get_cells()
+    rho = adv.get_cell_data(s, "density", ids)
+    out.update(density=_h(rho), finite=bool(np.isfinite(rho).all()), n_devices=g.n_devices)
+    return out
 
 
 def resilience_phase(dev, card, drive, refined):
@@ -4364,6 +4911,10 @@ def main() -> int:
     # bitwise against one controller on 8 slots; 3 x 2; nccl where it can
     spmd_phase(dev, card)
 
+    # 33. spmd serve and lineage: the split steps, the cohorts and the
+    # lineage across controllers, each against one controller
+    spmd_serve_phase(dev, card)
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -4394,9 +4945,9 @@ def main() -> int:
 
 
 def spmd_only(device="cuda") -> int:
-    """``python3 chip_smoke.py --spmd-only [cpu]``: phase 32 alone (a quick
-    check of the multi-controller path; ``cpu`` rehearses it without a
-    card)."""
+    """``python3 chip_smoke.py --spmd-only [cpu]``: phases 32 and 33 alone (a
+    quick check of the multi-controller paths; ``cpu`` rehearses them
+    without a card)."""
     if device == "cuda":
         import torch
 
@@ -4407,8 +4958,10 @@ def spmd_only(device="cuda") -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
         spmd_phase(torch.device("cuda"), card)
+        spmd_serve_phase(torch.device("cuda"), card)
     else:
         spmd_phase("cpu", "the CPU", device="cpu")
+        spmd_serve_phase("cpu", "the CPU", device="cpu")
     log("[spmd] ok")
     return 0
 

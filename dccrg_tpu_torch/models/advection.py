@@ -53,7 +53,13 @@ every result is bitwise one controller's on the same slots.  On a refined
 grid ``run`` takes the same form there as on one controller: the
 ``sharded`` and ``ml`` flat forms and the boxed passes hold this
 controller's slots and ride the same z ring (B5 and B6 are one-slot
-kernels, and several controllers mean at least two slots).
+kernels, and several controllers mean at least two slots).  The split
+step's inner and outer tables hold this controller's slots at every slot's
+width; its ``start`` packs (B9) and posts the transport, ``finish`` waits
+and merges (B9).  The cohort forms (``batch_step_spec``, ``_wide_spec``)
+run over member stacks of this controller's slots: the dense ring carries
+every member's planes in one batch, and ``MemberExchange`` every member's
+rows in one message a peer.
 
 On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
 that fails to build or launch raises: there is no fallback to another path.
@@ -89,7 +95,6 @@ from ..ops.flat_amr import (
     make_flat_ml_run,
 )
 from ..parallel.dense import HaloExtend
-from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, ordered_sum, split_rows)
 from ..utils.collectives import assert_agreement
@@ -203,13 +208,18 @@ def build_split_tables(grid, hood_id, host_face, dtype, extra=None):
     restricted the same way and shipped in ``dtype``.  Returns ``(inner,
     outer)`` dicts of device tensors; pad lanes are scratch rows whose face
     entries are all masked (``face_dir == 0``), so they contribute
-    nothing."""
+    nothing.  Under several controllers the tables are this controller's
+    slots, ``[len(grid.slots), W]``, with the width W of every slot's rows
+    (replicated, so every controller builds the same shapes); a row with a
+    neighbour on another controller has it on another slot, so it is
+    outer, as on one controller."""
     hood = grid.epoch.hoods[hood_id]
-    ar = np.arange(grid.n_devices)[:, None]
+    ar = np.arange(grid.n_devices)[grid.slots.start:grid.slots.stop, None]
     tdt = torch_dtype(dtype)
     put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), device=grid.device).to(dt)
     sides = []
     for rows in split_rows(grid, hood_id):
+        rows = grid.slot_view(rows)
         fd = host_face["face_dir"][ar, rows]
         sub = {
             "rows": put(rows, torch.int64),
@@ -352,8 +362,6 @@ class Advection:
         #: general path, which this pins (no dense path, no flat run)
         self.overlap = bool(overlap)
         self.dense = grid.epoch.dense if allow_dense and not self.overlap else None
-        if self.overlap:
-            require_single(grid.controllers, "Advection(overlap=True)", "D6")
         if self.dense is not None:
             self._init_dense()
         else:
@@ -377,7 +385,7 @@ class Advection:
         if self.overlap:
             self._inner, self._outer = build_split_tables(
                 grid, self.hood_id, host, self.dtype)
-            self._ar = torch.arange(grid.n_devices, device=self.device)[:, None]
+            self._ar = torch.arange(len(grid.slots), device=self.device)[:, None]
             return
         if self.allow_boxed:
             self._boxed = _UNBUILT
@@ -733,7 +741,6 @@ class Advection:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, wide_enabled
 
-        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled() or self.dense is not None:
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -753,8 +760,8 @@ class Advection:
             put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
                                                 device=self.device).to(dt)
             wt = {f"w.{k}": v for k, v in wdev.items()}
-            wt["w.nbr_rows"] = put(plan.nbr_rows, torch.int64)
-            wt["w.steps_ok"] = put(plan.steps_ok, torch.int32)
+            wt["w.nbr_rows"] = put(grid.slot_view(plan.nbr_rows), torch.int64)
+            wt["w.steps_ok"] = put(grid.slot_view(plan.steps_ok), torch.int32)
             wt.update(ring_args(wex, ["density"]))
 
             def bind(args, wargs, W):
@@ -781,7 +788,7 @@ class Advection:
                 return exchange, interior
 
             spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
-                                local_mask=plan.local_mask)
+                                local_mask=grid.slot_view(plan.local_mask))
         self._wide_cached = (grid.epoch, spec)
         return spec
 
@@ -797,7 +804,6 @@ class Advection:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
-        require_single(self.grid.controllers, "Advection.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         dtype = np.dtype(self.dtype)
         if self.dense is not None:

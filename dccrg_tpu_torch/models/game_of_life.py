@@ -21,7 +21,10 @@ A port of the JAX package's ``models/game_of_life.py``, with two layouts:
 
 Under several controllers the dense loop runs on this controller's band
 of slots, its ring rows crossing the transport each turn (``HaloExtend``'s
-controller form); the whole-run kernel stays a one-slot path.
+controller form); the whole-run kernel stays a one-slot path.  The
+split-phase turn and the cohort forms run on this controller's slots (the
+split tables and the member tables at every slot's width; the halo's
+``start`` packs and posts, ``finish`` waits and merges).
 
 The payload is uint32, as in the JAX package.  torch implements few
 operations for uint32 (no ``>`` or ``+`` on the CPU), so counts and the
@@ -49,7 +52,6 @@ import torch
 from ..obs import fused
 from ..ops.gol_kernel import _validity, gol_run, gol_run_fits, gol_turn
 from ..parallel.dense import HaloExtend, detect_dense2d
-from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, split_rows)
 
@@ -79,8 +81,6 @@ class GameOfLife:
         self.use_kernels = bool(use_kernels)
         #: split-phase stepping on the row layout (no dense 2-D path)
         self.overlap = bool(overlap)
-        if self.overlap:
-            require_single(grid.controllers, "GameOfLife(overlap=True)", "D6")
         self.dense2d = (detect_dense2d(grid, hood_id)
                         if allow_dense and not self.overlap else None)
         self._exchange = grid.halo(hood_id)
@@ -124,18 +124,21 @@ class GameOfLife:
     def _init_overlap(self):
         """Compacted inner / outer row sets and their gather tables (the JAX
         package's ``_build_overlap_step`` tables; widths on the bucket ladder
-        with the grid's hints, pad lanes the scratch row)."""
+        with the grid's hints, pad lanes the scratch row).  Under several
+        controllers: this controller's slots, at every slot's width."""
         grid = self.grid
         hood = grid.epoch.hoods[self.hood_id]
-        ar = np.arange(grid.n_devices)[:, None]
+        ar = np.arange(grid.n_devices)[grid.slots.start:grid.slots.stop, None]
         put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                             device=grid.device)
-        self._sides = [(put(rows, torch.int64),
-                        put(hood.nbr_rows[ar, rows], torch.int64),
-                        put(hood.nbr_valid[ar, rows], torch.bool))
-                       for rows in split_rows(grid, self.hood_id)]
-        self._local = put(grid.epoch.local_mask, torch.bool)
-        self._ar = torch.arange(grid.n_devices, device=grid.device)[:, None]
+        self._sides = []
+        for rows in split_rows(grid, self.hood_id):
+            rows = grid.slot_view(rows)
+            self._sides.append((put(rows, torch.int64),
+                                put(hood.nbr_rows[ar, rows], torch.int64),
+                                put(hood.nbr_valid[ar, rows], torch.bool)))
+        self._local = put(grid.slot_view(grid.epoch.local_mask), torch.bool)
+        self._ar = torch.arange(len(grid.slots), device=grid.device)[:, None]
 
     def _overlap_step(self, state):
         """The split-phase turn (``game_of_life.py:185-220`` of the JAX
@@ -271,7 +274,6 @@ class GameOfLife:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, wide_enabled
 
-        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled():
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -285,11 +287,12 @@ class GameOfLife:
             wex = self.grid.halo(None)
             put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
                                                 device=self.grid.device).to(dt)
+            view = self.grid.slot_view
             wt = {
-                "w.nbr_rows": put(plan.nbr_rows, torch.int64),
-                "w.nbr_valid": put(plan.nbr_valid, torch.bool),
-                "w.steps_ok": put(plan.steps_ok, torch.int32),
-                "w.local_mask": put(plan.local_mask, torch.bool),
+                "w.nbr_rows": put(view(plan.nbr_rows), torch.int64),
+                "w.nbr_valid": put(view(plan.nbr_valid), torch.bool),
+                "w.steps_ok": put(view(plan.steps_ok), torch.int32),
+                "w.local_mask": put(view(plan.local_mask), torch.bool),
             }
             wt.update(ring_args(wex, list(self.SPEC)))
 
@@ -319,7 +322,7 @@ class GameOfLife:
                 return exchange, interior
 
             spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
-                                local_mask=plan.local_mask)
+                                local_mask=view(plan.local_mask))
         self._wide_cached = (self.grid.epoch, spec)
         return spec
 
@@ -332,7 +335,6 @@ class GameOfLife:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
-        require_single(self.grid.controllers, "GameOfLife.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         ex = self._exchange
         wide = self._wide_spec()

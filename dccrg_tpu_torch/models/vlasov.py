@@ -23,8 +23,10 @@ distribution block.  Two layouts:
 Under several controllers the dense ``f`` is this controller's slots,
 ``[len(grid.slots), nz_local, ...]``; the ring's edge planes cross the
 transport (``HaloExtend``'s controller form) and the step kernel takes
-them explicitly (its ring mode would wrap inside the block).  The row
-layout runs its gather step through the grid's halo.
+them explicitly (its ring mode would wrap inside the block), for one
+scenario or a cohort's member stack (every member's planes in one
+transport batch).  The row layout runs its gather and split steps through
+the grid's halo, their tables this controller's slots.
 
 The two layouts differ by the O(dt) splitting error; mass is conserved
 exactly on both.  Boundaries follow ``grid.topology``: periodic dimensions
@@ -60,7 +62,6 @@ from ..ops.vlasov_kernel import (
     vlasov_step,
 )
 from ..parallel.dense import HaloExtend
-from ..parallel.mesh import require_single
 from ..parallel.stencil import (StencilTables, gather_neighbors, member_index,
                                 member_rows, ordered_sum)
 from .advection import build_face_tables, build_split_tables
@@ -76,8 +77,6 @@ class Vlasov:
         #: split-phase stepping on the general row layout, which this forces
         #: even on slab grids (the split form overlaps the gather path's halo)
         self.overlap = bool(overlap)
-        if self.overlap:
-            require_single(grid.controllers, "Vlasov(overlap=True)", "D6")
         self.info = grid.epoch.dense if not self.overlap else None
         self.nv = nv
         self.v_max = float(v_max)
@@ -144,7 +143,8 @@ class Vlasov:
             # one controller: the kernel reads the slab ring's edge planes
             # from f itself; several: its ring would wrap inside this
             # controller's block, so it takes the controller ring's planes
-            lo, hi = (None, None) if self._extend.controllers is None else self._edges(f)
+            lo, hi = ((None, None) if self._extend.controllers is None
+                      else self._edges(f, members))
             return vlasov_step(
                 f, lo, hi, self._vx, self._vy, self._vz, dt,
                 block=self._fused_block, inv_dx=self._inv_dx,
@@ -206,7 +206,7 @@ class Vlasov:
             self._inner, self._outer = build_split_tables(
                 grid, None, host, self.dtype,
                 extra={"bnd_pos": bnd_pos, "bnd_neg": bnd_neg})
-            self._ar = torch.arange(D, device=self.device)[:, None]
+            self._ar = torch.arange(len(grid.slots), device=self.device)[:, None]
 
     def _face_update(self, t, f_c, f_n, dt):
         """``f_c [..., B]`` plus its summed upwind face fluxes (the JAX
@@ -381,7 +381,6 @@ class Vlasov:
         from ..parallel.halo import MemberExchange, ring_args
         from ..parallel.wide_halo import get_wide_plan, scatter_rows, wide_enabled
 
-        require_single(self.grid.controllers, "the wide-halo step", "D7")
         if not wide_enabled() or self.info is not None:
             return None
         cached = getattr(self, "_wide_cached", None)
@@ -400,9 +399,10 @@ class Vlasov:
                              plan.nbr_valid))
             put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
                                                 device=self.device).to(dt)
+            view = grid.slot_view
             wt = {f"w.{k}": v for k, v in wdev.items()}
-            wt["w.nbr_rows"] = put(plan.nbr_rows, torch.int64)
-            wt["w.steps_ok"] = put(plan.steps_ok, torch.int32)
+            wt["w.nbr_rows"] = put(view(plan.nbr_rows), torch.int64)
+            wt["w.steps_ok"] = put(view(plan.steps_ok), torch.int32)
             epoch = grid.epoch
             mapping = epoch.mapping
             cells = epoch.leaves.cells
@@ -420,8 +420,8 @@ class Vlasov:
                     hi = (idxs[:, d3] + clen) == extent[d3]
                     pos_leaf = np.where(hi, area, 0.0)
                     neg_leaf = np.where(idxs[:, d3] == 0, area, 0.0)
-                pos.append(scatter_rows(epoch, pos_leaf))
-                neg.append(scatter_rows(epoch, neg_leaf))
+                pos.append(view(scatter_rows(epoch, pos_leaf)))
+                neg.append(view(scatter_rows(epoch, neg_leaf)))
             wt["w.bnd_pos"] = put(np.stack(pos), self.torch_dtype)
             wt["w.bnd_neg"] = put(np.stack(neg), self.torch_dtype)
             wt.update(ring_args(wex, ["f"]))
@@ -444,7 +444,7 @@ class Vlasov:
                 return exchange, interior
 
             spec = WideStepSpec(bind=bind, budget=plan.budget, args=wt,
-                                local_mask=plan.local_mask)
+                                local_mask=view(plan.local_mask))
         self._wide_cached = (grid.epoch, spec)
         return spec
 
@@ -457,7 +457,6 @@ class Vlasov:
                                            default_steps_per_dispatch)
         from ..parallel.halo import MemberExchange, ring_args
 
-        require_single(self.grid.controllers, "Vlasov.batch_step_spec", "D7")
         k = default_steps_per_dispatch()
         dtype = np.dtype(self.dtype)
         if self.info is not None:

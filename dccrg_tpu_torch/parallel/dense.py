@@ -115,7 +115,9 @@ class HaloExtend:
     bottom plane of the first to rank ``(r - 1) % P``, and the matching
     planes come back from them, in one transport batch a call.  The wrap
     planes at an open end travel too; the model masks their faces as on one
-    controller.  Every controller calls :meth:`planes` in the same order."""
+    controller.  A member stack ``[W, D, nzl, ...]`` (a cohort's) crosses
+    with all W members' planes in each message.  Every controller calls
+    :meth:`planes` in the same order."""
 
     def __init__(self, info, controllers=None):
         """``info``: a DenseInfo, or a plain slot count; ``controllers``: a
@@ -146,22 +148,20 @@ class HaloExtend:
         """The two received halo planes ``(below, above)``, each
         ``[D, 1, ...]``, without materializing the extended block.  With
         ``members`` the block is ``[W, D, nzl, ...]``, W independent slab
-        rings: each member's planes come from its own slots (one controller
-        only)."""
+        rings: each member's planes come from its own slots, and under
+        several controllers every member's crossing planes, ``[W, 1, ...]``,
+        travel in the one transport batch of the call."""
         a = 1 if members else 0
         top = blk.narrow(a + 1, blk.shape[a + 1] - 1, 1)   # plane sent upward
         bot = blk.narrow(a + 1, 0, 1)                      # plane sent downward
         below, above = torch.roll(top, 1, a), torch.roll(bot, -1, a)
         if self.controllers is None:
             return below, above
-        if members:
-            from .mesh import require_single
-
-            require_single(self.controllers, "the slab ring of member stacks",
-                           "D7")
         # the ring's two crossings: this block's first slot receives from
         # the previous controller's last, its last from the next one's first
-        below[0], above[-1] = self.cross(top[-1], bot[0])
+        lo, hi = self.cross(top.select(a, -1), bot.select(a, 0))
+        below.select(a, 0).copy_(lo)
+        above.select(a, -1).copy_(hi)
         return below, above
 
     def cross(self, up: torch.Tensor, down: torch.Tensor):

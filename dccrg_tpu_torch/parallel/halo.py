@@ -136,14 +136,38 @@ def ring_args(ex, names) -> dict:
     ``ex``, as cohort arguments: ``{"ring.<name>.full" / ".send" /
     ".merge": int32 tensor}`` (nothing for a field without a ring).  A
     cohort stacks or shares them like any member table;
-    :class:`MemberExchange` offsets them per member."""
+    :class:`MemberExchange` offsets them per member.
+
+    Under several controllers there is no ``full`` table: ``send`` is this
+    controller's payload table padded to the widest controller's (every
+    controller's tables have the same shapes, so every controller forms the
+    same cohorts) and ``ring.<name>.parts`` (int64, on the host) holds the
+    payload's parts as ``(peer, start, rows)``: the local rows, then the
+    rows to each other controller, then the rows from each, a row a
+    controller in rank order (0 rows where a pair ships nothing)."""
     out = {}
     for name in names:
         rings = ex._rings_for_field(name)
-        if rings.ks:
+        if not rings.ks:
+            continue
+        if not ex.multi:
             out[f"ring.{name}.full"] = rings.full
             out[f"ring.{name}.send"] = rings.send
             out[f"ring.{name}.merge"] = rings.merge
+            continue
+        T = len(rings.send)
+        send = rings.send.new_zeros(rings.width)
+        send[:T] = rings.send
+        me, P = ex._controllers.rank, ex._controllers.size
+        n_local = (rings.sends[0][1] if rings.sends else
+                   rings.recvs[0][1] if rings.recvs else T)
+        parts = [(me, 0, n_local)]
+        for part in (rings.sends, rings.recvs):
+            have = {q: (a, n) for q, a, n in part}
+            parts += [(q, *have.get(q, (0, 0))) for q in range(P) if q != me]
+        out[f"ring.{name}.send"] = send
+        out[f"ring.{name}.merge"] = rings.merge
+        out[f"ring.{name}.parts"] = torch.tensor(parts, dtype=torch.int64)
     return out
 
 
@@ -157,16 +181,32 @@ class MemberExchange:
     by ``w * D * R`` and its payload slots by ``w * T``.  Every field moves
     in one grouped gather a protocol step (kernel B9 on the ``pallas``
     backend, its twin on ``collective``), as the schedule's own exchange
-    does; a member's rows get exactly what its own exchange would give."""
+    does; a member's rows get exactly what its own exchange would give.
+
+    Under several controllers the stacks are this controller's slots,
+    ``[W, len(slots), R, ...]``, and the rows shift by ``w * len(slots) *
+    R``.  The payload is laid out part by part (:func:`ring_args`' parts),
+    each part holding every member's rows in member order, so one grouped
+    gather packs all W members and the transport carries one message a
+    peer and field with all W members' rows in it; the merge is one more
+    grouped gather.  :meth:`start` packs and posts, :meth:`finish` waits
+    and merges, as the schedule's own split pair does."""
 
     def __init__(self, ex, args: dict, W: int):
         self.backend = ex.backend
-        self.D, self.R, self.W = ex.D, ex.R, int(W)
+        self.D, self.R, self.W = len(ex._own), ex.R, int(W)
         if self.W * self.D * self.R >= 2**31:
             raise ValueError("W * D * R rows exceed the int32 ring tables")
         self.tables = {}
+        #: under several controllers: each field's ``(sends, recvs)`` as
+        #: ``(peer, start, rows)`` slices of its member payload
+        self.parts = {}
+        self._transport = ex._transport
         names = sorted({k.split(".")[1] for k in args if k.startswith("ring.")})
         for name in names:
+            if ex.multi:
+                self._controller_tables(name, args)
+                continue
             full = args[f"ring.{name}.full"]
             send = args[f"ring.{name}.send"]
             merge = args[f"ring.{name}.merge"]
@@ -178,6 +218,40 @@ class MemberExchange:
                 (send + w * (self.D * self.R)).reshape(-1).contiguous(),
                 torch.where(merge >= 0, merge + w * T, merge).reshape(-1).contiguous(),
             )
+
+    def _controller_tables(self, name, args):
+        """One field's member tables under several controllers: member w's
+        payload parts (its own ``parts``, shared or stacked) laid out part
+        by part, member after member, with its rows shifted by ``w * D *
+        R``; the merge table sends a member's ghost row to its slot in that
+        layout.  Built on the host once a bind."""
+        send = args[f"ring.{name}.send"].cpu().numpy()
+        merge = args[f"ring.{name}.merge"].cpu().numpy()
+        parts = args[f"ring.{name}.parts"].cpu().numpy()
+        DR = self.D * self.R
+        of = lambda a, w: a[w if a.shape[0] > 1 else 0]
+        # each member's payload slot -> its slot in the member layout
+        new_of = [np.full(int(of(parts, w)[:, 2].sum()), -1, np.int64)
+                  for w in range(self.W)]
+        new_send, slices, at = [], [], 0
+        for i in range(parts.shape[1]):
+            first = at
+            for w in range(self.W):
+                _, a, n = (int(v) for v in of(parts, w)[i])
+                new_send.append(of(send, w)[a:a + n].astype(np.int64) + w * DR)
+                new_of[w][a:a + n] = np.arange(at, at + n)
+                at += n
+            slices.append((int(of(parts, 0)[i][0]), first, at - first))
+        full_merge = np.full(self.W * DR, -1, np.int64)
+        for w in range(self.W):
+            m = of(merge, w).astype(np.int64)
+            hit = np.flatnonzero(m >= 0)
+            full_merge[w * DR + hit] = new_of[w][m[hit]]
+        dev = args[f"ring.{name}.send"].device
+        put = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+        self.tables[name] = (None, put(np.concatenate(new_send)), put(full_merge))
+        P = (len(slices) + 1) // 2
+        self.parts[name] = (slices[1:P], slices[P:])
 
     def _gather(self, jobs):
         if not jobs:
@@ -192,21 +266,37 @@ class MemberExchange:
     def __call__(self, state: dict) -> dict:
         """``state`` with the ghost rows of every field that has a ring
         refreshed (the blocking exchange)."""
+        if self._transport is not None:
+            return self.finish(state, self.start(state))
         names = [n for n in state if n in self.tables]
         got = self._gather([(self._rows(state[n]), self.tables[n][0]) for n in names])
         out = dict(state)
         out.update((n, y.view(state[n].shape)) for n, y in zip(names, got))
         return out
 
-    def start(self, state: dict) -> dict:
-        """Every moving field's payload ``[W * T, ...]`` (the send half)."""
+    def start(self, state: dict) -> HaloHandle:
+        """Every moving field's payload ``[W * T, ...]`` (the send half) in
+        a :class:`HaloHandle`; under several controllers its remote parts
+        are posted on the transport, one message a peer and field."""
         names = [n for n in state if n in self.tables]
         got = self._gather([(self._rows(state[n]), self.tables[n][1]) for n in names])
-        return dict(zip(names, got))
+        pending = None
+        if self._transport is not None:
+            sends, recvs = [], []
+            for n, p in zip(names, got):
+                out_parts, in_parts = self.parts[n]
+                sends += [(q, p[a:a + k]) for q, a, k in out_parts]
+                recvs += [(q, p[a:a + k]) for q, a, k in in_parts]
+            pending = self._transport.post(sends, recvs)
+        return HaloHandle(dict(zip(names, got)), None, pending)
 
-    def finish(self, state: dict, payload: dict) -> dict:
+    def finish(self, state: dict, handle: HaloHandle) -> dict:
         """``state`` with :meth:`start`'s payloads merged into the ghost
-        rows (the merge half)."""
+        rows (the merge half; under several controllers it first waits for
+        the transport)."""
+        if handle.pending is not None:
+            handle.pending.wait()
+        payload = handle.payload
         names = [n for n in state if n in payload]
         got = self._gather([(self._rows(state[n]), self.tables[n][2], payload[n])
                             for n in names])
@@ -246,11 +336,12 @@ class _Rings:
     ``[local | to each peer | from each peer]`` from the local rows,
     ``merge`` covers the local slots' rows, ``sends`` / ``recvs`` hold each
     peer's ``(rank, first slot, rows)`` in the payload, ``full`` is None,
-    and ``wire`` / ``k_wire`` / ``cells`` count the rows this controller's
-    slots ship (no padding)."""
+    ``wire`` / ``k_wire`` / ``cells`` count the rows this controller's
+    slots ship (no padding), and ``width`` is the longest payload of any
+    controller."""
 
     __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire",
-                 "k_wire", "cells", "sends", "recvs")
+                 "k_wire", "cells", "sends", "recvs", "width")
 
 
 def _flush_record_cache(cache: dict) -> None:
@@ -497,6 +588,13 @@ class HaloExchange:
         shipped = order[:n_ship]
         rings.cells = rings.wire = n_ship
         rings.k_wire = np.bincount(k_of[shipped], minlength=len(rings.ks)).tolist()
+        # every controller's payload length (its entries as sender or
+        # receiver), from the replicated schedule: the widest pads the
+        # cohort tables (``ring_args``)
+        P = self._controllers.size
+        both = np.bincount(src_rank, minlength=P) + np.bincount(dst_rank, minlength=P)
+        rings.width = int((both - np.bincount(src_rank[src_rank == dst_rank],
+                                              minlength=P)).max())
         return rings
 
     def _rings_for_field(self, name: str) -> _Rings:

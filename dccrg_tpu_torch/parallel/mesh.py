@@ -46,9 +46,8 @@ from datetime import timedelta
 
 import numpy as np
 
-__all__ = ["BACKENDS", "ENV_BACKEND", "NOT_PORTED", "Controllers", "SINGLE",
-           "current", "launch", "require_single", "result", "setup",
-           "teardown"]
+__all__ = ["BACKENDS", "ENV_BACKEND", "Controllers", "SINGLE", "current",
+           "launch", "result", "setup", "teardown"]
 
 #: the environment variable naming the payload transport
 ENV_BACKEND = "DCCRG_TORCH_DIST_BACKEND"
@@ -94,25 +93,6 @@ class Controllers:
     def __repr__(self):
         return (f"Controllers(rank={self.rank}, size={self.size}, "
                 f"backend={self.backend!r}, device={self.device})")
-
-
-#: the multi-controller forms not ported yet (``ROADMAP.md`` queue D)
-NOT_PORTED = {
-    "D6": "the split-phase overlap steps",
-    "D7": "cohorts and the fleet",
-    "D9": "the resilience layer (lineage commits, rescale, supervision)",
-}
-
-
-def require_single(controllers, what: str, item: str) -> None:
-    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` item ``item``
-    when ``what`` would run under several controllers: a path whose
-    multi-controller form is not ported never drops to another path."""
-    if controllers is not None and controllers.multi:
-        raise NotImplementedError(
-            f"{what} is not ported across controllers (ROADMAP.md {item}: "
-            f"{NOT_PORTED[item]}); run it on one controller"
-        )
 
 
 #: the single controller: no group, today's one-process port

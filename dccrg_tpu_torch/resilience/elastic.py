@@ -133,12 +133,21 @@ def rescale(grid, state, spec, n_devices: int, *, lineage=None,
     A target device that is not visible raises :class:`DeviceLostError`
     (the same error a mid-flight device loss produces), so policy bugs
     and hardware loss land in one handler.
+
+    Under several controllers (``parallel/mesh.py``) every controller
+    calls it: the commit and the re-landing are the lineage's collectives,
+    and the grid re-lands on ``n_devices`` slots over the same
+    controllers, each on its own device.  ``n_devices`` must then be a
+    multiple of the controller count (the ``ValueError`` of
+    ``Controllers.local_slots`` names both numbers).  A process group does
+    not shrink, so a rescale to fewer controllers is not what this does:
+    that is a relaunch from :meth:`CheckpointLineage.latest_valid`.
     """
     import torch
 
-    from ..parallel.mesh import require_single
-
-    require_single(getattr(grid, "controllers", None), "rescale", "D9")
+    controllers = getattr(grid, "controllers", None)
+    if controllers is not None and controllers.multi:
+        controllers.local_slots(int(n_devices))
     if lineage is None:
         if directory is None:
             raise ValueError("rescale needs a lineage= or directory=")

@@ -77,6 +77,18 @@ program serves a whole fleet:
   member-offset ring tables of the bound body and the stacked state, over
   the width.
 
+* **Several controllers** (``parallel/mesh.py``): every controller runs
+  the same scheduler over its own slots of every member (stacks ``[W,
+  len(slots), ...]``), submits the same scenarios in the same order and so
+  forms the same cohorts (their keys are asserted equal when a cohort
+  forms).  What reads a clock or the cost model — the tick's cohort order,
+  :meth:`Scheduler.select_k`'s depth and the admission advice — is decided
+  on controller 0 and reaches the others in one small message a tick
+  (``utils.collectives.from_root``), so every controller issues the same
+  collectives in the same order.  Readbacks of a member's result are the
+  grid's collectives; the solo-replay oracle replays the same member on
+  every controller.
+
 Correctness anchor: a cohort-stepped scenario is **bit-identical** to the
 same member stepped alone.  ``DCCRG_ENSEMBLE_VERIFY=1`` (or
 ``Ensemble(verify=True)``) replays one sampled active member per dispatch
@@ -337,7 +349,8 @@ def _bound_tables(bound) -> list:
             except ValueError:
                 continue
             if isinstance(obj, MemberExchange):
-                out += [t for ts in obj.tables.values() for t in ts]
+                out += [t for ts in obj.tables.values() for t in ts
+                        if t is not None]
     return out
 
 
@@ -800,6 +813,9 @@ class Scheduler:
         #: stacking joiners (and compiling their bodies) is drain work
         #: the queue-wait service rate must pay for
         self._admit_busy_s: float = 0.0
+        #: under several controllers: controller 0's admission verdicts
+        #: since the last tick, sent with the tick's plan
+        self._advice: list = []
 
     # ---------------------------------------------------------- requests
 
@@ -828,7 +844,7 @@ class Scheduler:
             return scenario
         self._queue.append(scenario)
         metrics.gauge("ensemble.queue_depth", self.queue_depth())
-        if metrics.enabled and obs_cost.enabled():
+        if metrics.enabled and obs_cost.enabled() and _controller().rank == 0:
             self._advise_admission(scenario)
         self._gauge_backlog()
         # the black box tracks the request from the moment it exists:
@@ -907,6 +923,8 @@ class Scheduler:
                 else:
                     verdict = "ok"
             metrics.inc("ensemble.admission_estimates", verdict=verdict)
+            if _controller().multi:
+                self._advice.append(verdict)
             if verdict not in ("unknown", "ok"):
                 flightrec.note("request.admission_estimate",
                                request=scn.id, tenant=scn.tenant,
@@ -975,6 +993,10 @@ class Scheduler:
                         metrics.inc("ensemble.rejected", reason="capacity")
                         pending[key] -= 1
                         continue
+                    if _controller().multi:
+                        from ..utils.collectives import assert_agreement
+
+                        assert_agreement("cohort key", repr(key).encode())
                     width = cohort_width(
                         min(pending.get(key, 1), self.max_width),
                         self._width_hints.get(key),
@@ -1130,6 +1152,32 @@ class Scheduler:
             k = 1 if slack <= 0 else min(k, max(1, int(slack / per_step)))
         return max(k, 1)
 
+    def _tick_plan(self) -> list:
+        """This tick's ``[(cohort, k)]`` in stepping order.  Under several
+        controllers controller 0 decides (the order and :meth:`select_k`
+        read clocks and the cost model) and sends the plan, with its
+        admission verdicts since the last tick, to the others in one
+        message; they count those verdicts as their own."""
+        ctl = _controller()
+        plan = None
+        if ctl.rank == 0:
+            plan = [(c, self.select_k(c)) for c in self._ordered_cohorts()]
+        if not ctl.multi:
+            return plan
+        from ..utils.collectives import from_root
+
+        cohorts = list(self.cohorts.values())
+        msg = None
+        if ctl.rank == 0:
+            index = {id(c): i for i, c in enumerate(cohorts)}
+            msg = ([(index[id(c)], k) for c, k in plan], self._advice)
+            self._advice = []
+        order, advice = from_root(msg)
+        if ctl.rank != 0:
+            for verdict in advice:
+                metrics.inc("ensemble.admission_estimates", verdict=verdict)
+        return [(cohorts[i], k) for i, k in order]
+
     def step_once(self) -> int:
         """One scheduling tick: step every cohort with active members
         (policy order) at its selected dispatch depth, then retire
@@ -1137,8 +1185,8 @@ class Scheduler:
         tick_t0 = time.perf_counter()
         served = 0
         tick_served: dict = {}
-        for cohort in self._ordered_cohorts():
-            served += cohort.step(self.select_k(cohort))
+        for cohort, k in self._tick_plan():
+            served += cohort.step(k)
             for t, v in getattr(cohort, "_served_last", {}).items():
                 tick_served[t] = tick_served.get(t, 0) + v
             for slot in cohort.finished_slots():
@@ -1212,6 +1260,13 @@ class Scheduler:
             idle = (served == 0 and not self._queue)
             if idle or (max_ticks is not None and ticks >= max_ticks):
                 return total
+
+
+def _controller():
+    """This process's controllers (``parallel.mesh.current``)."""
+    from ..parallel.mesh import current
+
+    return current()
 
 
 def _env_int(name: str, default: int) -> int:

@@ -28,6 +28,7 @@ __all__ = [
     "sync_adaptation",
     "sync_partition_inputs",
     "assert_agreement",
+    "from_root",
     "barrier",
     "all_gather",
     "all_reduce",
@@ -273,6 +274,22 @@ def assert_agreement(tag: str, payload: bytes) -> None:
             f"differ from process(es) {bad} — {tag} must be called with "
             "identical arguments on every controller"
         )
+
+
+def from_root(obj):
+    """Controller 0's ``obj`` on every controller (a pickled broadcast over
+    the host group): how a decision that only one process may take (one
+    that reads a clock, a directory or a cost model) reaches the others, so
+    every controller acts on the same one.  Identity with one controller.
+    A collective: every controller calls it in the same order; the others'
+    ``obj`` is ignored."""
+    if process_count() == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj if _controllers().rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=_controllers().host_group)
+    return box[0]
 
 
 def barrier(name: str = "dccrg") -> None:

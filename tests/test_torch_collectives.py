@@ -3,9 +3,7 @@ process, with a fake multi-process ``_process_allgather`` seam: P threads,
 one a virtual controller, meet at a barrier and each gets every thread's
 array.  The same fake drives the JAX package's ``utils/collectives.py``
 (patched here, in the test only), and both must give equal results.  Also:
-a path whose multi-controller form is not ported raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item under P > 1."""
-import tempfile
+under P > 1 every path builds on this controller's slots."""
 import threading
 from types import SimpleNamespace
 
@@ -182,7 +180,7 @@ def test_identity_under_one_controller():
     assert TC.some_reduce_p2p(np.uint64(4), [1, 2]) == 4
 
 
-# ----------------------------------------------- not ported across controllers
+# ------------------------------------------------- paths across controllers
 
 def _two_controllers():
     from dccrg_tpu_torch.parallel.mesh import Controllers
@@ -209,76 +207,86 @@ def _grid(length, D=2, max_ref=0, hood=1, refine=False):
 def _advection_overlap():
     from dccrg_tpu_torch import Advection
 
-    Advection(_grid((4, 4, 4), hood=0), overlap=True)
+    return Advection(_grid((4, 4, 4), hood=0), overlap=True)._inner["rows"]
 
 
 def _advection_cohort():
     from dccrg_tpu_torch import Advection
 
-    Advection(_grid((4, 4, 4), hood=0), allow_dense=False).batch_step_spec()
+    adv = Advection(_grid((4, 4, 4), hood=0), allow_dense=False)
+    return adv.batch_step_spec().args["nbr_rows"]
+
+
+def _advection_wide():
+    from dccrg_tpu_torch import Advection
+
+    spec = Advection(_grid((6, 6, 6), hood=2), allow_dense=False)._wide_spec()
+    assert spec is not None and spec.budget >= 2
+    assert spec.local_mask.shape[0] == 1
+    return spec.args["w.nbr_rows"]
 
 
 def _gol_overlap():
     from dccrg_tpu_torch import GameOfLife
 
-    GameOfLife(_grid((6, 6, 1)), overlap=True)
+    return GameOfLife(_grid((6, 6, 1)), overlap=True)._sides[0][0]
 
 
 def _gol_cohort():
     from dccrg_tpu_torch import GameOfLife
 
-    GameOfLife(_grid((6, 6, 1)), allow_dense=False).batch_step_spec()
+    return GameOfLife(_grid((6, 6, 1)), allow_dense=False).batch_step_spec().args["nbr_rows"]
 
 
 def _vlasov_overlap():
     from dccrg_tpu_torch import Vlasov
 
-    Vlasov(_grid((4, 4, 4), hood=0), 2, overlap=True)
+    return Vlasov(_grid((4, 4, 4), hood=0), 2, overlap=True)._inner["rows"]
 
 
 def _vlasov_cohort():
     from dccrg_tpu_torch import Vlasov
 
-    Vlasov(_grid((4, 4, 4), hood=0), 2).batch_step_spec()
+    vl = Vlasov(_grid((4, 4, 4), hood=0), 2)
+    assert vl.batch_step_spec().kind == "vlasov.dense"
+    return vl.initialize_state()["f"]
 
 
-def _vlasov_wide():
+def _vlasov_split_cohort():
     from dccrg_tpu_torch import Vlasov
 
-    Vlasov(_grid((4, 4, 4), max_ref=1, hood=0, refine=True), 2)._wide_spec()
+    vl = Vlasov(_grid((4, 4, 4), max_ref=1, hood=0, refine=True), 2, overlap=True)
+    return vl.batch_step_spec().args["inner.bnd_pos"].transpose(0, 1)
 
 
-def _dense_ring_members():
-    from dccrg_tpu_torch.parallel.dense import HaloExtend
+def _ring_args():
+    """The cohort ring tables: no ``full`` table, the payload table padded
+    to the widest controller's, the parts a row a controller."""
+    from dccrg_tpu_torch.parallel.halo import ring_args
 
-    HaloExtend(2, _two_controllers()).planes(torch.zeros(3, 1, 2, 1, 4),
-                                             members=True)
-
-
-def _lineage():
-    from dccrg_tpu_torch.resilience import CheckpointLineage
-
-    g = _grid((4, 4, 4), hood=0)
-    with tempfile.TemporaryDirectory() as d:
-        CheckpointLineage(d).commit(g, {}, {})
+    g = _grid((4, 4, 4), max_ref=1, hood=0, refine=True)
+    args = ring_args(g.halo(), ["density"])
+    assert "ring.density.full" not in args
+    assert tuple(args["ring.density.parts"].shape) == (3, 3)
+    assert args["ring.density.send"].shape[0] == g.halo()._rings.width
+    return args["ring.density.merge"].view(1, -1)
 
 
-def _rescale():
-    from dccrg_tpu_torch.resilience import rescale
+@pytest.mark.parametrize("path", [
+    _advection_overlap, _advection_cohort, _advection_wide, _gol_overlap,
+    _gol_cohort, _vlasov_overlap, _vlasov_cohort, _vlasov_split_cohort, _ring_args,
+], ids=lambda f: f.__name__.lstrip("_"))
+def test_split_and_cohort_paths_build_across_controllers(path):
+    """The split steps' tables, the cohorts' member tables and the wide
+    plan's under P > 1 hold this controller's slots (controller 0 of 2 holds
+    slot 0 of 2)."""
+    assert path().shape[0] == 1
 
-    with tempfile.TemporaryDirectory() as d:
-        rescale(_grid((4, 4, 4), hood=0), {}, {}, 1, directory=d)
 
+def test_no_path_is_guarded_across_controllers():
+    from dccrg_tpu_torch.parallel import mesh
 
-@pytest.mark.parametrize("path,item", [
-    (_advection_overlap, "D6"), (_gol_overlap, "D6"), (_vlasov_overlap, "D6"),
-    (_advection_cohort, "D7"), (_gol_cohort, "D7"), (_vlasov_cohort, "D7"),
-    (_vlasov_wide, "D7"), (_dense_ring_members, "D7"),
-    (_lineage, "D9"), (_rescale, "D9"),
-])
-def test_not_ported_across_controllers_raises(path, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        path()
+    assert not hasattr(mesh, "NOT_PORTED") and not hasattr(mesh, "require_single")
 
 
 def test_gather_paths_build_across_controllers():

@@ -17,6 +17,7 @@ forms (:func:`model_scenarios`, ``tests/test_torch_models_spmd.py``);
 controller is the one-controller oracle: it applies every rank's requests
 itself, in rank order.
 """
+import contextlib
 import hashlib
 import os
 import sys
@@ -766,6 +767,500 @@ def model_scenarios(ctl, nproc: int, D: int) -> dict:
     return res
 
 
+# ------------- the split steps (D6), the lineage (D9) and the cohorts (D7)
+
+#: the controllers' environment for the small cases: one compute thread a
+#: process (several controllers share the CPU; torch's default of a thread
+#: a core would oversubscribe it many times over)
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+def launch(mode, nproc, D, wd, *extra, timeout_s=120):
+    """``mode`` of this worker as ``nproc`` controllers of D slots."""
+    from dccrg_tpu_torch.parallel import mesh
+
+    return mesh.launch([sys.executable, os.path.abspath(__file__), str(D), wd, mode,
+                        *map(str, extra)], nproc, timeout_s=timeout_s, env=ONE_THREAD)
+
+
+def shared_run(request, tmp_path_factory, tag, run):
+    """``run(workdir)`` once a test session: under xdist the first worker to
+    ask runs it and the others read its JSON result through a file lock in
+    the run's shared temporary root."""
+    import json
+
+    if not hasattr(request.config, "workerinput"):
+        return json.loads(json.dumps(run(str(tmp_path_factory.mktemp(tag)))))
+    from filelock import FileLock
+
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{tag}.json"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return json.loads(path.read_text())
+        wd = root / tag
+        wd.mkdir(exist_ok=True)
+        out = run(str(wd))
+        path.write_text(json.dumps(out))
+        return json.loads(path.read_text())
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """The environment with ``kw`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _twins():
+    """B9's twin calls so far (the ``pallas`` backend on CPU tensors)."""
+    from dccrg_tpu_torch.ops import PLAIN_CALLS
+
+    return PLAIN_CALLS["ring_copy"]
+
+
+def split_grid(ctl, D, hood=0, length=(8, 8, 12)):
+    """A periodic grid with the ball r < 0.3 refined once: inner and outer
+    rows on 6 and 8 slots."""
+    g = _grid(ctl, D, length, max_ref=1, hood=hood, periodic=(True,) * 3,
+              cell=tuple(1.0 / n for n in length))
+    ids = g.get_cells()
+    g.refine_completely_many(ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5,
+                                                axis=1) < 0.3])
+    g.stop_refining()
+    return g
+
+
+def split_models(ctl, D, kind, dtype=np.float64, periodic=True):
+    """(grid, the blocking gather model, the split-phase model, state, dt)
+    of ``kind`` (advection, vlasov, gol) on B9's twin: Advection and
+    Vlasov (nv = 2) on :func:`split_grid` at neighbourhood length 0, Game
+    of Life on a 12 x 12 board at 30% alive."""
+    from dccrg_tpu_torch import Advection, GameOfLife, Vlasov
+
+    with _env(DCCRG_HALO_BACKEND="pallas"):
+        if kind == "gol":
+            g = _grid(ctl, D, (12, 12, 1))
+            eager, split = GameOfLife(g, allow_dense=False), GameOfLife(g, overlap=True)
+            cells = g.get_cells()
+            s = eager.new_state(alive_cells=cells[np.random.default_rng(4).random(len(cells))
+                                                  < 0.3])
+            return g, eager, split, s, None
+        if kind == "advection":
+            g = split_grid(ctl, D)
+            eager = Advection(g, allow_dense=False, use_kernels=False)
+            split = Advection(g, allow_dense=False, overlap=True)
+            s = eager.initialize_state()
+            return g, eager, split, s, 0.4 * eager.max_time_step(s)
+        length = (8, 8, 12)
+        g = _grid(ctl, D, length, max_ref=1, hood=0, periodic=(True, True, periodic),
+                  cell=tuple(1.0 / n for n in length))
+        ids = g.get_cells()
+        g.refine_completely_many(ids[np.linalg.norm(g.geometry.get_center(ids) - 0.5,
+                                                    axis=1) < 0.3])
+        g.stop_refining()
+        eager = Vlasov(g, nv=2, dtype=dtype)
+        split = Vlasov(g, nv=2, dtype=dtype, overlap=True)
+        s = eager.initialize_state()
+        return g, eager, split, s, eager._scalar(0.4 * eager.max_time_step())
+
+
+#: the fields each split case reads back by cell id
+SPLIT_FIELDS = {"advection": ("density",), "vlasov": ("f",),
+                "gol": ("is_alive", "live_neighbor_count")}
+
+
+def split_case(ctl, D, kind, dtype=np.float64, periodic=True, steps=3):
+    """``steps`` split steps, each bitwise equal to the blocking gather
+    step, then a split ``run(2)``; the fields by cell id, B9's twin calls a
+    split step and whether any row is inner."""
+    import torch
+
+    g, eager, split, s, dt = split_models(ctl, D, kind, dtype, periodic)
+    args = () if dt is None else (dt,)
+    se = sf = s
+    twins = 0
+    for _ in range(steps):
+        se = eager.step(se, *args)
+        t0 = _twins()
+        sf = split.step(sf, *args)
+        twins += _twins() - t0
+        for name in SPLIT_FIELDS[kind]:
+            assert torch.equal(se[name], sf[name]), f"{kind}: split != gather ({name})"
+    sf = split.run(sf, 2, *args)
+    se = eager.run(se, 2, *args)
+    ids = g.get_cells()
+    out = {"twins_per_step": twins / steps,
+           "inner": bool(g.epoch.hoods[None].inner_mask.any())}
+    for name in SPLIT_FIELDS[kind]:
+        assert torch.equal(se[name], sf[name]), f"{kind}: split run != gather run"
+        out[name] = _hash(g.get_cell_data(sf, name, ids))
+    return out
+
+
+SPLIT_CASES = {
+    "advection": lambda c, D: split_case(c, D, "advection"),
+    "vlasov_f32_periodic": lambda c, D: split_case(c, D, "vlasov", np.float32, True),
+    "vlasov_f64_open": lambda c, D: split_case(c, D, "vlasov", np.float64, False),
+    "gol": lambda c, D: split_case(c, D, "gol", steps=6),
+}
+
+
+def split_scenarios(ctl, nproc: int, D: int) -> dict:
+    res = {"nproc": nproc, "n_devices": D}
+    for name, case in SPLIT_CASES.items():
+        res[name] = case(ctl, D)
+    return res
+
+
+#: the lineage's fields (the gather Advection's row state)
+LINEAGE_SPEC = {k: ((), np.float64) for k in ("density", "vx", "vy", "vz")}
+
+
+def lineage_setup(ctl, D):
+    """The gather Advection (f64) on a periodic 6^3 grid with every 7th of
+    the first 70 cells refined: (grid, model, state, dt)."""
+    from dccrg_tpu_torch import Advection
+
+    g = _grid(ctl, D, (6, 6, 6), max_ref=1, hood=0, periodic=(True,) * 3,
+              cell=(1 / 6,) * 3)
+    g.refine_completely_many(g.get_cells()[:70:7])
+    g.stop_refining()
+    adv = Advection(g, allow_dense=False, use_kernels=False)
+    s = adv.initialize_state()
+    return g, adv, s, 0.3 * adv.max_time_step(s)
+
+
+def lineage_land(g, spec_state):
+    """A gather Advection and its full state on the re-landed grid ``g``
+    (the lineage's fields by cell id, ghosts refreshed)."""
+    from dccrg_tpu_torch import Advection
+
+    adv = Advection(g, allow_dense=False, use_kernels=False)
+    s = adv.initialize_state()
+    ids = g.get_cells()
+    for f in LINEAGE_SPEC:
+        s = adv.set_cell_data(s, f, ids, g.get_cell_data(spec_state, f, ids))
+    return adv, g.update_copies_of_remote_neighbors(s)
+
+
+def lineage_case(ctl, D, target, wd):
+    """Commits and ``latest_valid``; a commit torn on the writer (rejected
+    on every controller); a torn newest generation every controller skips,
+    and ``salvage_latest`` of it; ``rescale`` to ``target`` slots and two
+    steps after it.  Returns the
+    generations, the reasons and the hashes by cell id (leaves, owners,
+    fields after the landing, density after the steps)."""
+    from dccrg_tpu_torch.io.checkpoint import CheckpointError
+    from dccrg_tpu_torch.resilience import CheckpointLineage, rescale
+    from dccrg_tpu_torch.resilience.inject import plane
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    g, adv, s, dt = lineage_setup(ctl, D)
+    lin = CheckpointLineage(os.path.join(wd, f"lineage_{D}_{target}_{int(ctl.multi)}"))
+    ids = g.get_cells()
+    out = {}
+    s = adv.run(s, 2, dt)
+    gens = [lin.commit(g, s, LINEAGE_SPEC, user_header=b"2")]
+    s = adv.run(s, 2, dt)
+    gens.append(lin.commit(g, s, LINEAGE_SPEC, user_header=b"4"))
+    lg, ls, hdr, gen = lin.latest_valid(LINEAGE_SPEC, n_devices=D, device="cpu")
+    for f in LINEAGE_SPEC:
+        assert np.array_equal(lg.get_cell_data(ls, f, ids), g.get_cell_data(s, f, ids)), f
+    out["commit"] = gens + [gen, hdr.decode()]
+    # the writer's file torn: controller 0 rejects, every controller raises
+    if ctl.rank == 0:
+        plane.arm("checkpoint.torn_write", prob=1.0, seed=1, count=1)
+    try:
+        lin.commit(g, s, LINEAGE_SPEC)
+        out["rejected"] = "missed"
+    except CheckpointError as e:
+        out["rejected"] = e.section
+    plane.disarm("checkpoint.torn_write")
+    # the newest generation torn after its commit: every controller skips it
+    g3 = lin.commit(g, s, LINEAGE_SPEC, user_header=b"4b")
+    if ctl.rank == 0:
+        path = os.path.join(lin.directory, f"gen-{g3:06d}.dc")
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    barrier("lineage.torn")
+    _, _, hdr, gen = lin.latest_valid(LINEAGE_SPEC, n_devices=D, device="cpu")
+    out["torn"] = [g3, gen, hdr.decode()]
+    sg, ss, hdr, gen, lost = lin.salvage_latest(LINEAGE_SPEC, n_devices=D, device="cpu")
+    sids = sg.get_cells()
+    out["salvage"] = [gen, hdr.decode(), int(len(lost)), _hash(lost),
+                      _hash(sg.get_cell_data(ss, "density", sids))]
+    r = rescale(g, s, LINEAGE_SPEC, target, lineage=lin)
+    ng = r.grid
+    nids = ng.get_cells()
+    out["rescale"] = {"generation": r.generation, "before": r.n_devices_before,
+                      "after": r.n_devices_after, "direction": r.direction,
+                      "ids": _hash(nids), "owner": _hash(ng.leaves.owner.astype(np.int64))}
+    out["local_slots"] = [ng.slots.start, ng.slots.stop]
+    for f in LINEAGE_SPEC:
+        out["rescale"][f] = _hash(ng.get_cell_data(r.state, f, nids))
+    adv2, s2 = lineage_land(ng, r.state)
+    s2 = adv2.run(s2, 2, dt)
+    out["after"] = {"density": _hash(ng.get_cell_data(s2, "density", nids)),
+                    "mass": adv2.total_mass(s2)}
+    return out
+
+
+#: (the run's steps, a commit every so many): the killed run dies on
+#: controller 1 right after its second commit
+KILL_STEPS, KILL_EVERY = 12, 4
+
+
+def lineage_run(ctl, D, wd, phase):
+    """The killed-and-resumed run: ``kill`` steps from the start, committing
+    every KILL_EVERY steps, with ``sigkill.post_commit`` armed on
+    controller 1 to fire after its second commit; ``resume`` lands the
+    newest valid generation and finishes the run.  ``one`` (the oracle) is
+    the uninterrupted run.  Returns the density by cell id and where the
+    run resumed."""
+    from dccrg_tpu_torch.resilience import CheckpointLineage
+    from dccrg_tpu_torch.resilience.inject import plane
+
+    lin = CheckpointLineage(os.path.join(wd, "killed"))
+    g, adv, s, dt = lineage_setup(ctl, D)
+    step, gen = 0, None
+    if phase == "resume":
+        g, ls, hdr, gen = lin.latest_valid(LINEAGE_SPEC, n_devices=D, device="cpu")
+        step = int(hdr.decode())
+        adv, s = lineage_land(g, ls)
+    elif phase == "kill" and ctl.rank == 1:
+        plane.arm("sigkill.post_commit", prob=1.0, seed=0, count=1, after=1)
+    while step < KILL_STEPS:
+        s = adv.step(s, dt)
+        step += 1
+        if phase != "one" and step % KILL_EVERY == 0:
+            lin.commit(g, s, LINEAGE_SPEC, user_header=str(step).encode())
+    ids = g.get_cells()
+    return {"density": _hash(g.get_cell_data(s, "density", ids)), "resumed_gen": gen,
+            "mass": adv.total_mass(s)}
+
+
+# -------------------------------------------------------------- cohorts (D7)
+
+def _all_slots_hash(result, names):
+    """Hash of the fields ``names`` of a member's state, every slot (a
+    collective)."""
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    return _hash(np.concatenate([fetch(result[n]).reshape(-1).view(np.uint8)
+                                 for n in names]))
+
+
+def _solo(model, state, steps, dt=None):
+    for _ in range(steps):
+        state = model.step(state) if dt is None else model.step(state, dt)
+    return state
+
+
+def _counter(name):
+    from dccrg_tpu_torch import obs
+
+    return int(sum(obs.metrics.report()["counters"].get(name, {}).values()))
+
+
+def _members(model, s0, fields, W, scale):
+    """W member states: ``s0`` with its ``fields`` scaled by 1 + 0.1 w
+    (``scale`` False: unchanged)."""
+    out = []
+    for w in range(W):
+        s = {k: v.clone() for k, v in s0.items()}
+        if scale:
+            for f in fields:
+                s[f] = s[f] * (1.0 + 0.1 * w)
+        out.append(s)
+    return out
+
+
+def cohort_case(ctl, D, kind, W=4, k=3):
+    """One cohort of W members of ``kind`` through ``Ensemble`` (the
+    solo-replay oracle on), each member's result bitwise equal to its solo
+    run on this controller.  Returns the members' hashes (every slot), the
+    form, the twin calls and transport bytes a member-batched step."""
+    import torch
+
+    from dccrg_tpu_torch.serve import Ensemble
+
+    fields = ("density",)
+    with _env(DCCRG_HALO_BACKEND="pallas"):
+        if kind in ("blocked", "plane", "plain"):
+            model, s0, dt = adv_setup(ctl, D, kind, True)
+            form = list(model.dense_kind)
+            counter = lambda: model._extend.transport_bytes
+        elif kind == "vlasov":
+            model, s0, dt = vlasov_setup(ctl, D, np.float32, False)
+            fields, form = ("f",), model._fused_block
+            counter = lambda: model._extend.transport_bytes
+        elif kind == "split":
+            g, _, model, s0, dt = split_models(ctl, D, "advection")
+            form = "split"
+            counter = lambda: model._exchange.transport_bytes
+        elif kind == "gol_overlap":
+            g, _, model, s0, dt = split_models(ctl, D, "gol")
+            fields, form = ("is_alive", "live_neighbor_count"), "gol.overlap"
+            counter = lambda: model._exchange.transport_bytes
+        else:
+            raise ValueError(kind)
+        spec = model.batch_step_spec()
+        states = _members(model, s0, fields if kind != "gol_overlap" else (), W,
+                          kind != "gol_overlap")
+        m0 = _counter("ensemble.verify_mismatches")
+        ens = Ensemble(verify=True, steps_per_dispatch=k)
+        steps = [2 * k + 1 + w for w in range(W)]
+        dts = [None if dt is None else dt * (1.0 - 0.05 * w) for w in range(W)]
+        tickets = [ens.submit(model, s, steps=n, dt=d) for s, n, d in zip(states, steps, dts)]
+        t0, b0 = _twins(), counter()
+        ens.admit_pending()
+        cohort = next(iter(ens.cohorts.values()))
+        # one member-batched step, the oracle's solo replay off
+        cohort._verify_on = False
+        cohort.step(1)
+        cohort._verify_on = True
+        twins, sent = _twins() - t0, counter() - b0
+        ens.run()
+        assert len(ens.cohorts) == 1 and cohort.W == W
+        out = {"kind": spec.kind, "form": form, "twins_first_step": twins,
+               "bytes_first_step": sent,
+               "mismatches": _counter("ensemble.verify_mismatches") - m0}
+        # one member alone: the transport bytes of a solo step
+        b0 = counter()
+        _solo(model, states[0], 1, dts[0])
+        out["solo_step_bytes"] = counter() - b0
+        hashes = []
+        for t, s, n, d in zip(tickets, states, steps, dts):
+            ref = _solo(model, s, n, d)
+            for f in fields:
+                assert torch.equal(ref[f], t.result[f]), f"{kind}: member != solo ({f})"
+            hashes.append(_all_slots_hash(t.result, fields))
+        out["members"] = hashes
+    return out
+
+
+def wide_case(ctl, D, k=4):
+    """The exchange-amortized cohort: the gather Advection (f64) on a
+    periodic 6^3 grid at neighbourhood length 2, two members, ``k`` steps a
+    dispatch; owned rows bitwise equal to the solo run."""
+    import torch
+
+    from dccrg_tpu_torch import Advection
+    from dccrg_tpu_torch.serve import Ensemble
+
+    with _env(DCCRG_HALO_BACKEND="pallas"):
+        g = _grid(ctl, D, (6, 6, 6), hood=2, periodic=(True,) * 3, cell=(1 / 6,) * 3)
+        adv = Advection(g, allow_dense=False)
+        spec = adv.batch_step_spec()
+        assert spec.wide is not None and spec.wide.budget >= 2, spec.wide
+        s0 = adv.initialize_state()
+        dt = 0.4 * adv.max_time_step(s0)
+        states = _members(adv, s0, ("density",), 2, True)
+        m0 = _counter("ensemble.verify_mismatches")
+        ens = Ensemble(verify=True, steps_per_dispatch=k)
+        tickets = [ens.submit(adv, s, steps=k + 1 + w, dt=dt) for w, s in enumerate(states)]
+        ens.run()
+        cohort = next(iter(ens.cohorts.values()))
+        lm = torch.as_tensor(spec.wide.local_mask)
+        hashes = []
+        for w, (t, s) in enumerate(zip(tickets, states)):
+            ref = _solo(adv, s, k + 1 + w, dt)
+            assert torch.equal(ref["density"][lm], t.result["density"][lm])
+            hashes.append(_hash(g.get_cell_data(t.result, "density", g.get_cells())))
+        return {"budget": int(spec.wide.budget), "wide": cohort._wide is not None,
+                "members": hashes,
+                "mismatches": _counter("ensemble.verify_mismatches") - m0}
+
+
+def deadline_case(ctl, D, n=8):
+    """A deadline ``Ensemble``: ``n`` seeded scenarios on two dense grids
+    (two cohorts), each with a deadline (this process's clock: they differ
+    between controllers, and controller 0's decide), policy ``deadline``,
+    the oracle on; every scenario retires bitwise equal to its solo run."""
+    import time
+
+    import torch
+
+    from dccrg_tpu_torch.serve import Ensemble
+
+    models = [adv_setup(ctl, D, "plain", True), adv_setup(ctl, D, "blocked", False)]
+    rng = np.random.default_rng(9)
+    ens = Ensemble(policy="deadline", verify=True)
+    m0 = _counter("ensemble.verify_mismatches")
+    now = time.perf_counter()
+    runs = []
+    for i in range(n):
+        model, s0, dt = models[i % 2]
+        s = {k: v.clone() for k, v in s0.items()}
+        s["density"] = s["density"] * float(1.0 + rng.random())
+        steps = int(rng.integers(3, 9))
+        d = dt * float(0.5 + 0.5 * rng.random())
+        t = ens.submit(model, s, steps=steps, dt=d, tenant=f"t{i % 3}",
+                       deadline=now + float(rng.uniform(0.01, 5.0)))
+        runs.append((model, s, steps, d, t))
+    ens.run()
+    hashes = []
+    for model, s, steps, d, t in runs:
+        assert t.status == "done"
+        ref = _solo(model, s, steps, d)
+        assert torch.equal(ref["density"], t.result["density"])
+        hashes.append(_all_slots_hash(t.result, ("density",)))
+    return {"members": hashes, "cohorts": len(ens.cohorts),
+            "mismatches": _counter("ensemble.verify_mismatches") - m0}
+
+
+def member_ring_check(ctl, D, W=3, per_slot=2):
+    """The controller ring's planes of a member stack ``[W, D, per_slot, 2,
+    5]`` against one controller's roll of every member, and one transport
+    batch of two messages carrying all W members."""
+    import torch
+
+    from dccrg_tpu_torch.parallel.dense import HaloExtend
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    slots = ctl.local_slots(D)
+    full = torch.arange(W * D * per_slot * 10, dtype=torch.float64).reshape(
+        W, D, per_slot, 2, 5)
+    ring = HaloExtend(D, ctl)
+    below, above = ring.planes(full[:, slots.start:slots.stop].clone(), members=True)
+    want_lo = torch.roll(full[:, :, -1:], 1, 1)[:, slots.start:slots.stop]
+    want_hi = torch.roll(full[:, :, :1], -1, 1)[:, slots.start:slots.stop]
+    assert torch.equal(below, want_lo) and torch.equal(above, want_hi)
+    sent = 2 * W * 10 * 8 if ctl.multi else 0
+    assert ring.transport_bytes == sent, (ring.transport_bytes, sent)
+    assert (ring._transport.messages_sent if ctl.multi else 2) == 2
+    return _hash(np.concatenate([fetch(below.transpose(0, 1).contiguous()).reshape(-1),
+                                 fetch(above.transpose(0, 1).contiguous()).reshape(-1)]))
+
+
+COHORT_CASES = {
+    "dense_blocked": lambda c, D: cohort_case(c, D, "blocked"),
+    "dense_plane": lambda c, D: cohort_case(c, D, "plane"),
+    "dense_plain": lambda c, D: cohort_case(c, D, "plain"),
+    "dense_vlasov": lambda c, D: cohort_case(c, D, "vlasov"),
+    "split": lambda c, D: cohort_case(c, D, "split"),
+    "gol_overlap": lambda c, D: cohort_case(c, D, "gol_overlap"),
+    "wide": wide_case,
+    "deadline": deadline_case,
+}
+
+
+def cohort_scenarios(ctl, nproc: int, D: int) -> dict:
+    res = {"nproc": nproc, "n_devices": D, "ring": member_ring_check(ctl, D)}
+    for name, case in COHORT_CASES.items():
+        res[name] = case(ctl, D)
+    return res
+
+
 def _p2p(ctl, nproc):
     """The JAX worker's scenario 7 exchanges among explicit peer sets."""
     from dccrg_tpu_torch.utils.collectives import _P2PTransport, some_reduce_p2p
@@ -836,6 +1331,14 @@ def main() -> None:
             res = model_scenarios(ctl, ctl.size, D)
         elif mode == "ring":
             res = {"ring": ring_check(ctl, D)}
+        elif mode == "split":
+            res = split_scenarios(ctl, ctl.size, D)
+        elif mode == "cohorts":
+            res = cohort_scenarios(ctl, ctl.size, D)
+        elif mode == "lineage":
+            res = lineage_case(ctl, D, int(sys.argv[4]), workdir)
+        elif mode in ("kill", "resume"):
+            res = lineage_run(ctl, D, workdir, mode)
         else:
             res = scenarios(ctl, ctl.size, D, workdir)
     finally:
