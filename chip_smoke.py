@@ -277,7 +277,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 scenarios, a worker and then the gateway SIGKILLed and the
                 gateway relaunched over its journal: every scenario retired
                 exactly once, equal to the solo oracle, a postmortem naming
-                the lost worker, no kernel built in any worker).
+                the lost worker, no kernel built in any worker), then the
+                fleet's admission A/B (A16, ``soak.fleet_admission_ab``: one
+                worker with admission on, then off; on, the burst rejected
+                and the deadline tenant on time; off, nothing rejected and a
+                deadline miss; the chunk, its rate and both modes logged).
 
 32. spmd     — (at the end) several controllers (``parallel/mesh.py``):
                 2 processes of 4 slots each on the card over gloo
@@ -327,7 +331,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 operator space or flat kind, B9's launches a controller and
                 no twin checked; wall ms a step or iteration and ring or
                 transport bytes logged beside the oracle's.  ``python3
-                chip_smoke.py --spmd-only`` runs this phase and phase 33.
+                chip_smoke.py --spmd-only`` runs this phase, 33 and 34.
 
 33. spmd serve and lineage — (after 32) the split steps (D6), cohorts
                 (D7) and the lineage (D9) across controllers on the card
@@ -355,9 +359,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 uninterrupted run(300) on 8 slots; commit and rescale
                 seconds logged.
 
+34. ipc      — (after 33) the device-direct transport (D8,
+                ``DCCRG_TORCH_DIST_BACKEND=ipc``): phase 32's 2 x 4 run
+                (gather, dense, models) and phase 33's split cases and the
+                dense, Vlasov and split cohorts, on 2 controllers of the card
+                over gloo and then over ipc, each launch alone, every result
+                bitwise equal to the oracles of 32 and 33, B9 on every
+                controller with no twin, 0 pinned host bytes staged under
+                ipc; each case's wall ms and transport bytes under both
+                transports, the host round trips (gloo, ipc's token sockets)
+                and B9's remote write (``ring_put``) at the split packs,
+                against its twin, its own arena and its bound, logged.
+
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
-each sub-step of 30 and 31, and (in each controller) each part of 32 and 33
-drives its path and read just after.  Telemetry is on throughout, as it
+each sub-step of 30 and 31, and (in each controller) each part of 32, 33
+and 34 drives its path and read just after.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -831,7 +847,20 @@ def spmd_run(ctl, nproc, D, wd, device, size, dense=None) -> dict:
     res["models"] = spmd_models(ctl, nproc, D, device, SPMD_MODELS[
         "full" if size == SPMD_SIZES["full"] else "small"](D))
     res["s"] = time.perf_counter() - t0
+    from dccrg_tpu_torch.parallel.transport import STAGED
+
+    # the pinned host bytes (and stream synchronisations) this controller's
+    # transport staged: gloo's, never ipc's or nccl's
+    res["staged"] = dict(STAGED)
+    res["arena"] = _arena_record(ctl)
     return res
+
+
+def _arena_record(ctl):
+    """Under ipc, the arena's allocations (1: never grown) and channel
+    bytes; None on the other transports."""
+    arena = getattr(ctl, "arena", None)
+    return None if arena is None else [arena.epoch, arena.cap]
 
 
 def spmd_models(ctl, nproc, D, device, widths) -> dict:
@@ -1064,20 +1093,32 @@ def child_spmd(wd, D, backend, size, device, dense) -> int:
     return 0
 
 
-def child_spmd33(wd, part, size, device) -> int:
-    """One controller of phase 33 (``--child spmd33 wd part size device``):
-    ``serve`` runs the split cases and the cohorts of this controller count
-    and writes its result to ``wd/serve33_<rank>.json`` before the killed
-    lineage run (its controller 1 dies there, so the launch fails by
-    design); ``plane`` runs the 3 x 1 cohort and ``resume`` the lineage's
-    relaunch, each printing its ``RESULT`` line."""
+def child_spmd33(wd, part, size, device, backend="gloo") -> int:
+    """One controller of phase 33 (``--child spmd33 wd part size device
+    [backend]``): ``serve`` runs the split cases and the cohorts of this
+    controller count and writes its result to ``wd/serve33_<rank>.json``
+    before the killed lineage run (its controller 1 dies there, so the
+    launch fails by design); ``plane`` runs the 3 x 1 cohort and ``resume``
+    the lineage's relaunch; ``ipc`` (phase 34) the split cases and
+    SPMD34_COHORTS, with B9's remote-write timing under the ipc transport;
+    each but ``serve`` prints its ``RESULT`` line."""
     from dccrg_tpu_torch.parallel import mesh
+    from dccrg_tpu_torch.parallel.transport import STAGED
 
-    ctl = mesh.setup(backend="gloo", device=None if device == "cuda" else device)
+    ctl = mesh.setup(backend=backend, device=None if device == "cuda" else device)
     dev = ctl.device
     sz = SPMD33[size]
     try:
-        if part == "serve":
+        if part == "ipc":
+            t0 = time.perf_counter()
+            res = {"rank": ctl.rank, "backend": ctl.backend,
+                   "split": spmd33_split(ctl, 8, dev, sz, put_timing=True),
+                   "cohorts": {c: spmd33_cohort(ctl, c, dev, sz) for c in SPMD34_COHORTS},
+                   "round_trip": host_round_trips(ctl)}
+            res["s"] = time.perf_counter() - t0
+            res["staged"] = dict(STAGED)
+            res["arena"] = _arena_record(ctl)
+        elif part == "serve":
             t0 = time.perf_counter()
             res = {"rank": ctl.rank, "split": spmd33_split(ctl, 8, dev, sz),
                    "cohorts": {c: spmd33_cohort(ctl, c, dev, sz) for c, v
@@ -1101,7 +1142,7 @@ def child_main(argv) -> int:
     if argv[0] == "spmd":
         return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5], argv[6])
     if argv[0] == "spmd33":
-        return child_spmd33(*argv[1:5])
+        return child_spmd33(*argv[1:6])
     kind, wd, device = argv[0], argv[1], argv[2]
     if kind == "headline":
         child_headline(wd, device)
@@ -1129,6 +1170,54 @@ def launch_child(wd, args, env_extra=None):
 def child_log(wd, n=3000):
     with open(os.path.join(wd, "child.log")) as f:
         return f.read()[-n:]
+
+
+def spmd_check(res, one, nproc, per, backend, size, device, card, tag="[spmd]"):
+    """Phase 32's checks of the controllers' results ``res`` (``--child
+    spmd`` of ``nproc`` x ``per`` slots over ``backend``) against the
+    one-controller oracle ``one`` on the same slots, and their log lines
+    (``tag`` first): the gather part's hashes, B9 on every controller and no
+    twin, then the dense cases and the models."""
+    D = nproc * per
+    keys = lambda r: (r["gol"]["alive_hash"], r["gol"]["n_alive"], r["n_leaves"],
+                      r["advection"]["rho_hash"], r["advection"]["owners_hash"],
+                      r["advection"]["n_leaves"], r["ckpt"]["file_hash"])
+    for r in res:
+        check(keys(r) == keys(one),
+              f"spmd {nproc}x{per} {backend}: controller {r['rank']} {keys(r)} != "
+              f"one controller {keys(one)}")
+        check(r["ckpt"]["reload_equal"] and r["advection"]["finite"],
+              f"spmd {nproc}x{per} {backend}: reload or finiteness")
+        for part in ("gol", "advection"):
+            # (a rehearsal on the CPU runs the twins: nothing launches)
+            check(device != "cuda" or (r[part]["b9"] > 0 and not r[part]["others"]
+                                       and not r[part]["plain"]),
+                  f"spmd {nproc}x{per} {backend} {part}: controller {r['rank']} B9 "
+                  f"{r[part]['b9']}, others {r[part]['others']}, twins {r[part]['plain']}")
+        check(device != "cuda" or r["exchange"]["b9"] == 2,
+              f"spmd: {r['exchange']['b9']} B9 launches an exchange")
+        log(f"{tag} transport {backend}, {nproc} controllers x {per} slots, controller "
+            f"{r['rank']}: gol {SPMD_SIZES[size]['turns']} turns {r['gol']['s']!r} s, "
+            f"B9 launches {r['gol']['b9']}, transport bytes {r['gol']['transport_bytes']}; "
+            f"advection {r['advection']['n_leaves']} leaves, "
+            f"{2 * SPMD_SIZES[size]['steps']} steps {r['advection']['steps_s']!r} s, "
+            f"B9 launches {r['advection']['b9']}, adapt_grid {r['advection']['adapt_s']!r} s "
+            f"({r['advection']['new_cells']} new cells), balance_load + remap "
+            f"{r['advection']['balance_s']!r} s; blocking density exchange wall "
+            f"{r['exchange']['wall_ms']!r} ms, transport bytes "
+            f"{r['exchange']['transport_bytes']!r} an exchange, B9 launches "
+            f"{r['exchange']['b9']!r} an exchange; pinned host bytes staged "
+            f"{r['staged']['bytes']} in {r['staged']['syncs']} stream synchronisations; "
+            f"controller seconds {r['s']!r} on {card}")
+    log(f"{tag} one controller x {D} slots: gol {one['gol']['s']!r} s "
+        f"(B9 launches {one['gol']['b9']}), advection steps {one['advection']['steps_s']!r} s, "
+        f"blocking density exchange wall {one['exchange']['wall_ms']!r} ms "
+        f"(B9 launches {one['exchange']['b9']!r} an exchange); oracle seconds "
+        f"{one['s']!r}; {nproc}x{per} {backend} bitwise equal: alive set "
+        f"{one['gol']['alive_hash']}, density {one['advection']['rho_hash']}, owners "
+        f"{one['advection']['owners_hash']}, checkpoint {one['ckpt']['file_hash']}")
+    spmd_dense_check(res, one, nproc, backend, device, card)
+    spmd_models_check(res, one, nproc, backend, device, card)
 
 
 def spmd_phase(dev, card, device="cuda"):
@@ -1176,46 +1265,8 @@ def spmd_phase(dev, card, device="cuda"):
             th.join()
         check("r" in got, f"spmd {nproc}x{per} {backend}: the controllers failed "
               "(see the traceback above)")
-        res = got["r"]
-        keys = lambda r: (r["gol"]["alive_hash"], r["gol"]["n_alive"], r["n_leaves"],
-                          r["advection"]["rho_hash"], r["advection"]["owners_hash"],
-                          r["advection"]["n_leaves"], r["ckpt"]["file_hash"])
-        for r in res:
-            check(keys(r) == keys(one),
-                  f"spmd {nproc}x{per} {backend}: controller {r['rank']} {keys(r)} != "
-                  f"one controller {keys(one)}")
-            check(r["ckpt"]["reload_equal"] and r["advection"]["finite"],
-                  f"spmd {nproc}x{per} {backend}: reload or finiteness")
-            for part in ("gol", "advection"):
-                # (a rehearsal on the CPU runs the twins: nothing launches)
-                check(device != "cuda" or (r[part]["b9"] > 0 and not r[part]["others"]
-                                           and not r[part]["plain"]),
-                      f"spmd {nproc}x{per} {backend} {part}: controller {r['rank']} B9 "
-                      f"{r[part]['b9']}, others {r[part]['others']}, twins {r[part]['plain']}")
-            check(device != "cuda" or r["exchange"]["b9"] == 2,
-                  f"spmd: {r['exchange']['b9']} B9 launches an exchange")
-            log(f"[spmd] transport {backend}, {nproc} controllers x {per} slots, controller "
-                f"{r['rank']}: gol {SPMD_SIZES[size]['turns']} turns {r['gol']['s']!r} s, "
-                f"B9 launches {r['gol']['b9']}, transport bytes {r['gol']['transport_bytes']}; "
-                f"advection {r['advection']['n_leaves']} leaves, "
-                f"{2 * SPMD_SIZES[size]['steps']} steps {r['advection']['steps_s']!r} s, "
-                f"B9 launches {r['advection']['b9']}, adapt_grid {r['advection']['adapt_s']!r} s "
-                f"({r['advection']['new_cells']} new cells), balance_load + remap "
-                f"{r['advection']['balance_s']!r} s; blocking density exchange wall "
-                f"{r['exchange']['wall_ms']!r} ms, transport bytes "
-                f"{r['exchange']['transport_bytes']!r} an exchange, B9 launches "
-                f"{r['exchange']['b9']!r} an exchange; controller seconds {r['s']!r} on {card}")
-        log(f"[spmd] one controller x {D} slots: gol {one['gol']['s']!r} s "
-            f"(B9 launches {one['gol']['b9']}), advection steps {one['advection']['steps_s']!r} s, "
-            f"blocking density exchange wall {one['exchange']['wall_ms']!r} ms "
-            f"(B9 launches {one['exchange']['b9']!r} an exchange); oracle seconds "
-            f"{one['s']!r}; {nproc}x{per} {backend} bitwise equal: alive set "
-            f"{one['gol']['alive_hash']}, density {one['advection']['rho_hash']}, owners "
-            f"{one['advection']['owners_hash']}, checkpoint {one['ckpt']['file_hash']}")
-        spmd_dense_check(res, one, nproc, backend, device, card)
-        spmd_models_check(res, one, nproc, backend, device, card)
-        return res
-
+        spmd_check(got["r"], one, nproc, per, backend, size, device, card)
+        return got["r"], one
     try:
         # a rehearsal on the CPU keeps to the small sizes
         full = run(SPMD_CONTROLLERS, SPMD_SLOTS // SPMD_CONTROLLERS, "gloo",
@@ -1233,7 +1284,305 @@ def spmd_phase(dev, card, device="cuda"):
         shutil.rmtree(wd, ignore_errors=True)
     secs = time.perf_counter() - t_phase
     log(f"[spmd] phase seconds {secs!r} (budget {SPMD_BUDGET_S!r}) on {card}")
-    return full
+    return {"res": full[0], "one": full[1]}
+
+
+#: phase 34's cohorts (of SPMD33_COHORTS): the dense ring's and Vlasov's
+#: member planes and the split cohort's member tables through the ipc arenas
+SPMD34_COHORTS = ("dense", "vlasov", "split")
+#: phase 34's budget: phase 32's 2 x 4 run and phase 33's split cases and
+#: SPMD34_COHORTS, over gloo and then over ipc, process start-ups included
+SPMD34_BUDGET_S = 150.0
+
+
+def ipc_put_timing(ctl, ex, state, reps=200) -> dict | None:
+    """B9's remote-write form (``halo_dma.ring_put``) at this controller's
+    pack of ``state`` under the ipc transport, as the split step's start
+    writes it: the local rows into this controller's own arena, each peer's
+    rows into that peer's arena (another process's memory mapped through
+    CUDA IPC: on the same card, or on another over peer access where the
+    controllers have a card each).  Controller 0 times it alone with CUDA events
+    (the others wait at a barrier), the timed launches queued behind a
+    device-side sleep as long as their host-side issue, beside the twin and
+    beside the same launch with every destination in its own arena
+    (``local_ms``: the cost of the peer's mapping), and holds the kernel's
+    rows bitwise against the twin's; the bound counts each row read once and
+    written once and its 4-byte table entry, at HBM_BYTES_PER_S.  Returns
+    rows, rows to peers, bytes, launches, ms, twin ms, local ms, bound ms
+    and the equality on controller 0, None on the others."""
+    import torch
+
+    from dccrg_tpu_torch.parallel import halo_dma
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    arena = ex._transport.arena
+    placed, jobs = {}, []
+    rows = remote = nbytes = 0
+    for _, x, rings in ex._moving(state):
+        rb, row = ex._per_cell_bytes(x), tuple(x.shape[2:])
+        for q, a, n in [(None, 0, rings.n_local)] + list(rings.sends):
+            if n:
+                placed.setdefault(q, []).append((x, rings.send[a:a + n], n, rb, row))
+                rows += n
+                remote += 0 if q is None else n
+                nbytes += n * (2 * rb + 4)
+    local = []
+    for i, (q, items) in enumerate(placed.items()):
+        pos = arena._layout(arena.rank, 0, [(n * rb, rb) for _, _, n, rb, _ in items])
+        buf = arena.mine if q is None else arena.peers[q]
+        jobs += [(x, t, arena._view(buf, p, x.dtype, (n,) + row))
+                 for (x, t, n, rb, row), p in zip(items, pos)]
+        # the same rows into this controller's own arena: channel i, parity 1
+        pos = arena._layout(i, 1, [(n * rb, rb) for _, _, n, rb, _ in items])
+        local += [(x, t, arena._view(arena.mine, p, x.dtype, (n,) + row))
+                  for (x, t, n, rb, row), p in zip(items, pos)]
+    barrier("ipc.put")
+    out = None
+    if ctl.rank == 0:
+        def timed(fn, jobs=jobs):
+            for _ in range(10):
+                fn(jobs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(jobs)
+            torch.cuda.synchronize()
+            issue_s = min(1.5 * reps * (time.perf_counter() - t), 2.0)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(issue_s * 2e9))     # cycles at <= 2 GHz
+            e0.record()
+            for _ in range(reps):
+                fn(jobs)
+            e1.record()
+            e1.synchronize()
+            return e0.elapsed_time(e1) / reps
+
+        halo_dma.ring_put(jobs)
+        got = [d.clone() for _, _, d in jobs]
+        halo_dma.ring_put_plain(jobs)
+        equal = all(torch.equal(a, d) for a, (_, _, d) in zip(got, jobs))
+        out = {"rows": rows, "remote_rows": remote, "bytes": nbytes,
+               "cards": sorted({str(arena.mine.device)} | {str(p.device) for p in
+                                                           arena.peers.values()}),
+               "launches": -(-len(jobs) // halo_dma.RING_MAX_FIELDS), "equal": bool(equal),
+               "ms": timed(halo_dma.ring_put), "plain_ms": timed(halo_dma.ring_put_plain),
+               "local_ms": timed(halo_dma.ring_put, local),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    barrier("ipc.put.done")
+    return out
+
+
+def host_round_trips(ctl, n=200) -> dict:
+    """The host round trip between controllers 0 and 1, ms (the mean of
+    ``n`` ping-pongs of a 16-byte message): gloo's point-to-point on the
+    host group and, under ipc, the arenas' token sockets
+    (``parallel/ipc.py``)."""
+    import torch
+    import torch.distributed as dist
+
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    out = {}
+    buf = torch.zeros(2, dtype=torch.int64)
+    peer = 1 - ctl.rank
+    arena = getattr(ctl, "arena", None)
+
+    def gloo():
+        if ctl.rank == 0:
+            dist.send(buf, peer, group=ctl.host_group)
+            dist.recv(buf, peer, group=ctl.host_group)
+        elif ctl.rank == 1:
+            dist.recv(buf, peer, group=ctl.host_group)
+            dist.send(buf, peer, group=ctl.host_group)
+
+    def sockets():
+        if ctl.rank == 0:
+            arena._tokens.send(peer, 99, 0)
+            arena._tokens.recv(peer, 99)
+        elif ctl.rank == 1:
+            arena._tokens.recv(peer, 99)
+            arena._tokens.send(peer, 99, 0)
+
+    for name, fn in (("gloo", gloo), ("sockets", sockets if arena is not None else None)):
+        if fn is None:
+            continue
+        for _ in range(10):
+            fn()
+        barrier("ipc.rtt")
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t) / n * 1e3
+    return out
+
+
+def spmd33_split_check(res, one, device, card, tag="[spmd serve]", transport="gloo"):
+    """Phase 33's split cases (``--child spmd33`` results ``res`` of 2 x 4
+    over ``transport``) against the oracle's ``one``: bitwise by cell id,
+    finite, B9 twice a step in the split and the blocking runs and no twin
+    (on the card), bytes crossed; a line a controller."""
+    for case, want in one["split"].items():
+        steps = SPMD33_SPLIT_STEPS[case]
+        for r in res:
+            rec = r["split"][case]
+            check(rec["hashes"] == want["hashes"], f"spmd33 split {case} {transport}: a "
+                  f"controller {rec['hashes']} != one controller {want['hashes']}")
+            check(rec["finite"], f"spmd33 split {case}: non-finite")
+            for mode in ("split", "blocking"):
+                check(device != "cuda" or (rec[mode]["launches"] == {"ring_copy": 2 * steps}
+                                           and not rec[mode]["plain"]),
+                      f"spmd33 split {case} {mode} {transport} controller {r['rank']}: "
+                      f"launches {rec[mode]['launches']}, twins {rec[mode]['plain']}")
+            check(rec["split"]["bytes"] > 0, f"spmd33 split {case}: nothing crossed")
+            log(f"{tag} split {case} ({rec['n_leaves']} leaves), 2 controllers x 4 slots "
+                f"({transport}), controller {r['rank']}: split {rec['split']['ms']!r} ms a "
+                f"step, blocking {rec['blocking']['ms']!r} ms a step, B9 launches "
+                f"{rec['split']['launches'].get('ring_copy', 0)} in {steps} split steps, "
+                f"transport bytes a step {rec['split']['bytes'] / steps!r}; one controller "
+                f"x 8 slots: split {want['split']['ms']!r}, blocking "
+                f"{want['blocking']['ms']!r} ms a step; bitwise equal on {card}")
+
+
+def spmd33_cohort_check(case, recs, want, device, card, tag="[spmd serve]",
+                        transport="gloo"):
+    """One of phase 33's cohorts: every member bitwise the oracle's, finite,
+    its kernel once a step for all W members (B9 twice a split step, once
+    a wide exchange), no twin (on the card), bytes crossed; a line a
+    controller."""
+    kernel = {"dense": "flux_update_blocked", "plane": "flux_update",
+              "vlasov": "vlasov_step"}
+    nproc, per, W, steps, k = SPMD33_COHORTS[case]
+    for r in recs:
+        rec = r[case] if case in r else r["cohorts"][case]
+        check(rec["members"] == want["members"], f"spmd33 cohort {case} {transport}: a "
+              f"controller {rec['members']} != one controller {want['members']}")
+        check(rec["finite"], f"spmd33 cohort {case}: non-finite")
+        if case in kernel:
+            # the member axis: one launch a step for all W members
+            exp = {kernel[case]: steps}
+        elif case == "split":
+            exp = {"ring_copy": 2 * steps}
+        else:
+            # one wide exchange (pack and merge) every g steps of a
+            # dispatch of k
+            exp = {"ring_copy": 2 * -(-k // rec["g"]) * -(-steps // k)}
+        check(device != "cuda" or (rec["rec"]["launches"] == exp and not rec["rec"]["plain"]),
+              f"spmd33 cohort {case} {transport} controller {r['rank']}: launches "
+              f"{rec['rec']['launches']}, twins {rec['rec']['plain']}, expected {exp}")
+        check(rec["rec"]["bytes"] > 0, f"spmd33 cohort {case}: nothing crossed")
+        log(f"{tag} cohort {case} ({rec['kind']}, form {rec['form']}) W={W} k={k}, "
+            f"{nproc} controllers x {per} slots ({transport}), controller {r['rank']}: "
+            f"launches {rec['rec']['launches']} in {steps} steps, {rec['rec']['ms']!r} ms a "
+            f"step, transport bytes a step {rec['rec']['bytes'] / steps!r}; one controller: "
+            f"{want['rec']['ms']!r} ms a step; every member bitwise equal to the oracle's "
+            f"on {card}")
+
+
+def _ipc_cases(r32, r34):
+    """Controller 0's wall ms and transport bytes of each phase 34 case:
+    {case: (ms, bytes, unit)}."""
+    a, b = r32[0], r34[0]
+    out = {"density exchange": (a["exchange"]["wall_ms"], a["exchange"]["transport_bytes"],
+                                "an exchange")}
+    for case, rec in a.get("dense", {}).items():
+        out[f"dense {case}"] = (rec["ms"], rec["bytes"] / rec["steps"], "a step")
+    for case, rec in a["models"].items():
+        unit = "an iteration" if case.startswith("poisson") else "a step"
+        out[f"model {case}"] = (rec["ms"], rec["bytes"] / rec["steps"], unit)
+    for case, rec in b["split"].items():
+        steps = SPMD33_SPLIT_STEPS[case]
+        for mode in ("split", "blocking"):
+            out[f"{mode} {case}"] = (rec[mode]["ms"], rec[mode]["bytes"] / steps, "a step")
+    for case, rec in b["cohorts"].items():
+        out[f"cohort {case}"] = (rec["rec"]["ms"], rec["rec"]["bytes"] / SPMD33_COHORTS[case][3],
+                                 "a step")
+    return out
+
+
+def ipc_phase(dev, card, o32, o33, device="cuda"):
+    """Phase 34: the device-direct transport (D8, ``DCCRG_TORCH_DIST_BACKEND=
+    ipc``).  Phase 32's 2 x 4 run (the gather case, the dense cases through
+    B2 and B7, the models) and phase 33's split cases and SPMD34_COHORTS run
+    on 2 controllers of one card over gloo and then over ipc, each launch
+    alone on the card (no oracle beside it); every result must equal the
+    one-controller oracle's hashes of phases 32 and 33 (``o32``, ``o33``),
+    B9 must launch on each controller with no twin, and under ipc no
+    pinned host byte may be staged.  Each case's wall ms and transport
+    bytes are logged under both transports, and B9's remote-write form is
+    timed at the split advection and Vlasov payloads
+    (:func:`ipc_put_timing`).  Any failure raises; the phase's seconds are
+    logged beside its budget."""
+    import shutil
+
+    from dccrg_tpu_torch.parallel import halo_dma, ipc, mesh
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        from dccrg_tpu_torch.ops import dense_advection, vlasov_kernel
+
+        for build in (halo_dma._kernels, dense_advection._kernels,
+                      vlasov_kernel._kernels, ipc._cuda):
+            build()
+    size = "full" if cuda else "small"
+    wd = tempfile.mkdtemp(prefix="spmd34_")
+    env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": "",
+           "DCCRG_ENSEMBLE_VERIFY": "0"}
+    if not cuda:
+        env["OMP_NUM_THREADS"] = "1"
+    here = os.path.dirname(os.path.abspath(__file__))
+    nproc, per = SPMD_CONTROLLERS, SPMD_SLOTS // SPMD_CONTROLLERS
+    me = [sys.executable, os.path.abspath(__file__), "--child"]
+    out = {}
+    try:
+        for backend in ("gloo", "ipc"):
+            t0 = time.perf_counter()
+            r32 = mesh.launch(me + ["spmd", wd, str(nproc * per), backend, size, device,
+                                    size], nproc, timeout_s=300, env=env, cwd=here)
+            r34 = mesh.launch(me + ["spmd33", wd, "ipc", size, device, backend], nproc,
+                              timeout_s=300, env=env, cwd=here)
+            secs = time.perf_counter() - t0
+            spmd_check(r32, o32, nproc, per, backend, size, device, card, tag="[ipc]")
+            spmd33_split_check(r34, o33, device, card, "[ipc]", backend)
+            for case in SPMD34_COHORTS:
+                spmd33_cohort_check(case, [{"rank": r["rank"], **r["cohorts"]} for r in r34],
+                                    o33["cohorts"][case], device, card, "[ipc]", backend)
+            staged = [(r["staged"]["bytes"], r["staged"]["syncs"]) for r in r32 + r34]
+            check(backend != "ipc" or all(s == (0, 0) for s in staged),
+                  f"ipc: pinned host bytes staged under ipc: {staged}")
+            log(f"[ipc] transport {backend}: host round trip between controllers 0 and 1, "
+                f"ms: {r34[0]['round_trip']!r}; arena allocations and channel bytes a "
+                f"controller (phase 32's run, phase 33's cases; 1 allocation: never grown) "
+                f"{[r['arena'] for r in r32 + r34]!r} on {card}")
+            log(f"[ipc] transport {backend}: every case bitwise equal to one controller on "
+                f"the same slots; B9 on each controller, no twin; pinned host bytes staged "
+                f"and stream synchronisations (a controller, phase 32's run then phase 33's "
+                f"cases) {staged}; {secs!r} s for both launches on {card}")
+            out[backend] = _ipc_cases(r32, r34)
+            if backend == "ipc":
+                puts = {case: r34[0]["split"][case].get("put") for case in ("advection",
+                                                                            "vlasov")}
+        for case, (ms_g, by_g, unit) in out["gloo"].items():
+            ms_i, by_i, _ = out["ipc"][case]
+            log(f"[ipc] {case}, controller 0: gloo {ms_g!r} ms {unit} ({by_g!r} transport "
+                f"bytes), ipc {ms_i!r} ms ({by_i!r} bytes); gloo / ipc {ms_g / ms_i!r} "
+                f"on {card}")
+        for case, put in puts.items():
+            if not cuda:
+                continue
+            check(put is not None and put["equal"],
+                  f"ipc: B9's remote write at the split {case} payload: {put}")
+            log(f"[ipc] B9 remote write (ring_put) at the split_{case} payload of controller "
+                f"0 ({put['rows']} rows, {put['remote_rows']} of them into controller 1's "
+                f"arena; the arenas on {put['cards']}, {put['launches']} launch): "
+                f"{put['ms']!r} ms, twin "
+                f"{put['plain_ms']!r} ms, every row into its own arena instead "
+                f"{put['local_ms']!r} ms, bound {put['bound_ms']!r} ms (bytes: "
+                f"{put['bytes']}), kernel bitwise equal to the twin on {card}")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[ipc] phase 34 seconds {secs!r} (budget {SPMD34_BUDGET_S!r}) on {card}")
+    return out
 
 
 def spmd_serve_phase(dev, card, device="cuda"):
@@ -1297,11 +1646,6 @@ def spmd_serve_phase(dev, card, device="cuda"):
     def same(label, got, want):
         check(got == want, f"spmd33 {label}: a controller {got} != one controller {want}")
 
-    def launches_ok(label, rec, want):
-        check(not cuda or (rec["launches"] == want and not rec["plain"]),
-              f"spmd33 {label}: launches {rec['launches']}, twins {rec['plain']}, "
-              f"expected {want}")
-
     try:
         # 1. the split cases, the two-controller cohorts, the ensemble, then
         # the lineage run controller 1 dies in
@@ -1322,50 +1666,10 @@ def spmd_serve_phase(dev, card, device="cuda"):
         for rank in range(2):
             with open(os.path.join(wd, f"serve33_{rank}.json")) as f:
                 res.append(json.load(f))
-        for case, want in one["split"].items():
-            steps = SPMD33_SPLIT_STEPS[case]
-            for r in res:
-                rec = r["split"][case]
-                same(f"split {case}", rec["hashes"], want["hashes"])
-                check(rec["finite"], f"spmd33 split {case}: non-finite")
-                for mode in ("split", "blocking"):
-                    launches_ok(f"split {case} {mode} controller {r['rank']}", rec[mode],
-                                {"ring_copy": 2 * steps})
-                check(rec["split"]["bytes"] > 0, f"spmd33 split {case}: nothing crossed")
-                log(f"[spmd serve] split {case} ({rec['n_leaves']} leaves), 2 controllers x 4 "
-                    f"slots, controller {r['rank']}: split {rec['split']['ms']!r} ms a step, "
-                    f"blocking {rec['blocking']['ms']!r} ms a step, B9 launches "
-                    f"{rec['split']['launches'].get('ring_copy', 0)} in {steps} split steps, "
-                    f"transport bytes a step {rec['split']['bytes'] / steps!r}; one controller "
-                    f"x 8 slots: split {want['split']['ms']!r}, blocking "
-                    f"{want['blocking']['ms']!r} ms a step; bitwise equal on {card}")
-        kernel = {"dense": "flux_update_blocked", "plane": "flux_update",
-                  "vlasov": "vlasov_step"}
+        spmd33_split_check(res, one, device, card)
 
         def cohort_check(case, recs, want):
-            nproc, per, W, steps, k = SPMD33_COHORTS[case]
-            for r in recs:
-                rec = r[case] if case in r else r["cohorts"][case]
-                same(f"cohort {case}", rec["members"], want["members"])
-                check(rec["finite"], f"spmd33 cohort {case}: non-finite")
-                if case in kernel:
-                    # the member axis: one launch a step for all W members
-                    exp = {kernel[case]: steps}
-                elif case == "split":
-                    exp = {"ring_copy": 2 * steps}
-                else:
-                    # one wide exchange (pack and merge) every g steps of a
-                    # dispatch of k
-                    exp = {"ring_copy": 2 * -(-k // rec["g"]) * -(-steps // k)}
-                launches_ok(f"cohort {case} controller {r['rank']}", rec["rec"], exp)
-                check(rec["rec"]["bytes"] > 0, f"spmd33 cohort {case}: nothing crossed")
-                log(f"[spmd serve] cohort {case} ({rec['kind']}, form {rec['form']}) W={W} "
-                    f"k={k}, {nproc} controllers x {per} slots, controller {r['rank']}: "
-                    f"launches {rec['rec']['launches']} in {steps} steps, "
-                    f"{rec['rec']['ms']!r} ms a step, transport bytes a step "
-                    f"{rec['rec']['bytes'] / steps!r}; one controller: "
-                    f"{want['rec']['ms']!r} ms a step; every member bitwise equal to "
-                    f"the oracle's and to its solo run on {card}")
+            spmd33_cohort_check(case, recs, want, device, card)
 
         for case, want in one["cohorts"].items():
             cohort_check(case, [{"rank": r["rank"], **r["cohorts"]} for r in res], want)
@@ -1419,6 +1723,7 @@ def spmd_serve_phase(dev, card, device="cuda"):
         shutil.rmtree(wd, ignore_errors=True)
     secs = time.perf_counter() - t_phase
     log(f"[spmd serve] phase 33 seconds {secs!r} (budget {SPMD33_BUDGET_S!r}) on {card}")
+    return one
 
 
 #: what each dense case of phase 32 launches a controller: the kernel and
@@ -1621,14 +1926,17 @@ def spmd33_grid(ctl, D, device, n, radii=(), center=(0.5, 0.5, 0.5), hood=0, lb=
     return g
 
 
-def spmd33_split(ctl, D, device, sz) -> dict:
+def spmd33_split(ctl, D, device, sz, put_timing=False) -> dict:
     """Phase 33's split cases (D6) on the controllers ``ctl`` (``mesh.SINGLE``:
     the oracle on the same D slots): the split-phase step of Advection (the
     refined 48^3 grid, f32), Vlasov (the refined 16^3 grid, 512 bins, f32)
     and Game of Life (the 500x500 board), each run beside as many blocking
     gather steps, with the counts at 0 around each.  Returns, a case: the
     hashes of the split run's fields by cell id (equal to the blocking
-    run's, checked here), and a record of the split and the blocking run."""
+    run's, checked here), and a record of the split and the blocking run;
+    with ``put_timing`` under the ipc transport on the card, B9's
+    remote-write timing at the advection and Vlasov payloads
+    (:func:`ipc_put_timing`)."""
     import numpy as np
     import torch
 
@@ -1674,6 +1982,9 @@ def spmd33_split(ctl, D, device, sz) -> dict:
                      "n_leaves": int(len(ids)), "split": rec_s, "blocking": rec_b,
                      "finite": bool(all(np.isfinite(v.astype(np.float64)).all()
                                         for v in vals.values()))}
+        if (put_timing and ctl.backend == "ipc" and case in ("advection", "vlasov")
+                and torch.device(device).type == "cuda"):
+            out[case]["put"] = ipc_put_timing(ctl, ex, {f: sf[f] for f in fields})
         del g, eager, split, s, sb, sf
     return out
 
@@ -2150,7 +2461,8 @@ def serve_phase(dev, card, drive, g_sa, s_sa, adv_s, event_ms, bound):
     from dccrg_tpu_torch.ops import dense_advection as K
     from dccrg_tpu_torch.ops import vlasov_kernel as V
     from dccrg_tpu_torch.parallel import halo as H
-    from dccrg_tpu_torch.resilience.soak import run_fleet
+    from dccrg_tpu_torch.resilience.soak import (AB_DL_DEADLINE_S, AB_ROUND_DEADLINES,
+                                                 run_fleet)
     from dccrg_tpu_torch.serve import Scenario, Scheduler
 
     t_phase = time.perf_counter()
@@ -2536,7 +2848,7 @@ def serve_phase(dev, card, drive, g_sa, s_sa, adv_s, event_ms, bound):
     ok = run_fleet(0, 1, n_workers=2, n_devices=1, device="cuda",
                    n_specs=SERVE_FLEET_SPECS, report=rep)
     r = rep.get(0, {})
-    check(ok and r.get("retired") == SERVE_FLEET_SPECS,
+    check(r.get("retired") == SERVE_FLEET_SPECS and not r.get("failures"),
           f"serve fleet: {r.get('failures')}")
     log(f"[serve] fleet: {r['retired']} of {r['accepted']} accepted scenarios retired "
         f"exactly once (GoL bitwise, advection within 1e-11 of the solo oracle) across "
@@ -2544,7 +2856,20 @@ def serve_phase(dev, card, drive, g_sa, s_sa, adv_s, event_ms, bound):
         f"{r['lost_named']}; generations {r['generations']}, redispatches "
         f"{r['redispatches']}, epoch.recompiles by worker {r['recompiles']}, fleet p99 "
         f"{r['fleet_p99_s']!r} s; (p50, p99) s of the merged worker streams "
-        f"{r['latency_p50_p99_s']}; {time.perf_counter() - t7:.2f} s on {card}")
+        f"{r['latency_p50_p99_s']}; {r['seconds']!r} s on {card}")
+    # the admission A/B (A16), run by run_fleet after the seeds
+    ab = rep.get("admission_ab") or {}
+    on, off = ab.get("on") or {}, ab.get("off") or {}
+    check(ok and on and off and not ab.get("failures"),
+          f"serve fleet admission A/B: {ab.get('failures')} (on {on}, off {off})")
+    log(f"[serve] fleet admission A/B (one worker a mode): burst chunk {ab['chunk']} steps "
+        f"from the warm-up's burst rate {ab['rate']!r} member-steps/s (an off-mode round "
+        f">= {AB_ROUND_DEADLINES!r} x the deadline tenant's {AB_DL_DEADLINE_S!r} s); "
+        f"admission on: {on['rejected']} of 4 burst submissions rejected, deadline tenant "
+        f"miss {on['miss']} / ok {on['ok']} ({ab['on_s']!r} s); admission off: rejected "
+        f"{off['rejected']}, miss {off['miss']} / ok {off['ok']} ({ab['off_s']!r} s); "
+        f"{ab['seconds']!r} s in all; the fleet and the A/B "
+        f"{time.perf_counter() - t7:.2f} s on {card}")
     log(f"[serve] phase 31 in {time.perf_counter() - t_phase:.2f} s")
     return rows
 
@@ -4909,11 +5234,16 @@ def main() -> int:
 
     # 32. spmd: the gather path on 2 controllers x 4 slots over gloo,
     # bitwise against one controller on 8 slots; 3 x 2; nccl where it can
-    spmd_phase(dev, card)
+    o32 = spmd_phase(dev, card)
 
     # 33. spmd serve and lineage: the split steps, the cohorts and the
     # lineage across controllers, each against one controller
-    spmd_serve_phase(dev, card)
+    o33 = spmd_serve_phase(dev, card)
+
+    # 34. ipc: phase 32's 2 x 4 run and phase 33's split cases and cohorts
+    # over gloo and then over the device-direct transport, against the
+    # oracles of 32 and 33; B9's remote write timed
+    ipc_phase(dev, card, o32["one"], o33)
 
     kernels = []
     for r in rows:
@@ -4945,9 +5275,9 @@ def main() -> int:
 
 
 def spmd_only(device="cuda") -> int:
-    """``python3 chip_smoke.py --spmd-only [cpu]``: phases 32 and 33 alone (a
-    quick check of the multi-controller paths; ``cpu`` rehearses them
-    without a card)."""
+    """``python3 chip_smoke.py --spmd-only [cpu]``: phases 32, 33 and 34
+    alone (a quick check of the multi-controller paths; ``cpu`` rehearses
+    them without a card)."""
     if device == "cuda":
         import torch
 
@@ -4957,11 +5287,13 @@ def spmd_only(device="cuda") -> int:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
-        spmd_phase(torch.device("cuda"), card)
-        spmd_serve_phase(torch.device("cuda"), card)
+        o32 = spmd_phase(torch.device("cuda"), card)
+        o33 = spmd_serve_phase(torch.device("cuda"), card)
+        ipc_phase(torch.device("cuda"), card, o32["one"], o33)
     else:
-        spmd_phase("cpu", "the CPU", device="cpu")
-        spmd_serve_phase("cpu", "the CPU", device="cpu")
+        o32 = spmd_phase("cpu", "the CPU", device="cpu")
+        o33 = spmd_serve_phase("cpu", "the CPU", device="cpu")
+        ipc_phase("cpu", "the CPU", o32["one"], o33, device="cpu")
     log("[spmd] ok")
     return 0
 

@@ -1660,7 +1660,21 @@ class Grid:
                                       dtype=arr.dtype, device=self.device)
                     recvs.append((q, buf))
                     landing.append((k, in_sel, buf))
-        Transport(ctl).exchange(sends, recvs)
+        transport = Transport(ctl)
+        need = None
+        if transport.direct:
+            # every controller's largest channel, from the replicated
+            # epochs: one message a field a controller pair
+            from .parallel.ipc import channel_bound
+
+            P = ctl.size
+            moved = np.bincount(q_old * P + q_new, minlength=P * P).reshape(P, P)
+            np.fill_diagonal(moved, 0)
+            rbs = [int(np.prod(a.shape[2:], dtype=np.int64)) * a.element_size()
+                   for a in state.values()]
+            need = max((channel_bound([(int(m) * rb, 1) for rb in rbs])
+                        for m in moved.ravel() if m), default=0)
+        transport.exchange(sends, recvs, need)
         for k, sel, buf in landing:
             staged[k][put(d_new[sel] - base), put(r_new[sel])] = buf
 

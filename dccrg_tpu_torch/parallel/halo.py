@@ -73,6 +73,17 @@ gauges and counters of its own slots, and the byte counters of the rows
 its slots ship; ``transport_bytes`` counts what crossed to other
 controllers.
 
+Under the ``ipc`` transport (``parallel/ipc.py``, the counterpart of the
+JAX package's ``make_async_remote_copy``) there is no pack copy and no
+message: B9's remote-write form (``halo_dma.ring_put``) writes the local
+rows into this controller's own arena channel and each peer's rows
+straight into that peer's arena, the payload ``[local | out to peers | in
+from peers]`` row for row at offsets both sides compute; B9's merge reads
+the local and received rows from this controller's arena through a merge
+table re-pointed at their arena rows.  ``start`` writes on the side stream
+(the split steps keep their overlap), ``finish`` waits for the peers' write
+events and merges on the current stream, then releases the regions.
+
 Cohorts (``serve/ensemble.py``) exchange W member stacks ``[W, D, R,
 ...]`` at once through :class:`MemberExchange`: to kernel B9 the stack is
 ``[W * D, R, ...]``, and member w's ring tables carry the offset ``w * D *
@@ -84,6 +95,7 @@ gauge).
 """
 from __future__ import annotations
 
+import math
 import time
 import weakref
 
@@ -171,6 +183,105 @@ def ring_args(ex, names) -> dict:
     return out
 
 
+class _Direct:
+    """The ``ipc`` form of an exchange's protocol (``parallel/ipc.py``) for
+    :class:`HaloExchange` and :class:`MemberExchange`.  :meth:`start` places
+    one batch in the arenas and writes it with one grouped put (B9's
+    remote-write form): each field's local rows into this controller's own
+    channel and each peer's part into that peer's arena.  It returns the
+    batch, each field's payload (this controller's whole arena as the
+    field's rows) and each field's merge table, whose payload slots point at
+    the arena rows of the local and received parts (built once a field and
+    placement)."""
+
+    def __init__(self, transport, device):
+        self.transport = transport
+        self.arena = transport.arena
+        self.device = device
+        self._tables = {}
+
+    def start(self, fields, need, put, stream=None):
+        """``fields``: ``(name, x, send, merge_host, n_local, sends, recvs)``
+        a field (``sends`` / ``recvs`` the payload's ``(peer, start, rows)``
+        parts); ``need`` the largest channel of any controller;
+        ``put(jobs)`` B9's put or its twin.  Returns ``(batch, payload,
+        tables)``."""
+        arena = self.arena
+        arena.reserve(need)
+        rbs = [math.prod(f[1].shape[2:]) * f[1].element_size() for f in fields]
+        local, sends, recvs = [], [], []
+        for (_, _, _, _, n_local, s_parts, r_parts), rb in zip(fields, rbs):
+            if n_local:
+                local.append((n_local * rb, rb))
+            sends += [(q, n * rb, rb) for q, _, n in s_parts]
+            recvs += [(q, n * rb, rb) for q, _, n in r_parts]
+        batch = arena.begin(local, sends, recvs, stream)
+        jobs, payload, tables = [], {}, {}
+        li = si = ri = 0
+        for (name, x, send, merge_host, n_local, s_parts, r_parts), rb in zip(fields, rbs):
+            row = tuple(x.shape[2:])
+            pos_local = None
+            if n_local:
+                jobs.append((x, send[:n_local],
+                             batch.local_view(li, x.dtype, (n_local,) + row)))
+                pos_local = batch.local_pos[li]
+                li += 1
+            for q, a, n in s_parts:
+                jobs.append((x, send[a:a + n], batch.send_view(si, x.dtype, (n,) + row)))
+                self.transport.note_sent(q, n * rb)
+                si += 1
+            pos_in = tuple(batch.recv_pos[ri:ri + len(r_parts)])
+            ri += len(r_parts)
+            tables[name] = self._merge_table(name, merge_host, n_local, s_parts, r_parts,
+                                             pos_local, pos_in, rb)
+            payload[name] = arena.typed(x.dtype, row)
+        put(jobs)
+        batch.commit()
+        return batch, payload, tables
+
+    def _merge_table(self, name, merge_host, n_local, s_parts, r_parts, pos_local,
+                     pos_in, rb):
+        key = (name, rb, pos_local, pos_in)
+        table = self._tables.get(key)
+        if table is None:
+            T = max([n_local] + [a + n for _, a, n in (*s_parts, *r_parts)])
+            slot = np.full(T, -1, np.int64)
+            if n_local:
+                slot[:n_local] = pos_local // rb + np.arange(n_local)
+            for (_, a, n), pos in zip(r_parts, pos_in):
+                slot[a:a + n] = pos // rb + np.arange(n)
+            m = np.asarray(merge_host, np.int64)
+            out = np.full(len(m), -1, np.int64)
+            hit = m >= 0
+            out[hit] = slot[m[hit]]
+            if len(out) and out.max() >= 2**31:
+                raise ValueError("the arena's rows exceed the int32 merge table")
+            table = torch.as_tensor(out.astype(np.int32), device=self.device)
+            if len(self._tables) >= 64:
+                self._tables.clear()
+            self._tables[key] = table
+        return table
+
+
+def _put_of(backend):
+    """B9's remote-write form (``halo_dma.ring_put``) on the ``pallas``
+    backend, else its twin: the ``ipc`` pack."""
+    return halo_dma.ring_put if backend == "pallas" else halo_dma.ring_put_plain
+
+
+def _direct_need(n_ctl, items) -> int:
+    """The largest arena channel any controller fills: ``items`` are
+    ``(pair_counts [P, P], row bytes)`` a field, one message a field and
+    controller pair (``ipc.channel_bound``'s rule)."""
+    from .ipc import channel_bound
+
+    tot = np.zeros((n_ctl, n_ctl), np.int64)
+    for counts, rb in items:
+        counts = np.asarray(counts, np.int64)
+        tot += np.where(counts > 0, counts * rb + channel_bound([(1, rb)]) - 1, 0)
+    return int(tot.max()) if tot.size else 0
+
+
 class MemberExchange:
     """The ghost-row refresh of W member stacks ``[W, D, R, ...]`` (one
     schedule's protocol for every member at once).
@@ -190,7 +301,10 @@ class MemberExchange:
     gather packs all W members and the transport carries one message a
     peer and field with all W members' rows in it; the merge is one more
     grouped gather.  :meth:`start` packs and posts, :meth:`finish` waits
-    and merges, as the schedule's own split pair does."""
+    and merges, as the schedule's own split pair does.  Under the ``ipc``
+    transport the pack writes every member's rows straight into the arenas
+    and the merge reads them from this controller's (``_Direct``), on the
+    current stream."""
 
     def __init__(self, ex, args: dict, W: int):
         self.backend = ex.backend
@@ -201,11 +315,19 @@ class MemberExchange:
         #: under several controllers: each field's ``(sends, recvs)`` as
         #: ``(peer, start, rows)`` slices of its member payload
         self.parts = {}
+        #: under several controllers: each field's local payload rows, its
+        #: merge table on the host and its ``[P, P]`` rows a controller
+        #: pair (W members of the schedule's)
+        self.local, self.merge_host, self.pair_counts = {}, {}, {}
         self._transport = ex._transport
+        self._direct = (_Direct(self._transport, ex.device)
+                        if self._transport is not None and self._transport.direct
+                        else None)
         names = sorted({k.split(".")[1] for k in args if k.startswith("ring.")})
         for name in names:
             if ex.multi:
                 self._controller_tables(name, args)
+                self.pair_counts[name] = self.W * ex._rings_for_field(name).pair_counts
                 continue
             full = args[f"ring.{name}.full"]
             send = args[f"ring.{name}.send"]
@@ -252,6 +374,8 @@ class MemberExchange:
         self.tables[name] = (None, put(np.concatenate(new_send)), put(full_merge))
         P = (len(slices) + 1) // 2
         self.parts[name] = (slices[1:P], slices[P:])
+        self.local[name] = slices[0][2]
+        self.merge_host[name] = full_merge
 
     def _gather(self, jobs):
         if not jobs:
@@ -279,6 +403,8 @@ class MemberExchange:
         a :class:`HaloHandle`; under several controllers its remote parts
         are posted on the transport, one message a peer and field."""
         names = [n for n in state if n in self.tables]
+        if self._direct is not None:
+            return self._direct_start(state, names)
         got = self._gather([(self._rows(state[n]), self.tables[n][1]) for n in names])
         pending = None
         if self._transport is not None:
@@ -298,11 +424,35 @@ class MemberExchange:
             handle.pending.wait()
         payload = handle.payload
         names = [n for n in state if n in payload]
-        got = self._gather([(self._rows(state[n]), self.tables[n][2], payload[n])
-                            for n in names])
+        merge = handle.tables if handle.tables is not None else {
+            n: self.tables[n][2] for n in names}
+        got = self._gather([(self._rows(state[n]), merge[n], payload[n]) for n in names])
+        if handle.tables is not None and handle.pending is not None:
+            handle.pending.release(_current_stream(state))
         out = dict(state)
         out.update((n, y.view(state[n].shape)) for n, y in zip(names, got))
         return out
+
+    def _direct_start(self, state, names) -> HaloHandle:
+        """The ``ipc`` pack of every member's rows, on the current stream."""
+        if not names:
+            return HaloHandle({}, None, None, {})
+        fields = [(n, self._rows(state[n]), self.tables[n][1], self.merge_host[n],
+                   self.local[n], *self.parts[n]) for n in names]
+        rbs = [math.prod(state[n].shape[3:]) * state[n].element_size() for n in names]
+        need = _direct_need(len(self.pair_counts[names[0]]),
+                            [(self.pair_counts[n], rb) for n, rb in zip(names, rbs)])
+        batch, payload, tables = self._direct.start(fields, need, _put_of(self.backend),
+                                                    _current_stream(state))
+        return HaloHandle(payload, None, batch, tables)
+
+
+def _current_stream(state):
+    """The current stream of a state's CUDA device (None on the CPU)."""
+    for x in state.values():
+        if x is not None and x.device.type == "cuda":
+            return torch.cuda.current_stream(x.device)
+    return None
 
 
 class HaloHandle:
@@ -312,14 +462,17 @@ class HaloHandle:
     ``payload`` maps field names to flat payloads (None where a field has
     no rings); ``event`` is the side stream's completion event on CUDA;
     ``pending`` the posted transport messages under several controllers
-    (``parallel/transport.py``)."""
+    (``parallel/transport.py``), or the ``ipc`` batch, whose ``tables`` are
+    the merge tables re-pointed at this controller's arena (``payload``
+    then holds the arena's typed views)."""
 
-    __slots__ = ("payload", "event", "pending")
+    __slots__ = ("payload", "event", "pending", "tables")
 
-    def __init__(self, payload, event=None, pending=None):
+    def __init__(self, payload, event=None, pending=None, tables=None):
         self.payload = payload
         self.event = event
         self.pending = pending
+        self.tables = tables
 
 
 class _Rings:
@@ -337,11 +490,14 @@ class _Rings:
     ``merge`` covers the local slots' rows, ``sends`` / ``recvs`` hold each
     peer's ``(rank, first slot, rows)`` in the payload, ``full`` is None,
     ``wire`` / ``k_wire`` / ``cells`` count the rows this controller's
-    slots ship (no padding), and ``width`` is the longest payload of any
-    controller."""
+    slots ship (no padding), ``width`` is the longest payload of any
+    controller, ``n_local`` the payload's local rows, ``merge_host`` the
+    merge table on the host and ``pair_counts`` ``[P, P]`` every controller
+    pair's rows (the ``ipc`` arenas' sizes)."""
 
     __slots__ = ("ks", "sizes", "send", "recv", "full", "merge", "wire",
-                 "k_wire", "cells", "sends", "recvs", "width")
+                 "k_wire", "cells", "sends", "recvs", "width", "n_local",
+                 "merge_host", "pair_counts")
 
 
 def _flush_record_cache(cache: dict) -> None:
@@ -418,6 +574,11 @@ class HaloExchange:
             from .transport import Transport
 
             self._transport = Transport(controllers)
+        #: the ``ipc`` form of the protocol (None on the other transports)
+        self._direct = (_Direct(self._transport, self.device)
+                        if self._transport is not None and self._transport.direct
+                        else None)
+        self._direct_needs = {}
         #: wire transport (``DCCRG_HALO_BACKEND``, resolved at construction
         #: as in the JAX package): "pallas" (kernel B9) or "collective"
         self.backend = halo_dma.resolve_backend(self.device)
@@ -584,6 +745,10 @@ class HaloExchange:
         rings.send = torch.as_tensor(table, device=self.device)
         rings.recv = torch.as_tensor(recv[landed] - lo * R)
         rings.merge = torch.as_tensor(merge, device=self.device)
+        rings.merge_host, rings.n_local = merge, n_local
+        P = self._controllers.size
+        rings.pair_counts = np.bincount(src_rank * P + dst_rank,
+                                        minlength=P * P).reshape(P, P)
         rings.full = None
         shipped = order[:n_ship]
         rings.cells = rings.wire = n_ship
@@ -656,13 +821,16 @@ class HaloExchange:
         payload.update((name, p) for (name, _, _), p in zip(moving, got))
         return payload
 
-    def ring_finish(self, state, payload, backend=None) -> dict:
+    def ring_finish(self, state, payload, backend=None, tables=None) -> dict:
         """``state`` with ``ring_start``'s payloads merged into the ghost
         rows their schedules refresh, in one grouped gather; a field with no
-        payload is returned as it is."""
+        payload is returned as it is.  ``tables``: merge tables in place of
+        the schedules' (the ``ipc`` arena's)."""
         names = [name for name in state if payload[name] is not None]
-        got = self._gather([(state[name], self._rings_for_field(name).merge,
-                             payload[name]) for name in names], backend)
+        merge = (lambda n: tables[n]) if tables is not None else (
+            lambda n: self._rings_for_field(n).merge)
+        got = self._gather([(state[name], merge(name), payload[name])
+                            for name in names], backend)
         out = dict(state)
         out.update(zip(names, got))
         return out
@@ -673,9 +841,8 @@ class HaloExchange:
         the payloads in one grouped gather, the transport, and the merge in
         another (:meth:`_post`)."""
         if self.multi:
-            handle = self._start_dispatch(state, backend)
-            handle.pending.wait()
-            return self.ring_finish(state, handle.payload, backend)
+            return self._finish_dispatch(
+                state, self._start_dispatch(state, backend, side=False), backend)
         moving = self._moving(state)
         got = self._gather([(x, rings.full) for _, x, rings in moving], backend)
         out = dict(state)
@@ -743,8 +910,10 @@ class HaloExchange:
             return out
         return self._start_dispatch(state)
 
-    def _start_dispatch(self, state, backend=None) -> HaloHandle:
+    def _start_dispatch(self, state, backend=None, side=True) -> HaloHandle:
         moving = self._moving(state)
+        if self._direct is not None:
+            return self._direct_start(state, moving, backend, side)
         if self.multi:
             # payloads on the current stream (the gloo transport stages
             # them through host memory before it posts), then posted
@@ -794,12 +963,71 @@ class HaloExchange:
             self._verify_oracle(state, out)
         return out
 
-    def _finish_dispatch(self, state, handle: HaloHandle):
+    def _finish_dispatch(self, state, handle: HaloHandle, backend=None):
+        if handle.tables is not None:
+            return self._direct_finish(state, handle, backend)
         if handle.pending is not None:
             handle.pending.wait()
         if handle.event is not None:
             torch.cuda.current_stream(self.device).wait_event(handle.event)
-        return self.ring_finish(state, handle.payload)
+        return self.ring_finish(state, handle.payload, backend)
+
+    # ------------------------------------------------ ipc (device-direct)
+
+    def _direct_need_of(self, moving) -> int:
+        """The largest arena channel any controller fills for these fields
+        (from the replicated schedule, so the same on every controller)."""
+        items = [(rings.pair_counts, self._per_cell_bytes(x)) for _, x, rings in moving]
+        key = tuple((name, rb) for (name, _, _), (_, rb) in zip(moving, items))
+        need = self._direct_needs.get(key)
+        if need is None:
+            need = self._direct_needs[key] = _direct_need(self._controllers.size, items)
+        return need
+
+    def _direct_start(self, state, moving, backend, side) -> HaloHandle:
+        """The ``ipc`` pack: every field's local rows and every peer's part
+        written into their arena regions in one grouped put, on the side
+        stream for the split pair (``side``), else on the current one."""
+        payload = dict.fromkeys(state)
+        if not moving:
+            return HaloHandle(payload, None, None, {})
+        fields = [(name, x, rings.send, rings.merge_host, rings.n_local, rings.sends,
+                   rings.recvs) for name, x, rings in moving]
+        need = self._direct_need_of(moving)
+        put = _put_of(backend or self.backend)
+        if self.device.type != "cuda" or not side:
+            cur = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                   else None)
+            batch, got, tables = self._direct.start(fields, need, put, cur)
+            payload.update(got)
+            return HaloHandle(payload, None, batch, tables)
+        cur = torch.cuda.current_stream(self.device)
+        stream = self._side_stream()
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            batch, got, tables = self._direct.start(fields, need, put, stream)
+            event = torch.cuda.Event()
+            event.record(stream)
+        for _, x, rings in moving:
+            x.record_stream(stream)
+            rings.send.record_stream(stream)
+        payload.update(got)
+        return HaloHandle(payload, event, batch, tables)
+
+    def _direct_finish(self, state, handle, backend):
+        """The ``ipc`` merge: the peers' writes waited for, the local and
+        received rows merged from this controller's arena on the current
+        stream, the regions released."""
+        stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                  else None)
+        if handle.pending is not None:
+            handle.pending.wait()
+        if handle.event is not None:
+            stream.wait_event(handle.event)
+        out = self.ring_finish(state, handle.payload, backend, handle.tables)
+        if handle.pending is not None:
+            handle.pending.release(stream)
+        return out
 
     # --------------------------------------------------- oracle verify
 

@@ -17,6 +17,13 @@ takes every field of an exchange in one launch, each field a job
   ``table[r] >= 0``, else ``x``'s own row: the merge of a payload into the
   ghost rows (``table`` the schedule's ``merge`` table).
 
+:func:`ring_put` is B9's remote-write form, the counterpart of
+``make_async_remote_copy``: each job ``(x, table, dst)`` writes
+``x.flatten(0, 1)[table]`` into a destination the caller owns — under the
+``ipc`` transport (``parallel/ipc.py``) a region of another controller's
+receive arena, mapped into this process — through the same kernel and
+descriptors, with a raw ``dst`` pointer in place of a new output.
+
 ``HaloExchange`` builds the tables once per epoch and field schedule and
 picks the kernel or its twin by the schedule's backend.  Between
 controllers (one process a card or a block of slots, ``parallel/mesh.py``)
@@ -62,7 +69,8 @@ from ..ops import PLAIN_CALLS
 from ..ops.dense_advection import _launched, _on_cpu
 
 __all__ = ["AS_SIGNED", "BACKENDS", "RING_MAX_FIELDS", "resolve_backend", "ring_gather",
-           "ring_gather_plain", "ring_gather_plan", "verify_enabled"]
+           "ring_gather_plain", "ring_gather_plan", "ring_put", "ring_put_plain",
+           "verify_enabled"]
 
 #: legal DCCRG_HALO_BACKEND values
 BACKENDS = ("collective", "pallas", "auto")
@@ -120,6 +128,14 @@ def ring_gather_plain(jobs):
     for a merge, a select), the collective backend's form."""
     PLAIN_CALLS["ring_copy"] += 1
     return [_gather_plain(*job) for job in jobs]
+
+
+def ring_put_plain(jobs) -> None:
+    """Twin of :func:`ring_put`: each job's advanced-indexing gather copied
+    into its destination."""
+    PLAIN_CALLS["ring_copy"] += 1
+    for x, table, dst in jobs:
+        dst.copy_(_gather_plain(x, table))
 
 
 # ----------------------------------------------------------------- kernel
@@ -207,6 +223,52 @@ def ring_gather(jobs):
         err = lib.ring_gather(part.ctypes.data, len(part), stream)
         _launched("ring_copy", err)
     return outs
+
+
+def _put_descriptors(jobs):
+    """Check ``ring_put``'s jobs and return their descriptors (first 0:
+    the payload mode, with the job's own destination)."""
+    desc = []
+    for job in jobs:
+        if len(job) != 3:
+            raise ValueError("a put job is (x, table, dst)")
+        x, table, dst = job
+        if x.dim() < 2 or not x.is_contiguous():
+            raise ValueError(f"x must be a contiguous [D, R, ...], got {tuple(x.shape)}")
+        if table.dtype != torch.int32 or table.dim() != 1 or not table.is_contiguous():
+            raise ValueError("table: must be a contiguous 1-D int32 tensor")
+        if table.device != x.device:
+            raise ValueError(f"table on {table.device}, x on {x.device}")
+        row = tuple(x.shape[2:])
+        if (dst.dtype != x.dtype or tuple(dst.shape) != (table.numel(),) + row
+                or not dst.is_contiguous() or dst.device.type != x.device.type):
+            raise ValueError(f"dst: must be a contiguous {(table.numel(),) + row} tensor "
+                             f"of x's dtype on a {x.device.type} device")
+        if table.numel():
+            desc.append((0, x.data_ptr(), dst.data_ptr(), table.data_ptr(), table.numel(),
+                         math.prod(row) * x.element_size()))
+    return desc
+
+
+def ring_put(jobs) -> None:
+    """Every job's rows written into its own destination, one launch of
+    kernel B9 for up to ``RING_MAX_FIELDS`` jobs: ``(x, table, dst)`` puts
+    ``x.flatten(0, 1)[table]`` into ``dst`` (``[len(table), *x.shape[2:]]``,
+    any memory the card can write: a peer's mapped arena too).  Launches on
+    the current stream; on CPU tensors runs the twin."""
+    if not jobs:
+        return
+    if _on_cpu(*(t for job in jobs for t in job)):
+        ring_put_plain(jobs)
+        return
+    desc = _put_descriptors(jobs)
+    if not desc:
+        return
+    stream = torch.cuda.current_stream(jobs[0][0].device).cuda_stream
+    lib = _kernels()
+    for at in range(0, len(desc), RING_MAX_FIELDS):
+        part = np.array(desc[at:at + RING_MAX_FIELDS], dtype=np.int64)
+        _launched("ring_copy", lib.ring_gather(part.ctypes.data, len(part), stream))
 
 
 def ring_gather_plan(jobs):

@@ -21,7 +21,16 @@ payload transport is chosen explicitly, by argument or by
   point-to-point ops take CPU tensors only); any number of controllers may
   share one card;
 * ``nccl`` — device to device, one card per controller (NCCL refuses two
-  ranks on one GPU).
+  ranks on one GPU);
+* ``ipc`` — device to device on one node through CUDA IPC
+  (``parallel/ipc.py``): each controller owns a receive arena its peers
+  map, senders write their rows straight into it (the halo's with kernel
+  B9), and only small tokens cross between the processes (local sockets,
+  set up over the gloo group, which also carries the host metadata); any
+  number of controllers may share one card, and controllers on different
+  cards of the node reach each other's arenas over peer access.  On CPU
+  tensors the arena is a shared file mapping.  An arena that cannot be
+  made, exported or opened raises on every controller.
 
 Host metadata (agreement, ``fetch``) always travels over a gloo group.  A
 single controller (no group) is :data:`SINGLE`, and every entry point
@@ -52,22 +61,24 @@ __all__ = ["BACKENDS", "ENV_BACKEND", "Controllers", "SINGLE", "current",
 #: the environment variable naming the payload transport
 ENV_BACKEND = "DCCRG_TORCH_DIST_BACKEND"
 #: legal transports
-BACKENDS = ("gloo", "nccl")
+BACKENDS = ("gloo", "nccl", "ipc")
 
 
 class Controllers:
     """This process's place in the controller group: ``rank`` of ``size``,
     the payload ``backend`` (None without a group), the ``device`` its
-    slots live on (None: the grid's own choice) and the gloo ``host_group``
-    for host metadata (None: the default group)."""
+    slots live on (None: the grid's own choice), the gloo ``host_group``
+    for host metadata (None: the default group) and, under ``ipc``, the
+    receive ``arena`` (``parallel/ipc.py``)."""
 
-    __slots__ = ("rank", "size", "backend", "device", "host_group")
+    __slots__ = ("rank", "size", "backend", "device", "host_group", "arena")
 
     def __init__(self, rank=0, size=1, backend=None, device=None,
-                 host_group=None):
+                 host_group=None, arena=None):
         self.rank, self.size = int(rank), int(size)
         self.backend, self.device = backend, device
         self.host_group = host_group
+        self.arena = arena
 
     @property
     def multi(self) -> bool:
@@ -119,12 +130,15 @@ def setup(backend: str | None = None, device=None,
     """Join the controller group from ``torchrun``'s environment and return
     this process's :class:`Controllers` (also :func:`current` from now on).
 
-    ``backend``: ``"gloo"`` or ``"nccl"`` (default ``DCCRG_TORCH_DIST_BACKEND``,
-    else gloo).  ``device``: where this controller's slots live; default
-    ``cuda:LOCAL_RANK`` under nccl, and under gloo ``cuda:(LOCAL_RANK mod
-    the visible cards)`` (several controllers may share a card).  Every
-    collective carries ``timeout_s``, so a controller that misses one fails
-    instead of hanging its peers for ever."""
+    ``backend``: ``"gloo"``, ``"nccl"`` or ``"ipc"`` (default
+    ``DCCRG_TORCH_DIST_BACKEND``, else gloo).  ``device``: where this
+    controller's slots live; default ``cuda:LOCAL_RANK`` under nccl, and
+    under gloo and ipc ``cuda:(LOCAL_RANK mod the visible cards)`` (several
+    controllers may share a card).  Under ipc the default group is gloo (it
+    carries the host metadata and sets up the arenas and their token
+    sockets) and every controller maps its peers' arenas here.  Every collective carries ``timeout_s``, so a
+    controller that misses one fails instead of hanging its peers for
+    ever."""
     global _current
     import torch
     import torch.distributed as dist
@@ -160,7 +174,8 @@ def setup(backend: str | None = None, device=None,
         torch.cuda.set_device(device)
     timeout = timedelta(seconds=float(timeout_s))
     kw = {"device_id": device} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+    dist.init_process_group("gloo" if backend == "ipc" else backend,
+                            init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=size, timeout=timeout, **kw)
     host_group = None
     if backend == "nccl":
@@ -169,7 +184,16 @@ def setup(backend: str | None = None, device=None,
         # every rank; a collective first sets the communicator up
         dist.barrier(device_ids=[device.index])
     dist.barrier(group=host_group)
-    _current = Controllers(rank, size, backend, device, host_group)
+    ctl = Controllers(rank, size, backend, device, host_group)
+    if backend == "ipc":
+        from .ipc import Arena
+
+        try:
+            ctl.arena = Arena(ctl, device, timeout_s=timeout_s)
+        except BaseException:
+            dist.destroy_process_group()
+            raise
+    _current = ctl
     return _current
 
 
@@ -182,6 +206,9 @@ def teardown() -> None:
         return
     try:
         dist.barrier(group=_current.host_group)
+        if _current.arena is not None:
+            _current.arena.close()
+            _current.arena = None
     finally:
         _current = None
         dist.destroy_process_group()

@@ -19,12 +19,24 @@ By the group's backend (``parallel/mesh.py``):
   host buffer and the current stream synchronised before the send is
   posted, and a CUDA receive lands in a pinned host buffer that ``wait``
   copies to the device (on the current stream).  CPU buffers travel as
-  they are.
+  they are;
+* ``ipc`` — device to device on one node, through the receive arenas of
+  ``parallel/ipc.py``: each send is copied (on the current stream) straight
+  into the receiving controller's arena, at the offset both sides compute
+  from the batch's order, and ``wait`` waits (on the host) for the
+  sender's token and write event and copies each receive out of this
+  controller's arena; only small tokens cross between the processes.  No
+  pinned buffer, no stream synchronisation.  The halo's ring writes into the arenas with kernel B9
+  itself (``parallel/halo.py``) and uses the transport only for its arena
+  and its counts.
 
 Buffers travel as their bytes (a ``uint8`` view), so any dtype crosses
 bit for bit.  The transport counts what it sends: ``bytes_sent`` and
 ``messages_sent`` on the object, and the registry's
-``transport.bytes_sent{peer}`` / ``transport.messages{peer}``.
+``transport.bytes_sent{peer}`` / ``transport.messages{peer}``; the pinned
+host bytes gloo stages and the stream synchronisations it makes are
+counted for the whole process in :data:`STAGED` (0 under ``ipc`` and
+``nccl``).
 """
 from __future__ import annotations
 
@@ -32,7 +44,11 @@ import torch
 
 from ..obs.registry import metrics as _metrics
 
-__all__ = ["Transport", "Pending"]
+__all__ = ["Transport", "Pending", "STAGED"]
+
+#: the process's host staging: pinned ``bytes`` gloo staged for CUDA
+#: buffers, and the stream synchronisations (``syncs``) it made first
+STAGED = {"bytes": 0, "syncs": 0}
 
 
 def _bytes(t):
@@ -45,14 +61,18 @@ def _bytes(t):
 class Pending:
     """The in-flight messages of one :meth:`Transport.post`."""
 
-    __slots__ = ("works", "landings", "keep", "done")
+    __slots__ = ("works", "landings", "keep", "done", "batch")
 
-    def __init__(self, works, landings, keep):
+    def __init__(self, works, landings, keep, batch=None):
         self.works = works
-        #: (device target, pinned host buffer) pairs copied on ``wait``
+        #: (target, source) pairs copied on ``wait``: gloo's pinned host
+        #: buffers, or ``ipc``'s regions of this controller's arena
         self.landings = landings
         #: host buffers that must outlive the messages
         self.keep = keep
+        #: the ``ipc`` batch (``parallel/ipc.py``), None on the other
+        #: backends
+        self.batch = batch
         self.done = False
 
     def wait(self) -> None:
@@ -62,9 +82,21 @@ class Pending:
             return
         for w in self.works:
             w.wait()
-        for target, host in self.landings:
-            target.copy_(host, non_blocking=True)
+        if self.batch is not None:
+            self.batch.wait()
+        for target, src in self.landings:
+            target.copy_(src, non_blocking=True)
+        if self.batch is not None:
+            self.batch.release(_stream_of(t for t, _ in self.landings))
         self.done = True
+
+
+def _stream_of(tensors):
+    """The current stream of the first CUDA tensor, else None."""
+    for t in tensors:
+        if t.device.type == "cuda":
+            return torch.cuda.current_stream(t.device)
+    return None
 
 
 class Transport:
@@ -77,21 +109,52 @@ class Transport:
         self.controllers = controllers
         self.group = controllers.host_group if host else None
         self.backend = "gloo" if host else controllers.backend
+        #: the receive arenas under ``ipc`` (``parallel/ipc.py``)
+        self.arena = None
+        if self.backend == "ipc":
+            self.arena = getattr(controllers, "arena", None)
+            if self.arena is None:
+                raise RuntimeError("the ipc transport needs the controllers' arena "
+                                   "(mesh.setup(backend='ipc')); it never falls back "
+                                   "to another backend")
         self.bytes_sent = 0
         self.messages_sent = 0
+
+    @property
+    def direct(self) -> bool:
+        """Whether payloads cross device to device through the arenas
+        (``ipc``)."""
+        return self.arena is not None
+
+    def note_sent(self, peer: int, nbytes: int) -> None:
+        """Count one message of ``nbytes`` to ``peer`` (also the halo's
+        ``ipc`` writes, which B9 makes without :meth:`post`)."""
+        self.bytes_sent += int(nbytes)
+        self.messages_sent += 1
+        if _metrics.enabled:
+            _metrics.inc("transport.bytes_sent", int(nbytes), peer=str(peer))
+            _metrics.inc("transport.messages", peer=str(peer))
 
     def _stage(self, t):
         """Whether ``t`` must cross through host memory."""
         return self.backend == "gloo" and t.device.type == "cuda"
 
-    def post(self, sends, recvs) -> Pending:
+    def post(self, sends, recvs, need=None) -> Pending:
         """Post ``sends`` and ``recvs``, lists of ``(peer rank, contiguous
         tensor)``, as one batch; the receive tensors are filled by the
-        returned :class:`Pending`'s ``wait``.  Empty buffers send nothing."""
+        returned :class:`Pending`'s ``wait``.  Empty buffers send nothing.
+
+        Under ``ipc`` every controller calls it at the same point (the
+        arenas may grow, a collective), and ``need`` is the largest channel
+        (``ipc.channel_bound``) any controller's batch fills, from the
+        replicated schedule; None means this controller's own largest,
+        for a batch whose sizes are the same on every controller."""
         import torch.distributed as dist
 
         sends = [(int(p), t) for p, t in sends if t.numel()]
         recvs = [(int(p), t) for p, t in recvs if t.numel()]
+        if self.arena is not None:
+            return self._post_ipc(sends, recvs, need)
         ops, landings, keep = [], [], []
         staged = [self._stage(t) for _, t in sends]
         if any(staged):
@@ -107,21 +170,20 @@ class Transport:
             # gloo reads host memory on its own threads: the copies must
             # have landed before the sends are posted
             torch.cuda.current_stream(sends[staged.index(True)][1].device).synchronize()
+            STAGED["syncs"] += 1
+            STAGED["bytes"] += sum(h.numel() for h, st in zip(hosts, staged) if st)
         else:
             hosts = [_bytes(t) for _, t in sends]
         for (p, t), h in zip(sends, hosts):
             ops.append(dist.P2POp(dist.isend, h, p, group=self.group))
             keep.append(h)
-            self.bytes_sent += h.numel()
-            self.messages_sent += 1
-            if _metrics.enabled:
-                _metrics.inc("transport.bytes_sent", h.numel(), peer=str(p))
-                _metrics.inc("transport.messages", peer=str(p))
+            self.note_sent(p, h.numel())
         for p, t in recvs:
             if self._stage(t):
                 h = torch.empty(t.numel() * t.element_size(), dtype=torch.uint8,
                                 pin_memory=True)
                 landings.append((_bytes(t), h))
+                STAGED["bytes"] += h.numel()
             else:
                 h = _bytes(t)
             ops.append(dist.P2POp(dist.irecv, h, p, group=self.group))
@@ -129,6 +191,33 @@ class Transport:
         works = dist.batch_isend_irecv(ops) if ops else []
         return Pending(works, landings, keep)
 
-    def exchange(self, sends, recvs) -> None:
+    def _post_ipc(self, sends, recvs, need) -> Pending:
+        """:meth:`post` under ``ipc``: each send copied into its receiver's
+        arena on the current stream; the receives copied out by ``wait``."""
+        from .ipc import channel_bound
+
+        out = [(p, _bytes(t)) for p, t in sends]
+        inc = [(p, _bytes(t)) for p, t in recvs]
+        if need is None:
+            chans = {}
+            for key, items in (("out", out), ("in", inc)):
+                for p, b in items:
+                    chans.setdefault((key, p), []).append((b.numel(), 1))
+            need = max((channel_bound(m) for m in chans.values()), default=0)
+        self.arena.reserve(need)
+        if not out and not inc:
+            return Pending([], [], [])
+        stream = _stream_of(b for _, b in out + inc)
+        batch = self.arena.begin((), [(p, b.numel(), 1) for p, b in out],
+                                 [(p, b.numel(), 1) for p, b in inc], stream)
+        for i, (p, b) in enumerate(out):
+            batch.send_view(i, torch.uint8, (b.numel(),)).copy_(b, non_blocking=True)
+            self.note_sent(p, b.numel())
+        batch.commit()
+        landings = [(b, batch.recv_view(i, torch.uint8, (b.numel(),)))
+                    for i, (_, b) in enumerate(inc)]
+        return Pending([], landings, [], batch)
+
+    def exchange(self, sends, recvs, need=None) -> None:
         """:meth:`post` and wait."""
-        self.post(sends, recvs).wait()
+        self.post(sends, recvs, need).wait()

@@ -41,9 +41,12 @@ scenario must retire exactly once, every result equal the oracle's (Game
 of Life exactly, advection within 1e-11),
 a flight-recorder dump must name a lost worker, no worker incarnation may
 build a kernel (``epoch.recompiles`` 0 in its final stream) and the merged
-worker streams must give a fleet p99.  The JAX harness's admission A/B
-(a starvation burst with the admission policy on and off) is not part of
-this driver.
+worker streams must give a fleet p99.  After the seeds, the admission A/B
+(:func:`fleet_admission_ab`, the JAX harness's ``_fleet_admission_ab``):
+one real worker with ``DCCRG_GATEWAY_ADMISSION`` on, then off, a burst
+tenant against a deadline tenant.  On, the burst is rejected at the door
+and the deadline tenant retires on time; off, the burst is admitted and
+the deadline tenant misses behind one burst round.
 
 Children are this module run with an internal subcommand (``crash-child``,
 ``elastic-child``, ``proof-child``, ``fleet-gateway``) in a
@@ -1019,13 +1022,187 @@ def _wait(p, timeout):
     return p.returncode
 
 
+# ------------------------------------------------------- admission A/B
+
+#: the deadline tenant's and the burst's deadline budgets (s), the JAX
+#: harness's
+AB_DL_DEADLINE_S, AB_BURST_DEADLINE_S = 5.0, 2.0
+#: one off-mode burst round lasts at least this many deadline-tenant
+#: deadlines: the chunk is sized from the warm-up's measured service rate
+AB_ROUND_DEADLINES = 3.0
+#: the warm-up scenarios (the JAX harness's shapes; steps cut from its
+#: 4000 / 2000: the port builds no kernel at run time, so a short warm-up
+#: already prices stepping)
+AB_WARM = ({"sid": "warm-b", "model": "advection", "n": 4, "seed": 7,
+            "steps": 400, "tenant": "burst"},
+           {"sid": "warm-d", "model": "gol", "n": 8, "seed": 7,
+            "steps": 200, "tenant": "dl"})
+#: park chunk of the on-mode worker (the warm-ups retire in one round)
+AB_WARM_CHUNK = 20000
+
+
+def admission_ab_chunk(rate: float) -> int:
+    """The burst chunk for a burst tenant served at ``rate`` member-steps a
+    second: one off-mode round of it lasts ``AB_ROUND_DEADLINES`` deadline
+    budgets of the deadline tenant."""
+    if not rate > 0.0:
+        raise ValueError(f"no measured burst service rate ({rate!r})")
+    return max(1, int(np.ceil(AB_ROUND_DEADLINES * AB_DL_DEADLINE_S * float(rate))))
+
+
+def _tenant_count(name: str, tenant: str) -> float:
+    from ..obs.registry import metrics
+
+    rep = metrics.report()["counters"].get(name, {})
+    return sum(v for k, v in rep.items() if k == f"tenant={tenant}")
+
+
+def admission_ab_round(gw, drive, chunk: int):
+    """One mode's burst round on a warmed gateway ``gw``: four burst
+    advection submissions of ``2 * chunk`` steps with the burst's deadline,
+    then the deadline tenant's ``dl0`` (Game of Life, 8 steps), which must
+    be admitted; ``drive(sids)`` runs the fleet until they retire (False:
+    it gave up).  Returns ``{"rejected", "miss", "ok"}`` (the deadline
+    tenant's verdict counters' increments), or None where ``dl0`` was
+    rejected or never retired."""
+    rejected = 0
+    for i in range(4):
+        ok, _ = gw.submit({"sid": f"b{i}", "model": "advection", "n": 4,
+                           "seed": 100 + i, "steps": 2 * int(chunk),
+                           "tenant": "burst", "deadline_s": AB_BURST_DEADLINE_S})
+        rejected += 0 if ok else 1
+    miss0 = _tenant_count("gateway.deadline_miss", "dl")
+    ok0 = _tenant_count("gateway.deadline_ok", "dl")
+    ok, why = gw.submit({"sid": "dl0", "model": "gol", "n": 8, "seed": 9,
+                         "steps": 8, "tenant": "dl",
+                         "deadline_s": AB_DL_DEADLINE_S})
+    if not ok:
+        print(f"fleet A/B: deadline tenant rejected ({why}): it must always be admitted")
+        return None
+    if not drive(["dl0"]):
+        print("fleet A/B: deadline tenant never retired")
+        return None
+    return {"rejected": rejected,
+            "miss": _tenant_count("gateway.deadline_miss", "dl") - miss0,
+            "ok": _tenant_count("gateway.deadline_ok", "dl") - ok0}
+
+
+def admission_ab_verdict(on, off) -> list:
+    """The A/B's failures (empty: it passed): with admission on, at least
+    one burst rejection and the deadline tenant on time; with it off, no
+    rejection and at least one deadline miss."""
+    if on is None or off is None:
+        return ["a mode failed to complete"]
+    fails = []
+    if on["rejected"] < 1:
+        fails.append(f"admission on admitted the whole burst ({on}): it is not enforcing")
+    if on["miss"] != 0 or on["ok"] != 1:
+        fails.append(f"the deadline tenant missed with admission on ({on})")
+    if off["rejected"] != 0:
+        fails.append(f"DCCRG_GATEWAY_ADMISSION=0 rejected submissions ({off})")
+    if off["miss"] < 1:
+        fails.append(f"the deadline tenant met its deadline behind the admitted burst "
+                     f"({off}): starvation did not reproduce, the A/B proves nothing")
+    return fails
+
+
+def fleet_admission_ab(record=None, n_devices: int = 1, device: str = "cuda",
+                       budget_s: float = 120.0):
+    """The enforced-admission starvation A/B (the JAX harness's
+    ``_fleet_admission_ab``): one real worker (``serve/gateway.py::
+    WorkerHandle``) a mode, admission on and then off.  Each mode warms both
+    tenants' service rates on real retirements (``AB_WARM``); the on mode's
+    burst rate sizes the chunk (:func:`admission_ab_chunk`), which is the
+    off-mode worker's park chunk, so the deadline tenant queues behind one
+    burst round of at least ``AB_ROUND_DEADLINES`` of its deadlines.  The
+    environment is restored in a ``finally``.  Returns ``(ok, report)``:
+    report holds each mode's counts, the chunk, the rate it came from and
+    the seconds; ``record`` (a stream's writer, or None) gets it too."""
+    from ..obs.registry import metrics
+    from ..serve import Gateway, WorkerHandle
+
+    t_ab = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dccrg_fleet_ab_")
+    keys = ("DCCRG_GATEWAY_ADMISSION", "DCCRG_GATEWAY_PARK_EVERY",
+            "DCCRG_GATEWAY_STALL_S", "DCCRG_GATEWAY_QUEUE_MAX", "DCCRG_SLO_QUEUE_S")
+    saved = {k: os.environ.get(k) for k in keys}
+    was_enabled = metrics.enabled
+    report = {"chunk": None, "rate": None}
+
+    def one_run(tag, admission, chunk):
+        os.environ["DCCRG_GATEWAY_ADMISSION"] = "1" if admission else "0"
+        os.environ["DCCRG_GATEWAY_PARK_EVERY"] = str(chunk)
+        wd = os.path.join(tmp, tag)
+        w = WorkerHandle("w0", os.path.join(wd, "w0"), n_devices, device=device)
+        w.start()
+        gw = Gateway(os.path.join(wd, "journal.jsonl"), [w])
+        t_end = t_ab + budget_s
+
+        def drive(sids):
+            while set(sids) - gw.journal.retired:
+                gw.tick()
+                if time.perf_counter() > t_end:
+                    return False
+                time.sleep(0.02)
+            return True
+
+        try:
+            for spec in AB_WARM:
+                gw.submit(dict(spec))
+            if not drive([spec["sid"] for spec in AB_WARM]):
+                print(f"fleet A/B ({tag}): the warm-up never retired")
+                return None
+            if report["chunk"] is None:
+                report["rate"] = gw.tracker.rate("burst")
+                report["chunk"] = admission_ab_chunk(report["rate"])
+            return admission_ab_round(gw, drive, report["chunk"])
+        finally:
+            gw.close()   # abandoned burst members die with the worker
+
+    try:
+        os.environ["DCCRG_GATEWAY_STALL_S"] = "600"
+        os.environ["DCCRG_GATEWAY_QUEUE_MAX"] = "64"
+        os.environ.pop("DCCRG_SLO_QUEUE_S", None)
+        metrics.enabled = True
+        t0 = time.perf_counter()
+        report["on"] = one_run("on", True, AB_WARM_CHUNK)
+        report["on_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["off"] = (one_run("off", False, report["chunk"])
+                         if report["chunk"] is not None else None)
+        report["off_s"] = time.perf_counter() - t0
+    finally:
+        metrics.enabled = was_enabled
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_ab
+    report["failures"] = admission_ab_verdict(report["on"], report["off"])
+    if record is not None:
+        record(phase="admission-ab", **report)
+    for msg in report["failures"]:
+        print(f"fleet A/B: {msg}")
+    on, off = report["on"] or {}, report["off"] or {}
+    print(f"fleet A/B: chunk {report['chunk']} from a burst rate of {report['rate']!r} "
+          f"member-steps/s; ON rejected={on.get('rejected')} dl_miss={on.get('miss')} "
+          f"dl_ok={on.get('ok')} | OFF rejected={off.get('rejected')} "
+          f"dl_miss={off.get('miss')} dl_ok={off.get('ok')}; {report['seconds']:.1f} s",
+          flush=True)
+    return not report["failures"], report
+
+
 def run_fleet(lo: int, hi: int, stream_dir: str | None = None,
               n_workers: int = 2, n_devices: int = 1, device: str = "cuda",
               n_specs: int | None = None, report: dict | None = None) -> bool:
     """The fleet proof, per seed (see the module docstring); ``n_specs``
     picks :func:`fleet_specs`' seeded mix.  ``report`` (a dict), when
     given, receives each seed's numbers: retirements, kills, generations,
-    redispatches, the fleet p99 and the phase's seconds."""
+    redispatches, the fleet p99 and the phase's seconds; and under
+    ``"admission_ab"`` the A/B's report (:func:`fleet_admission_ab`), run
+    after the seeds."""
     import glob
 
     from ..obs import slo as obs_slo
@@ -1223,6 +1400,10 @@ def run_fleet(lo: int, hi: int, stream_dir: str | None = None,
                   f"streams; {secs:.1f} s", flush=True)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+    ab_ok, ab = fleet_admission_ab(record, n_devices, device)
+    if report is not None:
+        report["admission_ab"] = ab
+    ok_all = ok_all and ab_ok
     if stream is not None:
         stream.stop(final=True)
     print(f"{'fleet':12s} [{lo},{hi}): {'OK' if ok_all else 'FAIL'}")

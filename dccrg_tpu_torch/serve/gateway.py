@@ -506,13 +506,15 @@ class Gateway:
     batch workloads (the soak, the telemetry probe)."""
 
     def __init__(self, journal_path: str, workers: list,
-                 rates=None, now=None):
+                 rates=None, now=None, wall=None):
         self.journal = SubmissionJournal(journal_path)
         self.workers = {w.wid: w for w in workers}
         #: gateway-local service-rate window fed by watermark progress
         self.tracker = obs_cost.ServiceRateTracker()
         self._rates = rates  # test seam: (tenant|None) -> steps/s
         self._now = now      # test seam: injected clock
+        #: test seam: the wall clock of accept times and deadline verdicts
+        self._wall = time.time if wall is None else wall
         self._last_wm: dict = {}   # sid -> last seen watermark step
         self.redispatches: list = []
         self._affinity: dict = {}  # sig label -> wid of last assignment
@@ -599,7 +601,7 @@ class Gateway:
             flightrec.note("gateway.rejected", sid=sid, tenant=tenant,
                            reason=reason)
             return False, reason
-        self.journal.append("accepted", sid=sid, t_accept=time.time(),
+        self.journal.append("accepted", sid=sid, t_accept=self._wall(),
                             **{k: v for k, v in spec.items()
                                if k != "sid"})
         metrics.inc("gateway.accepted", tenant=tenant)
@@ -714,7 +716,7 @@ class Gateway:
                     # deadline budget — what the starvation A/B reads
                     dl, t0 = sub.get("deadline_s"), sub.get("t_accept")
                     if dl is not None and t0 is not None:
-                        late = time.time() - float(t0) > float(dl)
+                        late = self._wall() - float(t0) > float(dl)
                         metrics.inc("gateway.deadline_miss"
                                     if late else "gateway.deadline_ok",
                                     tenant=tenant)

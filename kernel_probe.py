@@ -12,6 +12,7 @@ Run from the repository root on a machine with a CUDA card (an H100):
     python3 kernel_probe.py boxed-edge      # flat forms against boxed passes
     python3 kernel_probe.py telemetry-cost  # obs on / off on the refined run
     python3 kernel_probe.py cohort-launch   # member axis vs a launch a member
+    python3 kernel_probe.py ipc-wait        # ipc: host against stream waits
 
 ``vlasov-sweep`` compiles copies of ``csrc/vlasov.cu`` with other tile rows
 (``kMaxRows``), window stages (``kStages``) and CTAs an SM (``kMinCtas``),
@@ -76,6 +77,16 @@ rounds of 20 runs each), printing each batch's median wall time (host
 clock around the run and a synchronise) and mean host enqueue time (50
 runs queued, no synchronise between them), then the host time of one
 ``fused.*`` run record and of the schedule's ``bytes_moved`` it reads.
+
+``ipc-wait`` runs ``chip_smoke.py`` phase 34's two launches of 2
+controllers x 4 slots over the ``ipc`` transport (phase 32's run: the
+density exchange, the dense cases, the models; phase 33's split cases and
+cohorts) in turns (host, stream, stream, host), once as shipped, where a
+controller waits for a peer's event on the host (``parallel/ipc.py::
+_peer_wait``), and once with that wait queued on the controller's current
+stream instead (``cudaStreamWaitEvent``).  It prints controller 0's wall ms
+of every case (``chip_smoke._ipc_cases``) each turn and their sum.  The
+results are not checked against the oracle here (phase 34 does that).
 
 Copies build into ``dccrg_tpu_torch/_build/probe/``.  Without CUDA the
 script exits 1 and prints nothing else.
@@ -716,6 +727,46 @@ def cohort_launch(card: str) -> int:
     return 0 if ok else 1
 
 
+def ipc_wait(card: str) -> int:
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from dccrg_tpu_torch import cuda_build
+    from dccrg_tpu_torch.parallel import mesh
+
+    cuda_build.build(["ipc", "halo_dma", "dense_advection", "vlasov"])
+    wd = tempfile.mkdtemp(prefix="ipc_wait_")
+    env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": "",
+           "DCCRG_ENSEMBLE_VERIFY": "0"}
+    for mode in ("host", "stream", "stream", "host"):
+        me = [sys.executable, str(ROOT / "kernel_probe.py"), "ipc-wait-child", mode]
+        r34 = mesh.launch(me + ["spmd33", wd, "ipc", "full", "cuda", "ipc"], 2,
+                          timeout_s=300, env=env, cwd=str(ROOT))
+        r32 = mesh.launch(me + ["spmd", wd, "8", "ipc", "full", "cuda", "full"], 2,
+                          timeout_s=300, env=env, cwd=str(ROOT))
+        ms = {k: v[0] for k, v in cs._ipc_cases(r32, r34).items()}
+        print(f"ipc-wait {mode}: controller 0's wall ms {ms!r}; sum {sum(ms.values())!r} "
+              f"on {card}", flush=True)
+    return 0
+
+
+def ipc_wait_child(mode: str, argv) -> int:
+    """One controller of ``ipc-wait``: ``chip_smoke.py --child argv`` with the
+    peer waits on the host (``host``, as shipped) or queued on the current
+    stream (``stream``)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from dccrg_tpu_torch.parallel import ipc
+
+    if mode == "stream":
+        ipc._peer_wait = lambda ev: ipc._ok("stream wait", ipc._cuda().ipc_wait(
+            ev, torch.cuda.current_stream().cuda_stream))
+    return cs.child_main(argv)
+
+
 def main() -> int:
     import torch
 
@@ -723,12 +774,14 @@ def main() -> int:
         print("kernel_probe: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    if args[:1] == ["ipc-wait-child"]:
+        return ipc_wait_child(args[1], args[2:])
     baseline = None
     if args[1:2] == ["--baseline"] and len(args) == 3:
         baseline = args.pop()
         args.pop()
     modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge", "telemetry-cost",
-             "cohort-launch")
+             "cohort-launch", "ipc-wait")
     if len(args) != 1 or args[0] not in modes \
             or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
@@ -746,6 +799,8 @@ def main() -> int:
         return telemetry_cost(card)
     if args[0] == "cohort-launch":
         return cohort_launch(card)
+    if args[0] == "ipc-wait":
+        return ipc_wait(card)
     return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 

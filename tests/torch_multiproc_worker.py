@@ -13,7 +13,10 @@ staged migration of unsigned fields (C3); ``dense`` runs the dense slab
 ring's cases (:func:`dense_scenarios`, ``tests/test_torch_dense_ring.py``);
 ``models`` Poisson, particles and the refined advection run's flat and boxed
 forms (:func:`model_scenarios`, ``tests/test_torch_models_spmd.py``);
-``ring`` the ring's planes alone.  Each function with the single
+``ring`` the ring's planes alone; ``ipc`` the device-direct transport's
+cases (:func:`ipc_scenarios`, ``tests/test_torch_transport_ipc.py``).
+The transport is ``DCCRG_TORCH_DIST_BACKEND`` (gloo by default; ``launch``
+sets it).  Each function with the single
 controller is the one-controller oracle: it applies every rank's requests
 itself, in rank order.
 """
@@ -775,12 +778,16 @@ def model_scenarios(ctl, nproc: int, D: int) -> dict:
 ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 
 
-def launch(mode, nproc, D, wd, *extra, timeout_s=120):
-    """``mode`` of this worker as ``nproc`` controllers of D slots."""
+def launch(mode, nproc, D, wd, *extra, timeout_s=120, backend=None, env=None):
+    """``mode`` of this worker as ``nproc`` controllers of D slots over the
+    payload transport ``backend`` (None: ``DCCRG_TORCH_DIST_BACKEND``,
+    else gloo)."""
     from dccrg_tpu_torch.parallel import mesh
 
+    backend = backend or os.environ.get(mesh.ENV_BACKEND) or "gloo"
+    e = {**ONE_THREAD, mesh.ENV_BACKEND: backend, **(env or {})}
     return mesh.launch([sys.executable, os.path.abspath(__file__), str(D), wd, mode,
-                        *map(str, extra)], nproc, timeout_s=timeout_s, env=ONE_THREAD)
+                        *map(str, extra)], nproc, timeout_s=timeout_s, env=e)
 
 
 def shared_run(request, tmp_path_factory, tag, run):
@@ -1261,6 +1268,157 @@ def cohort_scenarios(ctl, nproc: int, D: int) -> dict:
     return res
 
 
+# ------------------------------------ the device-direct transport (D8, ipc)
+
+#: the stress case's exchanges, and the controller that sleeps before each
+#: merge (the last), and for how long (s)
+IPC_STRESS_EXCHANGES = 50
+IPC_STRESS_SLEEP_S = 0.004
+
+
+def _mixed(g, gen=0):
+    """An f64, an f32 (3,) and a uint32 field of every cell, distinct a
+    generation (the halo phase's dtypes)."""
+    cells = g.get_cells()
+    c = cells.astype(np.int64)
+    vals = {"a": np.sin(0.37 * c) + gen,
+            "b": np.stack([1.5 * c + gen, -1.0 * c, 0.25 * c - gen], 1).astype(np.float32),
+            "u": ((c * 2654435761 + 97 * gen) % 2**32).astype(np.uint32)}
+    spec = {"a": ((), np.float64), "b": ((3,), np.float32), "u": ((), np.uint32)}
+    return g.state_from_host(spec, cells, vals)
+
+
+def _state_hash(s):
+    """Every slot's every row of every field (ghost rows included; a
+    collective)."""
+    from dccrg_tpu_torch.utils.collectives import fetch
+
+    return _hash(np.concatenate([np.ascontiguousarray(fetch(s[k])).reshape(-1).view(np.uint8)
+                                 for k in sorted(s)]))
+
+
+def ipc_halo(ctl, D):
+    """The blocking and the split exchange of a mixed-dtype state on a
+    refined grid (ghost rows of every slot), and the same through
+    ``MemberExchange`` for W = 3 member stacks, blocking and split, each
+    member against its own exchange."""
+    import torch
+
+    from dccrg_tpu_torch.parallel.halo import MemberExchange, ring_args
+
+    g = split_grid(ctl, D, hood=1)
+    s = _mixed(g)
+    out = {"blocking": _state_hash(g.update_copies_of_remote_neighbors(s))}
+    h = g.start_remote_neighbor_copy_updates(_mixed(g, 1))
+    out["split"] = _state_hash(g.wait_remote_neighbor_copy_updates(_mixed(g, 1), h))
+    ex = g.halo()
+    names = sorted(s)
+    args = {k: v.unsqueeze(0) for k, v in ring_args(ex, names).items()}
+    W = 3
+    members = [_mixed(g, 10 + w) for w in range(W)]
+    stack = {k: torch.stack([m[k] for m in members]) for k in names}
+    mx = MemberExchange(ex, args, W)
+    want = [g.update_copies_of_remote_neighbors(m) for m in members]
+    got = mx(stack)
+    got_split = mx.finish(stack, mx.start(stack))
+    for w in range(W):
+        for k in names:
+            assert torch.equal(got[k][w], want[w][k]), ("member", w, k)
+            assert torch.equal(got_split[k][w], want[w][k]), ("member split", w, k)
+    out["members"] = [_state_hash({k: got[k][w] for k in names}) for w in range(W)]
+    return out
+
+
+def ipc_stress(ctl, D, n=IPC_STRESS_EXCHANGES):
+    """``n`` back-to-back exchanges whose payload changes every generation,
+    split and blocking in turn; the last controller sleeps before each
+    merge.  Before an exchange every refreshed ghost row is poisoned (-1);
+    after it each must hold its owner's value of this generation: a stale
+    or torn row is counted.  Returns that count, the rows checked on this
+    controller and the last generation's state (every slot's rows)."""
+    import time
+
+    import torch
+
+    g = split_grid(ctl, D, hood=1)
+    cells = g.get_cells()
+    st = g.state_from_host({"id": ((), np.float64), "v": ((3,), np.float64)}, cells,
+                           {"id": cells.astype(np.float64),
+                            "v": np.zeros((len(cells), 3))})
+    st = g.update_copies_of_remote_neighbors(st)
+    ex = g.halo()
+    ghost = torch.from_numpy(ex._rings_for_field("v").merge.cpu().numpy() >= 0)
+    ids = st["id"].reshape(-1)
+    late = ctl.multi and ctl.rank == ctl.size - 1
+    bad = checked = 0
+    for gen in range(n):
+        v = torch.stack([ids * 1e-3 + gen, -ids - gen, ids + 0.5 * gen], 1)
+        v[ghost] = -1.0
+        s = {"v": v.reshape(st["v"].shape)}
+        if gen % 2:
+            h = g.start_remote_neighbor_copy_updates(s)
+            if late:
+                time.sleep(IPC_STRESS_SLEEP_S)
+            s = g.wait_remote_neighbor_copy_updates(s, h)
+        else:
+            if late:
+                time.sleep(IPC_STRESS_SLEEP_S)
+            s = g.update_copies_of_remote_neighbors(s)
+        got = s["v"].reshape(-1, 3)[ghost]
+        i = ids[ghost]
+        want = torch.stack([i * 1e-3 + gen, -i - gen, i + 0.5 * gen], 1)
+        bad += int((got != want).any(dim=1).sum())
+        checked += int(ghost.sum())
+    return {"torn_or_stale": bad, "last": _state_hash(s)}, checked
+
+
+def ipc_growth(ctl, D):
+    """An exchange, then an epoch change (a refinement) and an exchange of
+    a field 128 f64 wide: under ``ipc`` the arenas grow (collectively) at
+    the new schedule's first exchange.  Returns the hashes and the arenas'
+    growth count before and after."""
+    arena = getattr(ctl, "arena", None)
+    g = split_grid(ctl, D, hood=1)
+    out = {"before": _state_hash(g.update_copies_of_remote_neighbors(_mixed(g)))}
+    epoch0 = None if arena is None else arena.epoch
+    ids = g.get_cells()
+    lv = g.mapping.get_refinement_level(ids)
+    g.refine_completely_many(ids[(lv == 0) & (g.geometry.get_center(ids)[:, 2] < 0.3)])
+    g.stop_refining()
+    cells = g.get_cells()
+    wide = np.cos(np.outer(cells.astype(np.float64), np.arange(128) + 1.0))
+    s = g.state_from_host({"w": ((128,), np.float64)}, cells, {"w": wide})
+    out["after"] = _state_hash(g.update_copies_of_remote_neighbors(s))
+    out["n_leaves"] = int(len(cells))
+    grew = None if arena is None else [epoch0, arena.epoch, arena.cap]
+    return out, grew
+
+
+def ipc_scenarios(ctl, nproc: int, D: int) -> dict:
+    """The device-direct transport's cases (``tests/test_torch_transport_ipc.py``):
+    the halo (blocking, split, member stacks), the controller ring's planes
+    (``HaloExtend.cross``, the member ring), the staged balance rows (C3),
+    a rolled Poisson solve, the particles' two exchanges, the stress case
+    and the growth case.  ``transport`` says what carried them (excluded
+    from the comparison across transports)."""
+    from dccrg_tpu_torch.parallel.transport import STAGED
+
+    res = {"nproc": nproc, "n_devices": D, "halo": ipc_halo(ctl, D),
+           "ring": ring_check(ctl, D), "member_ring": member_ring_check(ctl, D),
+           "staged": staged_unsigned(ctl, D)[0],
+           "poisson_rolled": MODEL_CASES["poisson_rolled"](ctl, D),
+           "particles": particles_s8_case(ctl, D)}
+    res["stress"], checked = ipc_stress(ctl, D)
+    res["growth"], grew = ipc_growth(ctl, D)
+    arena = getattr(ctl, "arena", None)
+    res["transport"] = {
+        "backend": ctl.backend, "staged": dict(STAGED), "grew": grew,
+        "stress_rows_checked": checked,
+        "batches": None if arena is None else sum(arena._gen_out.values()),
+        "in_flight": None if arena is None else arena._in_flight}
+    return res
+
+
 def _p2p(ctl, nproc):
     """The JAX worker's scenario 7 exchanges among explicit peer sets."""
     from dccrg_tpu_torch.utils.collectives import _P2PTransport, some_reduce_p2p
@@ -1323,7 +1481,8 @@ def main() -> None:
     D = int(sys.argv[1])
     workdir = sys.argv[2] if len(sys.argv) > 2 else tempfile.gettempdir()
     mode = sys.argv[3] if len(sys.argv) > 3 else "scenarios"
-    ctl = mesh.setup(backend="gloo", device="cpu", timeout_s=90)
+    # the transport from DCCRG_TORCH_DIST_BACKEND (launch sets it)
+    ctl = mesh.setup(device="cpu", timeout_s=90)
     try:
         if mode == "dense":
             res = dense_scenarios(ctl, ctl.size, D)
@@ -1335,6 +1494,8 @@ def main() -> None:
             res = split_scenarios(ctl, ctl.size, D)
         elif mode == "cohorts":
             res = cohort_scenarios(ctl, ctl.size, D)
+        elif mode == "ipc":
+            res = ipc_scenarios(ctl, ctl.size, D)
         elif mode == "lineage":
             res = lineage_case(ctl, D, int(sys.argv[4]), workdir)
         elif mode in ("kill", "resume"):
