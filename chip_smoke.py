@@ -370,10 +370,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 transports, the host round trips (gloo, ipc's token sockets)
                 and B9's remote write (``ring_put``) at the split packs,
                 against its twin, its own arena and its bound, logged.
+35. soak     — (after 34) the differential soak battery
+                (``resilience/differential.py``): the nine subsystems
+                (paths, three_level, amr, checkpoint, particles, gol, hoods,
+                vlasov, poisson) over seeds ``SOAK_SEEDS`` with ``--device
+                cuda``, each in its own interpreter, all at once; each
+                subsystem's seconds, seeds, tag histogram and kernel
+                launches logged; it fails if a subsystem fails or if B5
+                (paths), B6 (three_level), B4 (gol), B7 (vlasov), B8
+                (poisson) or B9 (every subsystem) is launched by none of
+                its seeds (``differential.REQUIRED``);
+36. examples — (after 35) the ten user examples
+                (``dccrg_tpu_torch/examples/``) on the card, each in its own
+                interpreter (``--child example``), all at once (``dc2vtk``
+                after ``restart``, on its checkpoint), at their defaults
+                but ``advection_amr``'s ``--tmax`` (``SOAK_EXAMPLES``); each
+                one's PASSED line, seconds and kernel launches logged.
+                Phases 35 and 36 together are held to
+                ``SOAK_BUDGET_S``.
 
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
 each sub-step of 30 and 31, and (in each controller) each part of 32, 33
-and 34 drives its path and read just after.  Telemetry is on throughout, as it
+and 34 drives its path and read just after; the children of 35 and 36 count
+their own.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -710,6 +729,16 @@ SPMD_MODELS = {
 #: exceptions on two of them, over its 15%), not HSFC's; on 6 slots of the
 #: small grid BLOCK's and not HSFC's
 SPMD_ROLLED_LB = {8: "HSFC", 6: "BLOCK"}
+#: phase 35's seeds (the JAX harness's default range) and phases 35 and
+#: 36's budget together, process start-ups included
+SOAK_SEEDS = (0, 10)
+SOAK_BUDGET_S = 150.0
+#: phase 36's examples and their arguments: the defaults, but advection's
+#: run cut from t = 1 to t = 0.4 (about 28 steps, one balance at step 25)
+SOAK_EXAMPLES = {"simple_game_of_life": [], "game_of_life": [], "vlasov": [],
+                 "poisson": [], "advection_amr": ["--tmax", "0.4"],
+                 "restart": [], "particles": [], "stretched_poisson": [],
+                 "ensemble_serving": []}
 SPMD_MODEL_STEPS = {"poisson": 60, "poisson_rolled": 60, "pic_refined_lb": 20,
                     "sharded": 50, "ml": 50, "boxed": 20}
 
@@ -1138,7 +1167,88 @@ def child_spmd33(wd, part, size, device, backend="gloo") -> int:
     return 0
 
 
+def child_example(name, argv) -> int:
+    """One user example in this interpreter, its kernel launches printed
+    after it (``LAUNCHES {json}``)."""
+    from dccrg_tpu_torch import examples, ops
+    from dccrg_tpu_torch.examples import (advection_amr, dc2vtk, ensemble_serving,  # noqa: F401
+                                          game_of_life, particles, poisson, restart,
+                                          simple_game_of_life, stretched_poisson, vlasov)
+
+    mod = getattr(examples, name)
+    ops.reset_counts()
+    mod.main(list(argv) + ["--device", "cuda"])
+    print("LAUNCHES", json.dumps(ops.nonzero(ops.LAUNCHES)), flush=True)
+    return 0
+
+
+def soak_phase(card):
+    """Phases 35 and 36: the differential battery's nine subsystems on the
+    card, then the ten examples, each in a fresh interpreter, all of a
+    phase at once.  Returns the two phases' records."""
+    from dccrg_tpu_torch.resilience import differential, soak
+
+    t0 = time.perf_counter()
+    handles = [soak.start_diff(n, *SOAK_SEEDS, device="cuda") for n in differential.NAMES]
+    recs = {h["name"]: soak.finish_diff(h, timeout=SOAK_BUDGET_S) for h in handles}
+    t35 = time.perf_counter() - t0
+    for name, rec in recs.items():
+        log(f"[soak] {name} seeds [{rec['seeds'][0]},{rec['seeds'][1]}): "
+            f"{'OK' if rec['ok'] else 'FAIL'}, seeds {rec['seed_seconds']!r} s of the process's "
+            f"{rec['seconds']!r} s, tags {rec['tags']}, "
+            f"launches {rec['launches']} on {card}")
+    for name, rec in recs.items():
+        # ``ok`` includes the kernels its subsystem must launch
+        # (``differential.REQUIRED``): a missed one is named in ``missing``
+        check(rec["ok"], f"[soak] {name} failed (missed kernels {rec['missing']}): {rec['last']}")
+    log(f"[soak] phase 35 seconds {t35!r} ({len(recs)} subsystems at once) on {card}")
+
+    t1 = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="dccrg_examples_")
+    dc = os.path.join(wd, "restart.dc")
+    runs = {}
+
+    def start(name, argv):
+        sub = os.path.join(wd, name)
+        os.makedirs(sub)
+        runs[name] = (launch_child(sub, ["example", name, *argv]), sub, time.perf_counter())
+
+    for name, argv in SOAK_EXAMPLES.items():
+        start(name, argv + (["--save", dc] if name == "restart" else []))
+    out = {}
+    order = list(SOAK_EXAMPLES) + ["dc2vtk"]
+    for name in order:
+        if name == "dc2vtk":
+            start(name, [dc, os.path.join(wd, "restart.vtk"), "density:f4"])
+        (p, logf), sub, ts = runs[name]
+        rc = p.wait(timeout=SOAK_BUDGET_S)
+        logf.close()
+        secs = time.perf_counter() - ts
+        text = child_log(sub, 1 << 16)
+        passed = [ln for ln in text.splitlines() if ln.startswith("PASSED")]
+        launched = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+        out[name] = {"rc": rc, "seconds": secs, "passed": passed[-1:],
+                     "launches": json.loads(launched[-1][9:]) if launched else None}
+        log(f"[examples] {name}: rc {rc}, {secs!r} s, {passed[-1] if passed else 'no PASSED line'}, "
+            f"launches {out[name]['launches']} on {card}")
+        check(rc == 0 and passed and launched, f"[examples] {name} failed:\n{text[-3000:]}")
+    t36 = time.perf_counter() - t1
+    check(out["vlasov"]["launches"].get("vlasov_step", 0) == 200,
+          f"[examples] vlasov: {out['vlasov']['launches']}")
+    check(out["game_of_life"]["launches"].get("gol_run", 0) >= 1,
+          f"[examples] game_of_life: {out['game_of_life']['launches']}")
+    check(out["poisson"]["launches"].get("bicg_solve", 0) >= 1,
+          f"[examples] poisson: {out['poisson']['launches']}")
+    log(f"[examples] phase 36 seconds {t36!r}; phases 35 + 36 {t35 + t36!r} s "
+        f"(budget {SOAK_BUDGET_S!r}) on {card}")
+    check(t35 + t36 <= SOAK_BUDGET_S,
+          f"phases 35 + 36 took {t35 + t36!r} s, over their {SOAK_BUDGET_S!r} s")
+    return {"soak": recs, "examples": out, "seconds": (t35, t36)}
+
+
 def child_main(argv) -> int:
+    if argv[0] == "example":
+        return child_example(argv[1], argv[2:])
     if argv[0] == "spmd":
         return child_spmd(argv[1], int(argv[2]), argv[3], argv[4], argv[5], argv[6])
     if argv[0] == "spmd33":
@@ -5245,6 +5355,10 @@ def main() -> int:
     # oracles of 32 and 33; B9's remote write timed
     ipc_phase(dev, card, o32["one"], o33)
 
+    # 35. soak: the differential battery's nine subsystems on the card;
+    # 36. examples: the ten user examples
+    soak_phase(card)
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -5274,10 +5388,13 @@ def main() -> int:
     return 0
 
 
-def spmd_only(device="cuda") -> int:
+def only(which, device="cuda") -> int:
     """``python3 chip_smoke.py --spmd-only [cpu]``: phases 32, 33 and 34
     alone (a quick check of the multi-controller paths; ``cpu`` rehearses
-    them without a card)."""
+    them without a card); ``--soak-only``: phases 35 and 36 alone, on the
+    card, the kernels built first."""
+    if which == "--soak-only":
+        device = "cuda"  # the battery's phases run on the card only
     if device == "cuda":
         import torch
 
@@ -5287,6 +5404,15 @@ def spmd_only(device="cuda") -> int:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
+        if which == "--soak-only":
+            from dccrg_tpu_torch import cuda_build
+
+            t = time.perf_counter()
+            cuda_build.build()
+            log(f"[build] {time.perf_counter() - t!r} s")
+            soak_phase(card)
+            log("[soak] ok")
+            return 0
         o32 = spmd_phase(torch.device("cuda"), card)
         o33 = spmd_serve_phase(torch.device("cuda"), card)
         ipc_phase(torch.device("cuda"), card, o32["one"], o33)
@@ -5301,6 +5427,6 @@ def spmd_only(device="cuda") -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child_main(sys.argv[2:]))
-    if sys.argv[1:2] == ["--spmd-only"]:
-        sys.exit(spmd_only(*sys.argv[2:3]))
+    if sys.argv[1:2] in (["--spmd-only"], ["--soak-only"]):
+        sys.exit(only(*sys.argv[1:3]))
     sys.exit(main())

@@ -17,3 +17,8 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+def nonzero(counts: dict) -> dict:
+    """The entries of a count table that are not 0."""
+    return {k: v for k, v in counts.items() if v}

@@ -1,10 +1,26 @@
-"""Crash, elastic and fleet soak harnesses: the end-to-end proofs of the
-resilience layer and the serving fleet (the ``crash``, ``elastic`` and
-``fleet`` subsystems of the JAX package's soak harness, ported).
+"""The soak harnesses: the differential battery (``paths``, ``three_level``,
+``amr``, ``checkpoint``, ``particles``, ``gol``, ``hoods``, ``vlasov``,
+``poisson``: ``resilience/differential.py``) and the end-to-end proofs of
+the resilience layer and the serving fleet (``crash``, ``elastic``,
+``fleet``) — the JAX package's soak harness, ported.
 
+    python -m dccrg_tpu_torch.resilience.soak paths --seeds 0 25 --device cuda
+    python -m dccrg_tpu_torch.resilience.soak all --seeds 0 10 --device cpu
     python -m dccrg_tpu_torch.resilience.soak crash --seeds 0 5 --device cpu
     python -m dccrg_tpu_torch.resilience.soak elastic --seeds 0 3 --device cuda
     python -m dccrg_tpu_torch.resilience.soak fleet --seeds 0 1 --device cpu
+
+Each differential subsystem runs its seeds in a fresh interpreter
+(``diff-child``), so a CUDA fault in one cannot mask the others: a line
+``<seed> <tag>`` a seed, then the body's marker (``OK {tag: count}`` for
+``paths`` and ``three_level``) with the range's ``ops.LAUNCHES`` and
+``ops.PLAIN_CALLS``.  The parent prints ``name [lo,hi): OK|FAIL <last
+line>`` and, on CUDA, fails a range that launched none of the kernels its
+subsystem must reach (``differential.REQUIRED``).  ``all`` runs the nine,
+then ``crash``, ``elastic`` and ``fleet`` on the first 3 seeds; with
+``--stream-dir`` each child streams its registry to
+``<name>_<lo>_<hi>.jsonl`` and exports a Chrome trace, merged into
+``fleet_trace.json`` at the end (a telemetry failure never fails the soak).
 
 ``crash`` (SIGKILL/resume convergence through the checkpoint lineage): a
 child runs Game of Life and then advection on a refined grid with periodic
@@ -61,6 +77,7 @@ postmortem naming the unit it was serving (:func:`check_flightrec_dump`).
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import pathlib
@@ -72,6 +89,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from .differential import NAMES
 
 #: the checkout that holds the package: children run from it
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -1410,21 +1429,162 @@ def run_fleet(lo: int, hi: int, stream_dir: str | None = None,
     return ok_all
 
 
+# ------------------------------------------- the differential battery
+
+_LAUNCH_RE = re.compile(r" seconds=([0-9.e+-]+) launches=(\{.*?\}) plain=(\{.*?\})$")
+
+
+def diff_child(name, lo, hi, device, stream_path="", trace_path=""):
+    """One differential subsystem's seeds in this interpreter
+    (``differential.run_seeds``); the last line is the body's marker with
+    the seeds' seconds (start-up excluded) and the range's kernel launches
+    and twin calls (``ops.LAUNCHES``, ``ops.PLAIN_CALLS``)."""
+    from .. import obs, ops
+    from ..grid import resolve_device
+    from . import differential
+
+    resolve_device(device)      # CUDA asked for and absent: fail here
+    if stream_path:
+        import atexit
+
+        try:  # telemetry never fails the soak
+            obs.stream_to(stream_path, period=5.0, truncate=True,
+                          extra={"subsystem": name, "seeds": [lo, hi]})
+            atexit.register(lambda: obs.export_chrome_trace(trace_path))
+        except Exception as e:  # noqa: BLE001
+            print("soak stream unavailable:", e, flush=True)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    marker = differential.run_seeds(name, lo, hi, device,
+                                    out=lambda line: print(line, flush=True))
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    print(f"{marker} seconds={time.perf_counter() - t0!r} "
+          f"launches={json.dumps(ops.LAUNCHES)} plain={json.dumps(ops.PLAIN_CALLS)}",
+          flush=True)
+
+
+def start_diff(name: str, lo: int, hi: int, stream_dir: str | None = None,
+               device: str = "cuda") -> dict:
+    """Start one differential subsystem's child (``diff-child``) in a fresh
+    interpreter, so a CUDA fault in one subsystem cannot mask the others;
+    :func:`finish_diff` waits for it."""
+    wd = tempfile.mkdtemp(prefix=f"dccrg_diff_{name}_")
+    argv = [name, lo, hi, device]
+    if stream_dir:
+        os.makedirs(stream_dir, exist_ok=True)
+        argv += [os.path.join(stream_dir, f"{name}_{lo}_{hi}.jsonl"),
+                 os.path.join(stream_dir, f"{name}_{lo}_{hi}.trace.json")]
+    p, log = _launch(wd, "diff-child", argv)
+    return {"name": name, "lo": lo, "hi": hi, "device": device, "p": p,
+            "log": log, "wd": wd, "t0": time.perf_counter()}
+
+
+def finish_diff(h: dict, timeout: float | None = None) -> dict:
+    """Wait for a :func:`start_diff` child and judge it: its exit code,
+    and on CUDA the kernels its subsystem must launch
+    (``differential.REQUIRED``).  Prints ``name [lo,hi): OK|FAIL <last
+    line>`` (and the log's tail on a failure); returns the record
+    ``{ok, rc, seconds, seed_seconds, seeds, tags, launches, plain,
+    missing, last}``: ``seconds`` the child's wall from its start,
+    ``seed_seconds`` its seeds' alone, ``launches`` and ``plain`` the
+    range's nonzero counts."""
+    from ..ops import nonzero
+    from .differential import REQUIRED
+
+    try:
+        rc = h["p"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        h["p"].kill()
+        rc = h["p"].wait()
+    h["log"].close()
+    secs = time.perf_counter() - h["t0"]
+    text = _tail(os.path.join(h["wd"], "child.log"), 1 << 20)
+    shutil.rmtree(h["wd"], ignore_errors=True)
+    lines = text.strip().splitlines() or [""]
+    last = lines[-1]
+    launches, plain, tags, seed_secs = {}, {}, {}, None
+    m = _LAUNCH_RE.search(last)
+    if m:
+        seed_secs = float(m.group(1))
+        launches, plain = nonzero(json.loads(m.group(2))), nonzero(json.loads(m.group(3)))
+        marker = last[:m.start()]
+        if marker.startswith("OK {"):
+            tags = ast.literal_eval(marker[3:])
+        else:
+            for line in lines[:-1]:
+                seed, _, tag = line.partition(" ")
+                if seed.isdigit():
+                    tags[tag] = tags.get(tag, 0) + 1
+    name = h["name"]
+    missing = []
+    if h["device"] == "cuda":
+        missing = [k for k in REQUIRED[name] if not launches.get(k)]
+    ok = rc == 0 and m is not None and not missing
+    shown = last[:160] if m is None else (
+        f"{last[:m.start()]} seconds={seed_secs!r} launches={launches} plain={plain}")
+    print(f"{name:12s} [{h['lo']},{h['hi']}): {'OK' if ok else 'FAIL'}  {shown}", flush=True)
+    if missing:
+        print(f"{name}: no launch of {missing} in seeds [{h['lo']},{h['hi']})", flush=True)
+    if not ok:
+        print(text[-4000:], flush=True)
+    return {"ok": ok, "rc": rc, "seconds": secs, "seed_seconds": seed_secs,
+            "seeds": [h["lo"], h["hi"]],
+            "tags": tags, "launches": launches, "plain": plain,
+            "missing": missing, "last": last}
+
+
+def merge_fleet(stream_dir: str) -> str | None:
+    """Unify every per-process timeline under ``stream_dir`` into one
+    fleet trace on their shared epoch-zero; None when no process exported
+    one.  A failure is printed and never fails the soak."""
+    import glob
+
+    traces = sorted(glob.glob(os.path.join(stream_dir, "*.trace.json")))
+    if not traces:
+        return None
+    try:
+        from ..obs.merge import merge_chrome_traces
+
+        out = os.path.join(stream_dir, "fleet_trace.json")
+        fleet = merge_chrome_traces(traces, out_path=out)
+        print(f"fleet trace: {len(fleet['traceEvents'])} events from "
+              f"{len(traces)} process timelines -> {out}")
+        return out
+    except Exception as e:  # noqa: BLE001 — telemetry never fails the soak
+        print(f"fleet merge unavailable: {e}")
+        return None
+
+
 # ---------------------------------------------------------------- CLI
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m dccrg_tpu_torch.resilience.soak",
-        description="Crash, elastic and fleet soak harnesses of the port.")
+        description="The differential battery and the crash, elastic and "
+                    "fleet soak harnesses of the port.")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("crash", "elastic", "fleet"):
+    for name in ("crash", "elastic", "fleet") + NAMES + ("all",):
         sp = sub.add_parser(name)
-        sp.add_argument("--seeds", type=int, nargs=2, default=(0, 5),
-                        metavar=("LO", "HI"))
+        sp.add_argument("--seeds", type=int, nargs=2,
+                        default=(0, 5) if name in ("crash", "elastic", "fleet")
+                        else (0, 10), metavar=("LO", "HI"))
         sp.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
         sp.add_argument("--stream-dir", default=None,
                         help="write per-attempt telemetry JSONL here")
+        if name == "all":
+            sp.add_argument("--crash-seeds", type=int, nargs=2, default=None,
+                            metavar=("LO", "HI"),
+                            help="seeds of crash, elastic and fleet (default: "
+                                 "the first 3 of --seeds)")
+    sp = sub.add_parser("diff-child")
+    for a in ("name", "lo", "hi", "device"):
+        sp.add_argument(a)
+    sp.add_argument("stream", nargs="?", default="")
+    sp.add_argument("trace", nargs="?", default="")
     sp = sub.add_parser("crash-child")
     for a in ("wd", "seed", "nd", "total", "every", "device"):
         sp.add_argument(a)
@@ -1439,6 +1599,24 @@ def main(argv=None) -> int:
               "device"):
         sp.add_argument(a)
     args = ap.parse_args(argv)
+    if args.cmd == "diff-child":
+        diff_child(args.name, int(args.lo), int(args.hi), args.device,
+                   args.stream, args.trace)
+        return 0
+    if args.cmd in NAMES or args.cmd == "all":
+        names = NAMES if args.cmd == "all" else (args.cmd,)
+        sdir, dev = args.stream_dir, args.device
+        results = [finish_diff(start_diff(n, *args.seeds, sdir, dev))["ok"]
+                   for n in names]
+        if args.cmd == "all":
+            lo, hi = args.crash_seeds or (args.seeds[0],
+                                          min(args.seeds[0] + 3, args.seeds[1]))
+            results.append(run_crash(lo, hi, stream_dir=sdir, device=dev))
+            results.append(run_elastic(lo, hi, stream_dir=sdir, device=dev))
+            results.append(run_fleet(lo, hi, stream_dir=sdir, device=dev))
+        if sdir:
+            merge_fleet(sdir)
+        return 0 if all(results) else 1
     if args.cmd == "fleet":
         return 0 if run_fleet(*args.seeds, stream_dir=args.stream_dir,
                               device=args.device) else 1

@@ -1,0 +1,380 @@
+"""The port's differential soak battery (``resilience/differential.py``,
+run through ``python -m dccrg_tpu_torch.resilience.soak <name>``) on the
+CPU, and against the JAX package's soak bodies (``tools/soak.py``'s
+``BODIES``).
+
+* harness: one seed of each subsystem through the port's runner (a fresh
+  interpreter a subsystem), OK, its tag counted and, on multi-slot seeds,
+  the ring copy's twin called;
+* per-seed lines: for one named seed of each subsystem the port's line
+  equals the JAX body's, which runs as its own harness runs it (a
+  subprocess, ``JAX_PLATFORMS=cpu``, its hard-coded checkout path made
+  this checkout's); for ``paths`` and ``three_level`` the tag histogram
+  stands in for the line;
+* numbers: for the five kernel subsystems one one-slot seed goes through
+  both packages with the same draws, and the fast path's output (the
+  port's kernel twin, the JAX body's Pallas kernel in interpret mode or
+  its XLA form) agrees at the body's tolerance: 5e-6 relative for the flat
+  advection forms, equal alive sets for Game of Life, iterations within 1
+  and solutions within 1e-4 of scale for the float32 BiCG solve, and 4 ULP
+  a step for Vlasov float32 (``tests/test_torch_vlasov.py``'s step
+  tolerance, applied to each of the body's 6 steps from the JAX state);
+* the standing fault ROADMAP C4 (``poisson`` seed 11, a singular
+  unconverged float32 solve): the body's check of B8's twin against the
+  plain float32 solve, and the twin against the JAX kernel, are held as
+  strict expected failures, so the fault stays in view and a repair shows
+  as an unexpected pass;
+* ``--device cuda`` where there is no CUDA fails and says so.
+"""
+import importlib.util
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import dccrg_tpu
+import dccrg_tpu_torch
+from dccrg_tpu_torch.convert import vlasov_state_from_numpy
+from dccrg_tpu_torch.ops import PLAIN_CALLS, reset_counts
+from dccrg_tpu_torch.resilience import differential, soak
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_vlasov_kernel import assert_within_4ulp  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+#: the seed each subsystem's port line is held to the JAX body's on
+#: (one slot for the five kernel subsystems: their numbers test uses it)
+LINE_SEEDS = {"paths": 11, "three_level": 11, "amr": 2, "checkpoint": 2,
+              "particles": 3, "gol": 8, "hoods": 3, "vlasov": 24,
+              "poisson": 29}
+
+#: the seed each subsystem's harness case runs (multi-slot where the
+#: draws allow, so the ring copy's twin runs)
+HARNESS_SEEDS = {"paths": 0, "three_level": 0, "amr": 0, "checkpoint": 0,
+                 "particles": 2, "gol": 0, "hoods": 0, "vlasov": 0,
+                 "poisson": 0}
+
+
+def _jax_bodies():
+    spec = importlib.util.spec_from_file_location("jax_soak", ROOT / "tools" / "soak.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", differential.NAMES)
+def test_harness_seed(name, capsys):
+    seed = HARNESS_SEEDS[name]
+    rec = soak.finish_diff(soak.start_diff(name, seed, seed + 1, device="cpu"))
+    out = capsys.readouterr().out
+    assert rec["ok"], out
+    assert f"{name:12s} [{seed},{seed + 1}): OK" in out
+    assert sum(rec["tags"].values()) == 1, rec
+    assert rec["launches"] == {}
+    assert rec["missing"] == []
+    # every harness seed is multi-slot: the halo ran the ring copy's twin
+    assert rec["plain"]["ring_copy"] > 0, rec
+
+
+def _port_line(name, seed):
+    tag = differential.ONE[name](seed, "cpu")
+    if name in ("paths", "three_level"):
+        return f"OK {dict({tag: 1})}"
+    return f"{seed} {tag}"
+
+
+#: a body's ``sys.path.insert(0, '<checkout>[/tests]')`` lines
+_INSERT = re.compile(r"sys\.path\.insert\(0, '([^']+)'\)")
+
+
+def _body(mod, name):
+    """The JAX body as its harness launches it, with the checkout path its
+    ``sys.path.insert`` lines hard-code made this checkout's: the reference
+    package and its tests are imported from here."""
+    code = mod.BODIES[name].replace(mod._NUM_DEVICES_LINE, mod._NUM_DEVICES_COMPAT)
+    root = _INSERT.search(code).group(1)
+
+    def here(m):
+        assert m.group(1) == root or m.group(1).startswith(root + "/"), m.group(0)
+        return f"sys.path.insert(0, {str(ROOT) + m.group(1)[len(root):]!r})"
+
+    return _INSERT.sub(here, code)
+
+
+@pytest.mark.parametrize("name", differential.NAMES)
+def test_seed_line_matches_jax_body(name):
+    code = _body(_jax_bodies(), name)
+    seed = LINE_SEEDS[name]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    jax_run = subprocess.Popen([sys.executable, "-c", code, str(seed), str(seed + 1)],
+                               cwd=str(ROOT), text=True, env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    port = _port_line(name, seed)
+    out, err = jax_run.communicate(timeout=300)
+    assert jax_run.returncode == 0, err[-3000:]
+    lines = out.strip().splitlines()
+    want = lines[-1] if name in ("paths", "three_level") else lines[0]
+    if name not in ("paths", "three_level"):
+        assert lines[-1] == differential.MARKERS[name]
+    assert port == want
+
+
+# ------------------------------------------------ the fast paths' numbers
+
+def _cube(pkg, n, hood, periodic, max_lvl, n_dev):
+    g = (pkg.Grid().set_initial_length((n, n, n)).set_neighborhood_length(hood)
+         .set_periodic(*periodic).set_maximum_refinement_level(max_lvl)
+         .set_geometry(pkg.CartesianGeometry, start=(0., 0., 0.),
+                       level_0_cell_length=(1. / n,) * 3))
+    if pkg is dccrg_tpu:
+        return g.initialize(mesh=dccrg_tpu.make_mesh(n_devices=n_dev))
+    return g.initialize(n_devices=n_dev, device="cpu")
+
+
+def _refine_both(rng, grids, frac_fn):
+    """One refinement round in both packages from the same draw over the
+    port's cells, which must be the JAX grid's."""
+    jg, pg = grids
+    ids = pg.get_cells()
+    np.testing.assert_array_equal(ids, jg.get_cells())
+    for cid in rng.choice(ids, size=frac_fn(len(ids)), replace=False):
+        jg.refine_completely(int(cid))
+        pg.refine_completely(int(cid))
+    jg.stop_refining()
+    pg.stop_refining()
+
+
+def _advection_pair(seed, max_lvl, fracs, n_choices):
+    """The ``paths`` / ``three_level`` case in both packages: the grids,
+    the leaves and the float32 initial draws (density, vx, vy, vz)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.choice(n_choices))
+    n_dev = int(rng.choice([1, 2, 4]))
+    periodic = tuple(bool(b) for b in rng.integers(0, 2, 3))
+    assert n_dev == 1, "the numbers seeds are one-slot seeds"
+    grids = (_cube(dccrg_tpu, n, 0, periodic, max_lvl, 1),
+             _cube(dccrg_tpu_torch, n, 0, periodic, max_lvl, 1))
+    for frac in fracs:
+        _refine_both(rng, grids, frac)
+    ids = grids[1].get_cells()
+    np.testing.assert_array_equal(ids, grids[0].get_cells())
+    draws = {"density": rng.uniform(1, 2, len(ids)).astype(np.float32)}
+    for f in ("vx", "vy", "vz"):
+        draws[f] = rng.uniform(-0.3, 0.3, len(ids)).astype(np.float32)
+    return grids, ids, draws
+
+
+def _advection_states(models, grids, ids, draws):
+    out = []
+    for m, g in zip(models, grids):
+        s = m.initialize_state()
+        for f, v in draws.items():
+            s = m.set_cell_data(s, f, ids, v)
+        out.append(g.update_copies_of_remote_neighbors(s))
+    return out
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def test_paths_flat_kernel_matches_jax():
+    """``paths`` seed 11: kernel B5's twin against the JAX body's one-slot
+    flat kernel in interpret mode, 3 steps, 5e-6 relative."""
+    from dccrg_tpu.models import Advection as JAdvection
+
+    grids, ids, draws = _advection_pair(LINE_SEEDS["paths"], 1,
+                                        [lambda k: max(1, int(0.3 * k))], [4, 6, 8])
+    ja = JAdvection(grids[0], dtype=np.float32, use_pallas="interpret")
+    pa = dccrg_tpu_torch.Advection(grids[1], dtype=np.float32)
+    assert pa._flat_kind == "pallas" and ja._flat_run is not None
+    js, ps = _advection_states((ja, pa), grids, ids, draws)
+    dt = np.float32(0.3 * ja.max_time_step(js))
+    reset_counts()
+    out = pa._flat_run.run(ps, 3, dt)
+    assert PLAIN_CALLS["flat_amr_run"] == 1
+    want = ja.run(js, 3, dt)
+    err = _rel(pa.get_cell_data(out, "density", ids), ja.get_cell_data(want, "density", ids))
+    assert err < 5e-6, err
+
+
+def test_three_level_flat_kernel_matches_jax():
+    """``three_level`` seed 11: kernel B6's twin against the JAX body's
+    multi-level flat form (``ml`` on the CPU), 3 steps, 5e-6 relative."""
+    from dccrg_tpu.models import Advection as JAdvection
+
+    grids, ids, draws = _advection_pair(
+        LINE_SEEDS["three_level"], 2,
+        [lambda k: max(1, int(0.3 * k)), lambda k: max(1, int(0.2 * k))], [4, 6])
+    assert grids[1].mapping.get_refinement_level(ids).max() == 2
+    ja = JAdvection(grids[0], dtype=np.float32)
+    pa = dccrg_tpu_torch.Advection(grids[1], dtype=np.float32)
+    assert ja._flat_kind == "ml" and pa._flat_kind == "ml_pallas"
+    js, ps = _advection_states((ja, pa), grids, ids, draws)
+    dt = np.float32(0.3 * ja.max_time_step(js))
+    reset_counts()
+    out = pa._flat_run.run(ps, 3, dt)
+    assert PLAIN_CALLS["flat_ml_run"] == 1
+    import jax.numpy as jnp
+
+    want = ja._flat_run(js, jnp.asarray(3, jnp.int32), dt)
+    err = _rel(pa.get_cell_data(out, "density", ids), ja.get_cell_data(want, "density", ids))
+    assert err < 5e-6, err
+
+
+def test_gol_fused_kernel_matches_jax():
+    """``gol`` seed 8 (one slot): kernel B4's twin against the JAX body's
+    fused kernel in interpret mode, the same turns: alive sets equal."""
+    from dccrg_tpu.models import GameOfLife as JGameOfLife
+
+    seed = LINE_SEEDS["gol"]
+    rng = np.random.default_rng(seed)
+    nx = int(rng.choice([6, 10, 12, 16]))
+    ny = int(rng.choice([6, 10, 12, 16]))
+    n_dev = int(rng.choice([1, 2, 4]))
+    if ny % n_dev:
+        n_dev = 1
+    periodic = (bool(rng.integers(0, 2)), bool(rng.integers(0, 2)), False)
+    turns = int(rng.integers(3, 20))
+    assert n_dev == 1
+    grids = []
+    for pkg in (dccrg_tpu, dccrg_tpu_torch):
+        g = (pkg.Grid().set_initial_length((nx, ny, 1)).set_maximum_refinement_level(0)
+             .set_neighborhood_length(1).set_periodic(*periodic))
+        grids.append(g.initialize(mesh=dccrg_tpu.make_mesh(n_devices=1)) if pkg is dccrg_tpu
+                     else g.initialize(n_devices=1, device="cpu"))
+    cells = grids[1].get_cells()
+    np.testing.assert_array_equal(cells, grids[0].get_cells())
+    alive0 = cells[rng.random(len(cells)) < rng.uniform(0.2, 0.5)]
+    jm = JGameOfLife(grids[0], use_pallas="interpret")
+    pm = dccrg_tpu_torch.GameOfLife(grids[1])
+    assert pm.fused
+    reset_counts()
+    ps = pm.run(pm.new_state(alive_cells=alive0), turns)
+    assert PLAIN_CALLS["gol_run"] == 1
+    js = jm.run(jm.new_state(alive_cells=alive0), turns)
+    assert set(pm.alive_cells(ps).tolist()) == set(jm.alive_cells(js).tolist())
+
+
+def test_vlasov_step_kernel_matches_jax():
+    """``vlasov`` seed 24 (8^3, one slot, 64 bins): kernel B7's twin
+    against the JAX body's step kernel in interpret mode, each of the 6
+    steps from the JAX state, within 4 ULP."""
+    from dccrg_tpu.models import Vlasov as JVlasov
+
+    seed = LINE_SEEDS["vlasov"]
+    rng = np.random.default_rng(seed)
+    n = int(rng.choice([8, 16]))
+    n_dev = int(rng.choice([1, 2, 4]))
+    periodic = (True, True, bool(rng.integers(0, 2)))
+    assert n_dev == 1
+    jg = _cube(dccrg_tpu, n, 0, periodic, 0, 1)
+    pg = _cube(dccrg_tpu_torch, n, 0, periodic, 0, 1)
+    jv = JVlasov(jg, nv=4, dtype=np.float32, use_pallas="interpret")
+    pv = dccrg_tpu_torch.Vlasov(pg, nv=4, dtype=np.float32)
+    assert jv._fused_block > 0 and pv._fused_block > 0
+    js, ps = jv.initialize_state(), pv.initialize_state()
+    np.testing.assert_array_equal(np.asarray(ps["f"]), np.asarray(js["f"]))
+    dt = np.float32(0.4 * pv.max_time_step())
+    assert dt == np.float32(0.4 * jv.max_time_step())
+    reset_counts()
+    for _ in range(6):
+        out = pv.step(vlasov_state_from_numpy(pv, np.asarray(js["f"])), dt)
+        js = jv.step(js, dt)
+        assert_within_4ulp(np.asarray(out["f"]), np.asarray(js["f"]))
+    assert PLAIN_CALLS["vlasov_step"] == 6
+
+
+def test_poisson_solve_kernel_matches_jax():
+    """``poisson`` seed 29 (8^3, one slot, one refinement round, an
+    explicit solve set): kernel B8's twin against the JAX body's whole-solve kernel in
+    interpret mode: iterations within 1, solutions within 1e-4 of scale."""
+    _poisson_twin_against_jax(LINE_SEEDS["poisson"])
+
+
+def _poisson_twin_against_jax(seed):
+    from dccrg_tpu.models import Poisson as JPoisson
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.choice([4, 6, 8]))
+    n_dev = int(rng.choice([1, 2, 4]))
+    periodic = tuple(bool(b) for b in rng.integers(0, 2, 3))
+    maxref = int(rng.integers(0, 3))
+    assert n_dev == 1 and maxref >= 1
+    grids = (_cube(dccrg_tpu, n, 0, periodic, maxref, 1),
+             _cube(dccrg_tpu_torch, n, 0, periodic, maxref, 1))
+    for _round in range(maxref):
+        _refine_both(rng, grids, lambda k: max(1, int(0.2 * k)))
+    cells = grids[1].get_cells()
+    np.testing.assert_array_equal(cells, grids[0].get_cells())
+    rhs = rng.standard_normal(len(cells))
+    kw = {}
+    mode = rng.integers(0, 3)
+    if mode == 1:
+        kw["skip_cells"] = rng.choice(cells, size=len(cells) // 8 + 1, replace=False)
+    elif mode == 2:
+        sel = rng.random(len(cells)) < 0.7
+        if not sel.any():
+            sel[0] = True
+        kw["solve_cells"] = cells[sel]
+    jk = JPoisson(grids[0], dtype=np.float32, use_pallas="interpret", **kw)
+    pk = dccrg_tpu_torch.Poisson(grids[1], dtype=np.float32, **kw)
+    assert jk._solve_fast is not None and pk._solve_fast is not None
+    r32 = (rhs - rhs.mean()).astype(np.float32)
+    out = []
+    for g, m in zip(grids, (jk, pk)):
+        s = g.set_cell_data(g.new_state(m.spec), "rhs", cells, r32)
+        o, _res, it = m.solve(s, max_iterations=40, stop_residual=1e-4)
+        out.append((np.asarray(g.get_cell_data(o, "solution", cells)), it))
+    (sj, itj), (sp, itp) = out
+    assert abs(itp - itj) <= 1, (itp, itj)
+    scale = max(1.0, np.abs(sj).max())
+    assert np.abs(sp - sj).max() < 1e-4 * scale
+
+
+# ------------------------------------------ the standing fault ROADMAP C4
+
+#: ``poisson``'s seed 11: 4^3, one slot, periodic x and z, one refinement
+#: round, every cell solved, so the system is singular and 40 float32
+#: iterations end unconverged at constants that follow the rounding order
+C4_SEED = 11
+C4 = pytest.mark.xfail(strict=True, raises=AssertionError,
+                       reason="ROADMAP C4: poisson seed 11, unconverged singular float32 "
+                              "solves end at different constants")
+
+
+@C4
+def test_poisson_c4_body_check():
+    """The body's own checks at seed 11: B8's twin against the plain
+    float32 solve, solutions within 1e-4 of scale."""
+    differential.one_poisson(C4_SEED, "cpu")
+
+
+@C4
+def test_poisson_c4_twin_against_jax():
+    """Seed 11: B8's twin against the JAX body's whole-solve kernel in
+    interpret mode, as the seed-29 case above."""
+    _poisson_twin_against_jax(C4_SEED)
+
+
+# ------------------------------------------------------------ no fallback
+
+def test_diff_child_asked_for_cuda_does_not_run_on_the_cpu(tmp_path, capsys):
+    """Where there is no CUDA, a differential child told to run on it fails
+    and says so; the runner reports FAIL instead of carrying on."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    p, log = soak._launch(str(tmp_path), "diff-child", ["gol", 0, 1, "cuda"])
+    assert p.wait(timeout=120) != 0
+    log.close()
+    assert "CUDA is not available" in (tmp_path / "child.log").read_text()
+    assert soak.main(["gol", "--seeds", "0", "1", "--device", "cuda"]) == 1
+    assert "gol          [0,1): FAIL" in capsys.readouterr().out
