@@ -374,7 +374,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 (``resilience/differential.py``): the nine subsystems
                 (paths, three_level, amr, checkpoint, particles, gol, hoods,
                 vlasov, poisson) over seeds ``SOAK_SEEDS`` with ``--device
-                cuda``, each in its own interpreter, all at once; each
+                cuda``, and ``poisson`` over ROADMAP C4's ``C4_SEEDS``,
+                each in its own interpreter, all at once; each
                 subsystem's seconds, seeds, tag histogram and kernel
                 launches logged; it fails if a subsystem fails or if B5
                 (paths), B6 (three_level), B4 (gol), B7 (vlasov), B8
@@ -388,11 +389,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                 one's PASSED line, seconds and kernel launches logged.
                 Phases 35 and 36 together are held to
                 ``SOAK_BUDGET_S``.
+37. telemetry — (after 36) ROADMAP C4's repair: ``poisson`` seed 11 solved
+                by B8 and by the plain float32 solve (B8's twin on the
+                card), the same iterations and solutions within 1e-4 of
+                scale; ``trace_report --run`` (``dccrg_tpu_torch/tools/``) for the
+                four models under both halo backends, device evidence
+                required, each run's window, busy share, halo overlap, top
+                kernels, host gaps and launches logged; then controller 0
+                of phase 34's 2 x 4 ipc split advection profiled and
+                merged (busy share, host gaps), its interpreters started
+                with the phase but held until the runs before it are
+                done; then the telemetry gate
+                (``python -m dccrg_tpu_torch.tools.check_telemetry
+                --threshold 1.10``) in a child, which must exit 0, its
+                probes' launches logged.  Held to ``TELEMETRY_BUDGET_S``;
+                ``--telemetry-only`` runs it alone.
 
 Launch counters are set to 0 just before each of phases 3-19, 21-28,
 each sub-step of 30 and 31, and (in each controller) each part of 32, 33
 and 34 drives its path and read just after; the children of 35 and 36 count
-their own.  Telemetry is on throughout, as it
+their own, and phase 37 logs each run's launches by difference.  Telemetry is on throughout, as it
 is by default.  Output ends with the card's name and power limit, one
 JSON line of per-kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -1134,6 +1150,9 @@ def child_spmd33(wd, part, size, device, backend="gloo") -> int:
     from dccrg_tpu_torch.parallel import mesh
     from dccrg_tpu_torch.parallel.transport import STAGED
 
+    if part == "trace":
+        warm_profiler()
+        await_go(os.path.join(wd, TRACE37_GO))
     ctl = mesh.setup(backend=backend, device=None if device == "cuda" else device)
     dev = ctl.device
     sz = SPMD33[size]
@@ -1159,12 +1178,110 @@ def child_spmd33(wd, part, size, device, backend="gloo") -> int:
             res = {"rank": ctl.rank, "killed": False}
         elif part == "plane":
             res = {"rank": ctl.rank, "plane": spmd33_cohort(ctl, "plane", dev, sz)}
+        elif part == "trace":
+            res = {"rank": ctl.rank, "trace": spmd37_controller_trace(ctl, dev, sz)}
         else:
             res = {"rank": ctl.rank, "lineage": spmd33_lineage(ctl, 8, dev, sz, wd, "resume")}
     finally:
         mesh.teardown()
     mesh.result(res)
     return 0
+
+
+def warm_profiler() -> None:
+    """Start and stop ``torch.profiler`` once on an empty region: its first
+    start in a process takes seconds of host work (CUPTI's set-up), which
+    phase 37's controllers do while they wait, launching nothing."""
+    from dccrg_tpu_torch import obs
+
+    with tempfile.TemporaryDirectory() as td, obs.profile_trace(td):
+        pass
+
+
+def await_go(path, timeout_s=None) -> None:
+    """Block until ``path`` holds ``go``: phase 37 writes it once its own
+    captures are done, so the controller trace has the card and the host
+    to itself (``stop`` when the phase failed first, which raises)."""
+    timeout_s = TELEMETRY_BUDGET_S if timeout_s is None else timeout_s
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {path} after {timeout_s} s")
+        time.sleep(0.01)
+    with open(path) as fh:
+        word = fh.read().strip()
+    if word != "go":
+        raise RuntimeError(f"phase 37 wrote {word!r}")
+
+
+def spmd37_controller_trace(ctl, device, sz) -> dict:
+    """Phase 37's controller trace: phase 34's ``split_advection`` case (the
+    refined 48^3 grid on 2 x 4 slots, f32, the split step) on the
+    controllers ``ctl``; each runs TRACE37_WARM steps, then controller 0
+    profiles TRACE37_STEPS more under ``obs.profile_trace`` and merges the
+    capture with its host timeline (``obs.merge_profile``).  Returns, on
+    controller 0, the merge's window, busy share, halo overlap, top
+    kernels and longest host gaps, the launches of the profiled steps and
+    their wall ms a step."""
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Advection, obs
+    from dccrg_tpu_torch.ops import LAUNCHES
+    from dccrg_tpu_torch.utils.collectives import barrier
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        barrier("spmd37.trace")
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    secs = {}
+    t = time.perf_counter()
+    g = spmd33_grid(ctl, 8, device, sz["refined"], (0.3,), (0.3, 0.5, 0.5))
+    split = Advection(g, dtype=np.float32, overlap=True)
+    s = split.initialize_state()
+    dt = 0.4 * split.max_time_step(s)
+    sync()
+    secs["build"] = time.perf_counter() - t
+    t = time.perf_counter()
+    s = split.run(s, TRACE37_WARM, dt)
+    sync()
+    secs["warm"] = time.perf_counter() - t
+    before = dict(LAUNCHES)
+    obs.enable_timeline()
+    obs.timeline.clear()
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        if ctl.rank == 0:
+            with obs.profile_trace(td):
+                t1 = time.perf_counter()
+                s = split.run(s, TRACE37_STEPS, dt)
+                sync()
+                ms = (time.perf_counter() - t1) / TRACE37_STEPS * 1e3
+        else:
+            t1 = time.perf_counter()
+            s = split.run(s, TRACE37_STEPS, dt)
+            sync()
+            ms = (time.perf_counter() - t1) / TRACE37_STEPS * 1e3
+        secs["profiled"] = time.perf_counter() - t
+        if ctl.rank == 0:
+            t = time.perf_counter()
+            merged, summ = obs.merge_profile(td)
+            secs["merge"] = time.perf_counter() - t
+            out = {"window_s": summ["window_s"], "device_evidence": summ["device_evidence"],
+                   "busy": {d: v["fraction"] for d, v in summ["devices"].items()},
+                   "overlap": summ["overlap"]["halo"],
+                   "spread_ns": summ["alignment"]["spread_ns"],
+                   "top": [(k, v["time_us"], v["count"])
+                           for k, v in list(summ["kernels"].items())[:8]],
+                   "gaps": merged.host_gaps(min_us=20.0, top=5)}
+    out.update({"ms": ms, "steps": TRACE37_STEPS, "seconds": secs,
+                "launches": {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                             if v != before.get(k, 0)}})
+    return out
 
 
 def child_example(name, argv) -> int:
@@ -1184,13 +1301,17 @@ def child_example(name, argv) -> int:
 
 def soak_phase(card):
     """Phases 35 and 36: the differential battery's nine subsystems on the
-    card, then the ten examples, each in a fresh interpreter, all of a
-    phase at once.  Returns the two phases' records."""
+    card (and the soak's ``poisson`` over ROADMAP C4's ``C4_SEEDS``), then
+    the ten examples, each in a fresh interpreter, all of a phase at
+    once.  Returns the two phases' records."""
     from dccrg_tpu_torch.resilience import differential, soak
 
     t0 = time.perf_counter()
     handles = [soak.start_diff(n, *SOAK_SEEDS, device="cuda") for n in differential.NAMES]
+    # ROADMAP C4's seeds, beside them
+    c4 = soak.start_diff("poisson", *C4_SEEDS, device="cuda")
     recs = {h["name"]: soak.finish_diff(h, timeout=SOAK_BUDGET_S) for h in handles}
+    rec_c4 = soak.finish_diff(c4, timeout=SOAK_BUDGET_S)
     t35 = time.perf_counter() - t0
     for name, rec in recs.items():
         log(f"[soak] {name} seeds [{rec['seeds'][0]},{rec['seeds'][1]}): "
@@ -1201,7 +1322,13 @@ def soak_phase(card):
         # ``ok`` includes the kernels its subsystem must launch
         # (``differential.REQUIRED``): a missed one is named in ``missing``
         check(rec["ok"], f"[soak] {name} failed (missed kernels {rec['missing']}): {rec['last']}")
-    log(f"[soak] phase 35 seconds {t35!r} ({len(recs)} subsystems at once) on {card}")
+    check(rec_c4["ok"], f"[soak] poisson {C4_SEEDS} failed (missed kernels "
+                        f"{rec_c4['missing']}): {rec_c4['last']}")
+    log(f"[soak] poisson seeds [{C4_SEEDS[0]},{C4_SEEDS[1]}) (ROADMAP C4's): OK, "
+        f"launches {rec_c4['launches']}, twin calls {rec_c4['plain']}, "
+        f"{rec_c4['seconds']!r} s on {card}")
+    log(f"[soak] phase 35 seconds {t35!r} ({len(recs)} subsystems and C4's seeds at once) "
+        f"on {card}")
 
     t1 = time.perf_counter()
     wd = tempfile.mkdtemp(prefix="dccrg_examples_")
@@ -1243,7 +1370,208 @@ def soak_phase(card):
         f"(budget {SOAK_BUDGET_S!r}) on {card}")
     check(t35 + t36 <= SOAK_BUDGET_S,
           f"phases 35 + 36 took {t35 + t36!r} s, over their {SOAK_BUDGET_S!r} s")
-    return {"soak": recs, "examples": out, "seconds": (t35, t36)}
+    return {"soak": recs, "c4": rec_c4, "examples": out, "seconds": (t35, t36)}
+
+
+def telemetry_phase(card, device="cuda"):
+    """Phase 37: the telemetry gate, the device-timeline probe and the
+    repair of ROADMAP C4 on the card.
+
+    * C4: ``poisson`` seed 11 (``differential.poisson_case``) solved by
+      B8 and by the plain float32 solve (B8's twin on the card), 40
+      iterations to 1e-4: the same iterations and solutions within 1e-4 of
+      scale;
+    * ``trace_report --run`` (its ``main``, in this process) for each of
+      ``TRACE37_MODELS`` under each of ``TRACE37_BACKENDS``, device evidence
+      required: each run's window, busy share, halo overlap, top kernels,
+      longest host gaps and launches (``ops.LAUNCHES``) logged, its merged
+      trace validated;
+    * the controller trace (``--child spmd33 ... trace``): controller 0 of
+      phase 34's 2 x 4 ipc ``split_advection`` case profiled and merged;
+      its busy share and host gaps logged.  Its two interpreters start
+      with the phase and warm their profiler, then wait
+      (:func:`await_go`) until the runs above are done: no capture of the
+      phase shares the card with another process's kernels;
+    * the gate, ``python -m dccrg_tpu_torch.tools.check_telemetry
+      --threshold TELEMETRY_THRESHOLD`` in a child at its default steps
+      and reps, alone on the card, which must exit 0; its probes'
+      launches and seconds logged.
+
+    The soak's ``poisson`` over ``C4_SEEDS`` runs in phase 35.  Held to
+    ``TELEMETRY_BUDGET_S``.  Returns the phase's records."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dccrg_tpu_torch import Poisson, obs
+    from dccrg_tpu_torch.ops import LAUNCHES, PLAIN_CALLS
+    from dccrg_tpu_torch.parallel import mesh
+    from dccrg_tpu_torch.resilience import differential
+    from dccrg_tpu_torch.tools import trace_report
+
+    import threading
+
+    t_phase = time.perf_counter()
+    wd = tempfile.mkdtemp(prefix="telemetry37_")
+    out = {}
+    # the controller trace's launch, started first: its two interpreters
+    # import and warm their profiler (``warm_profiler``) while this process
+    # runs C4 and the trace_report rounds, and launch nothing, nor join
+    # their group, before ``go``
+    here = os.path.dirname(os.path.abspath(__file__))
+    go = os.path.join(wd, TRACE37_GO)
+
+    def signal(word):
+        with open(go + ".tmp", "w") as fh:
+            fh.write(word)
+        os.replace(go + ".tmp", go)
+
+    env = {"DCCRG_HALO_BACKEND": "auto", "DCCRG_HALO_VERIFY": "0", "DCCRG_FAULT": ""}
+    ctl_run = {}
+
+    def controllers():
+        t = time.perf_counter()
+        try:
+            ctl_run["res"] = mesh.launch(
+                [sys.executable, os.path.abspath(__file__), "--child", "spmd33", wd, "trace",
+                 "full", device, "ipc"], SPMD_CONTROLLERS, timeout_s=TELEMETRY_BUDGET_S,
+                env=env, cwd=here)
+        except Exception as e:  # noqa: BLE001 — re-raised below, in this thread
+            ctl_run["err"] = e
+        ctl_run["secs"] = time.perf_counter() - t
+
+    ctl_thread = threading.Thread(target=controllers, daemon=True)
+    ctl_thread.start()
+    try:
+        # C4: B8 against the plain float32 solve at seed 11
+        g, cells, rhs, kw, _n, _mode, _rng = differential.poisson_case(C4_SEEDS[0], device)
+        sols = {}
+        for name, use in (("kernel", True), ("plain", False)):
+            p = Poisson(g, dtype=np.float32, use_kernels=use, **kw)
+            st = g.set_cell_data(g.new_state(p.spec), "rhs", cells,
+                                 (rhs - rhs.mean()).astype(np.float32))
+            k0, p0 = LAUNCHES["bicg_solve"], PLAIN_CALLS["bicg_solve"]
+            o, res, it = p.solve(st, max_iterations=40, stop_residual=1e-4)
+            sols[name] = (np.asarray(g.get_cell_data(o, "solution", cells)), res, it,
+                          LAUNCHES["bicg_solve"] - k0, PLAIN_CALLS["bicg_solve"] - p0)
+        (sk, rk, ik, lk, _), (sx, rx, ix, _, px) = sols["kernel"], sols["plain"]
+        scale = max(1.0, float(np.abs(sx).max()))
+        err = float(np.abs(sk - sx).max())
+        check(lk == 1 and px == 1, f"C4: B8 launches {lk}, twin calls {px}")
+        check(ik == ix and err <= 1e-4 * scale,
+              f"C4: kernel {ik} iterations, plain {ix}; max diff {err} vs 1e-4 x {scale}")
+        log(f"[telemetry] C4 poisson seed {C4_SEEDS[0]}: B8 {ik} iterations (residual "
+            f"{rk!r}), the plain f32 solve (B8's twin) {ix} ({rx!r}); max diff {err!r} "
+            f"(bound 1e-4 x {scale!r}) on {card}")
+
+        # trace_report --run: each model under each halo backend
+        saved = os.environ.get("DCCRG_HALO_BACKEND")
+        runs = {}
+        try:
+            for model in TRACE37_MODELS:
+                for backend in TRACE37_BACKENDS:
+                    merged_path = os.path.join(wd, f"{model}_{backend}.merged.json")
+                    before = dict(LAUNCHES)
+                    buf = io.StringIO()
+                    t = time.perf_counter()
+                    with contextlib.redirect_stdout(buf):
+                        rc = trace_report.main(["--run", "--model", model, "--halo-backend",
+                                                backend, "--json", "--merged-out",
+                                                merged_path, "--device", device])
+                    secs = time.perf_counter() - t
+                    check(rc == 0, f"trace_report {model} {backend}: exit {rc}\n"
+                                   f"{buf.getvalue()[-2000:]}")
+                    rec = json.loads(buf.getvalue())
+                    bad = obs.validate_merged_trace(merged_path)
+                    check(rec["device_evidence"] and bad == [],
+                          f"trace_report {model} {backend}: evidence "
+                          f"{rec['device_evidence']}, merged trace {bad[:3]}")
+                    ov = rec["overlap"]["halo"]
+                    launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                                if v != before.get(k, 0)}
+                    busy = {d: v["fraction"] for d, v in rec["devices"].items()}
+                    top = [(k["kernel"], k["time_us"], k["count"])
+                           for k in rec["top_kernels"][:5]]
+                    gaps = [(gp["dur_us"], gp["open_host_phases"]) for gp in rec["host_gaps"][:3]]
+                    log(f"[telemetry] trace_report --run --model {model} --halo-backend "
+                        f"{backend}: window {rec['window_s']!r} s, device.busy_fraction "
+                        f"{busy}, overlap.fraction{{phase=halo}} {ov['fraction']!r} (in flight "
+                        f"{ov['inflight_s']!r} s), top kernels (label, us, launches) {top}, "
+                        f"longest host gaps (us, open phases) {gaps}, launches {launched}, "
+                        f"{secs!r} s on {card}")
+                    runs[(model, backend)] = {"busy": busy, "overlap": ov["fraction"],
+                                              "window_s": rec["window_s"],
+                                              "launches": launched}
+        finally:
+            if saved is None:
+                os.environ.pop("DCCRG_HALO_BACKEND", None)
+            else:
+                os.environ["DCCRG_HALO_BACKEND"] = saved
+        out["trace_report"] = runs
+        log(f"[telemetry] C4 and the trace_report runs: {time.perf_counter() - t_phase!r} s "
+            f"on {card}")
+
+        # one controller of phase 34's 2 x 4 ipc split advection, profiled
+        signal("go")
+        ctl_thread.join(TELEMETRY_BUDGET_S)
+        check("res" in ctl_run, f"controller trace: {ctl_run.get('err')!r}")
+        secs = ctl_run["secs"]
+        tr0 = next(x["trace"] for x in ctl_run["res"] if x["rank"] == 0)
+        check(tr0["device_evidence"] and tr0["launches"].get("ring_copy", 0) > 0,
+              f"controller trace: evidence {tr0['device_evidence']}, launches "
+              f"{tr0['launches']}")
+        log(f"[telemetry] controller 0 of 2 x 4 (ipc), split_advection, {tr0['steps']} "
+            f"steps profiled: {tr0['ms']!r} ms a step, window {tr0['window_s']!r} s, busy "
+            f"share {tr0['busy']}, overlap.fraction{{phase=halo}} "
+            f"{tr0['overlap']['fraction']!r}, clock-sync spread {tr0['spread_ns']!r} ns, "
+            f"top kernels (label, us, launches) {tr0['top']}, launches "
+            f"{tr0['launches']}; the launch took {secs!r} s (controller 0: "
+            f"{tr0['seconds']}) on {card}")
+        for gp in tr0["gaps"]:
+            log(f"[telemetry] controller 0 host gap {gp['dur_us']!r} us at "
+                f"{gp['start_us']!r} us: open host phases {gp['open_host_phases']}")
+        out["controller"] = tr0
+
+        # the gate, in a fresh interpreter, alone on the card
+        t = time.perf_counter()
+        gate_out = os.path.join(wd, "gate", "telemetry.json")
+        logf = os.path.join(wd, "gate.log")
+        with open(logf, "w") as fh:
+            rc = subprocess.run([sys.executable, "-m", "dccrg_tpu_torch.tools.check_telemetry",
+                                 "--out", gate_out, "--threshold", str(TELEMETRY_THRESHOLD),
+                                 "--device", device],
+                                cwd=here, stdout=fh, stderr=subprocess.STDOUT,
+                                timeout=TELEMETRY_BUDGET_S).returncode
+        secs = time.perf_counter() - t
+        with open(logf) as fh:
+            text = fh.read()
+        check(rc == 0, f"check_telemetry exited {rc}:\n{text[-4000:]}")
+        for ln in text.splitlines():
+            if ln.startswith(("probe ", "telemetry check")):
+                log(f"[telemetry] gate: {ln}")
+        with open(gate_out) as fh:
+            tel = json.load(fh)
+        gauges = tel["gauges"]
+        log(f"[telemetry] gate: exit 0 in {secs!r} s (threshold {TELEMETRY_THRESHOLD}); "
+            f"overlap.fraction {gauges.get('overlap.fraction')}, device.busy_fraction "
+            f"{gauges.get('device.busy_fraction')}, epoch.recompiles "
+            f"{tel['counters'].get('epoch.recompiles')}, compile "
+            f"{tel['phases'].get('compile')} on {card}")
+        out["gate_s"] = secs
+    finally:
+        if not os.path.exists(go):
+            signal("stop")   # the controllers exit rather than wait out their timeout
+            ctl_thread.join(30.0)
+        shutil.rmtree(wd, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[telemetry] phase 37 seconds {secs!r} (budget {TELEMETRY_BUDGET_S!r}) on {card}")
+    check(secs <= TELEMETRY_BUDGET_S,
+          f"phase 37 took {secs!r} s, over its {TELEMETRY_BUDGET_S!r} s")
+    out["seconds"] = secs
+    return out
 
 
 def child_main(argv) -> int:
@@ -1403,6 +1731,23 @@ SPMD34_COHORTS = ("dense", "vlasov", "split")
 #: phase 34's budget: phase 32's 2 x 4 run and phase 33's split cases and
 #: SPMD34_COHORTS, over gloo and then over ipc, process start-ups included
 SPMD34_BUDGET_S = 150.0
+
+#: phase 37's budget in seconds, and the gate's overhead threshold on the
+#: card (phase 29's)
+TELEMETRY_BUDGET_S = 120.0
+TELEMETRY_THRESHOLD = 1.10
+#: phase 37's controller trace: split steps before the capture, and captured
+TRACE37_WARM, TRACE37_STEPS = 3, 10
+#: the file in phase 37's directory that starts the controller trace
+TRACE37_GO = "trace37.go"
+#: phase 37's trace_report runs: the models and the halo backends
+TRACE37_MODELS = ("advection", "advection-fused", "gol", "vlasov")
+TRACE37_BACKENDS = ("collective", "pallas")
+#: the soak's poisson range of ROADMAP C4's repair: seed 11 (one slot,
+#: singular, unconverged after 40 float32 iterations), 12 and 13, the
+#: first seed past it on several slots, whose B9 launches the card's
+#: coverage rule (``differential.REQUIRED``) asks of every range
+C4_SEEDS = (11, 14)
 
 
 def ipc_put_timing(ctl, ex, state, reps=200) -> dict | None:
@@ -4401,11 +4746,12 @@ def main() -> int:
         check(it == 60, f"{label}: {it} iterations")
         check(tuple(sol.shape) == tuple(s["solution"].shape)
               and bool(torch.isfinite(sol).all()), f"{label}: solution shape/finite")
-        # against the float32 flat solve without the kernel, at
-        # test_fused_bicg_matches_xla_flat's tolerances: a solve to
-        # ``target``, or with None the 60-iteration solve
+        # against the float32 flat solve without the kernel (B8's twin on
+        # the card, ROADMAP C4's repair), at test_fused_bicg_matches_xla_
+        # flat's tolerances: a solve to ``target``, or with None the
+        # 60-iteration solve
         plain = Poisson(g, dtype=np.float32, use_kernels=False)
-        check(plain._solve_fast is None and plain._flat is not None,
+        check(plain._solve_fast is None and plain._solve_whole is not None,
               f"{label}: the plain flat solver")
         if target is None:
             (a, res_a, it_a), (b, res_b, it_b) = (out, res, it), solve60(plain, s)
@@ -4432,8 +4778,8 @@ def main() -> int:
             f"({res_b!r}), solution max diff {np.abs(sa - sb).max()!r} "
             f"(peak {np.abs(sb).max()!r})")
         # the timed length on a seeded random rhs, which neither stalls nor
-        # ends at rounding level: the kernel against the plain flat solve,
-        # whose torch sums associate otherwise, at the same tolerances
+        # ends at rounding level: the kernel against the plain flat solve
+        # at the same tolerances
         s_rand = p.initialize_state(np.random.default_rng(5).standard_normal(len(ids)))
         (a, res_a, it_a), (b, res_b, it_b) = solve60(p, s_rand), solve60(plain, s_rand)
         sa = g.get_cell_data(a, "solution", ids)
@@ -5359,6 +5705,10 @@ def main() -> int:
     # 36. examples: the ten user examples
     soak_phase(card)
 
+    # 37. telemetry: C4's repair, trace_report on every model and halo
+    # backend, a controller traced, the telemetry gate
+    telemetry_phase(card)
+
     kernels = []
     for r in rows:
         (b_ms, b_by) = r["bound"]
@@ -5392,9 +5742,10 @@ def only(which, device="cuda") -> int:
     """``python3 chip_smoke.py --spmd-only [cpu]``: phases 32, 33 and 34
     alone (a quick check of the multi-controller paths; ``cpu`` rehearses
     them without a card); ``--soak-only``: phases 35 and 36 alone, on the
-    card, the kernels built first."""
-    if which == "--soak-only":
-        device = "cuda"  # the battery's phases run on the card only
+    card, the kernels built first; ``--telemetry-only``: phase 37 alone,
+    likewise."""
+    if which in ("--soak-only", "--telemetry-only"):
+        device = "cuda"  # these phases run on the card only
     if device == "cuda":
         import torch
 
@@ -5413,6 +5764,15 @@ def only(which, device="cuda") -> int:
             soak_phase(card)
             log("[soak] ok")
             return 0
+        if which == "--telemetry-only":
+            from dccrg_tpu_torch import cuda_build
+
+            t = time.perf_counter()
+            cuda_build.build()
+            log(f"[build] {time.perf_counter() - t!r} s")
+            telemetry_phase(card)
+            log("[telemetry] ok")
+            return 0
         o32 = spmd_phase(torch.device("cuda"), card)
         o33 = spmd_serve_phase(torch.device("cuda"), card)
         ipc_phase(torch.device("cuda"), card, o32["one"], o33)
@@ -5427,6 +5787,6 @@ def only(which, device="cuda") -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child_main(sys.argv[2:]))
-    if sys.argv[1:2] in (["--spmd-only"], ["--soak-only"]):
+    if sys.argv[1:2] in (["--spmd-only"], ["--soak-only"], ["--telemetry-only"]):
         sys.exit(only(*sys.argv[1:3]))
     sys.exit(main())

@@ -72,7 +72,8 @@ from .parallel.shapes import epoch_shape_hints, signature_of
 
 __all__ = ["Grid", "CellSpec", "resolve_device", "HAS_NO_NEIGHBOR",
            "HAS_LOCAL_NEIGHBOR_OF", "HAS_LOCAL_NEIGHBOR_TO",
-           "HAS_REMOTE_NEIGHBOR_OF", "HAS_REMOTE_NEIGHBOR_TO"]
+           "HAS_REMOTE_NEIGHBOR_OF", "HAS_REMOTE_NEIGHBOR_TO",
+           "HAS_LOCAL_NEIGHBOR_BOTH", "HAS_REMOTE_NEIGHBOR_BOTH"]
 
 #: field name -> (per-cell shape tuple, dtype)
 CellSpec = dict
@@ -92,6 +93,8 @@ HAS_LOCAL_NEIGHBOR_OF = 1 << 0
 HAS_LOCAL_NEIGHBOR_TO = 1 << 1
 HAS_REMOTE_NEIGHBOR_OF = 1 << 2
 HAS_REMOTE_NEIGHBOR_TO = 1 << 3
+HAS_LOCAL_NEIGHBOR_BOTH = HAS_LOCAL_NEIGHBOR_OF | HAS_LOCAL_NEIGHBOR_TO
+HAS_REMOTE_NEIGHBOR_BOTH = HAS_REMOTE_NEIGHBOR_OF | HAS_REMOTE_NEIGHBOR_TO
 
 
 def resolve_device(device=None) -> torch.device:

@@ -30,7 +30,10 @@ iteration; the JAX package keeps the whole loop in one ``lax.while_loop``).
 Float32 on one device slot with a flat layout of at most two levels that
 fits (``bicg_fits``) solves in one launch of the whole-solve kernel
 (``ops/poisson_kernel.py::bicg_solve``; its twin on CPU tensors).  There is
-no fallback: a kernel that fails to build or launch raises.
+no fallback: a kernel that fails to build or launch raises.  With
+``use_kernels=False`` the same grids solve through the twin on any device,
+so kernel and plain solve agree bitwise, as the JAX package's two paths are
+one computation.
 
 The BiCG dots add one partial a slot, in slot order
 (``utils/collectives.slot_sum``); one slot keeps its single sum.  So the
@@ -54,7 +57,7 @@ import torch
 
 from ..convert import numpy_dtype, torch_dtype
 from ..ops.flat_poisson import build_flat_poisson, make_flat_poisson_apply
-from ..ops.poisson_kernel import bicg_fits, bicg_loop, bicg_solve
+from ..ops.poisson_kernel import bicg_fits, bicg_loop, bicg_solve, bicg_solve_plain
 from ..ops.rolled_gather import build_rolled_matvec_multi, make_rolled_apply_multi
 from ..parallel.dense import HaloExtend
 from ..parallel.stencil import StencilTables, gather_neighbors, ordered_sum
@@ -100,7 +103,9 @@ class Poisson:
             allow_rolled = self.device.type == "cuda"
         self._rolled = (self._build_rolled()
                         if allow_rolled and self._flat is None else None)
-        self._solve_fast = self._build_fast_solver()
+        #: the whole-solve path where the grid qualifies (B8, or its twin
+        #: with ``use_kernels=False``: :meth:`_fast_solve` chooses), else None
+        self._solve_whole = self._build_fast_solver()
         space = ("flat" if self._flat is not None else
                  "rolled" if self._rolled is not None else "gather")
         #: the operator space the BiCG loop runs in: "flat", "rolled" or
@@ -108,6 +113,12 @@ class Poisson:
         self.operator_space = space
         assert_agreement("Poisson operator space",
                          f"{space} {self._solve_fast is not None}".encode())
+
+    @property
+    def _solve_fast(self):
+        """The whole-solve kernel path (B8) where it engages: None with
+        ``use_kernels=False`` or where the grid does not qualify."""
+        return self._solve_whole if self.use_kernels else None
 
     def _put(self, a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(
@@ -374,14 +385,17 @@ class Poisson:
         return {**state, "solution": sol}, best_res, i
 
     def _build_fast_solver(self):
-        """The whole-solve kernel path (``ops/poisson_kernel.py``), or None
-        when ineligible — the JAX package's gating: kernels on, flat tables,
-        one slot, at most two levels (the kernel pools with the two-level
-        roll chain), float32, and the fit rule."""
+        """The whole-solve path (``ops/poisson_kernel.py``), or None when
+        ineligible — the JAX package's gating: flat tables, one slot, at
+        most two levels (the kernel pools with the two-level roll chain),
+        float32, and the fit rule.  With kernels on it launches B8, with
+        ``use_kernels=False`` it runs B8's plain twin: the same computation
+        to the bit, as the JAX package's plain solve and its kernel are one
+        ``jnp.sum`` computation (an unconverged singular solve drifts along
+        the null space with the dots' rounding, so two orders end apart)."""
         t = self._flat_tables
         if (
-            not self.use_kernels
-            or t is None
+            t is None
             or t["n_devices"] != 1
             or t.get("vl", 1) > 1
             or self.dtype != np.float32
@@ -408,7 +422,8 @@ class Poisson:
         return (rhs.to(torch.float32), x.to(torch.float32), *self._bicg_statics)
 
     def _fast_solve(self, state, max_iterations, stop_residual, stop_increase):
-        best_x, best_res, it = bicg_solve(
+        solve = bicg_solve if self.use_kernels else bicg_solve_plain
+        best_x, best_res, it = solve(
             *self._bicg_inputs(state), max_iterations, stop_residual,
             stop_increase, has_coarse=self._bicg_has_coarse,
         )
@@ -463,7 +478,7 @@ class Poisson:
                     break  # converged, or the attempt made no progress
                 prev_res = res
             return state, res, total_it
-        run = self._solve_fast if self._solve_fast is not None else self._solve
+        run = self._solve_whole or self._solve
         state, res, it = run(state, int(max_iterations), stop_residual,
                              stop_after_residual_increase)
         return state, float(res), int(it)

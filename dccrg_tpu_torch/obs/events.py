@@ -34,7 +34,15 @@ __all__ = [
     "export_chrome_trace",
     "enable_timeline",
     "disable_timeline",
+    "HALO_FINISH",
 ]
+
+#: args of the ``halo.exchange`` span that finishes a split exchange (a
+#: ``halo.start``'s wait).  The port records every blocking exchange of a
+#: model's step from the host too, where the JAX package's sit inside its
+#: jitted step unseen; the merge pairs each ``halo.start`` with the next
+#: span so marked, not with a step's own blocking exchange.
+HALO_FINISH = {"halo": "finish"}
 
 
 class _SpanContext:

@@ -44,7 +44,7 @@ import statistics
 
 from .registry import metrics
 from . import kineto as _xp
-from .events import EventTimeline, timeline as _default_timeline
+from .events import HALO_FINISH, EventTimeline, timeline as _default_timeline
 
 __all__ = [
     "ClockAlignment",
@@ -194,14 +194,18 @@ class MergedTrace:
     def _halo_windows(self) -> list:
         """The collective in-flight windows (µs union): each
         ``halo.start`` dispatch begin paired with the end of the next
-        ``halo.exchange`` span (the finish/wait — the source paper's
-        ``start_remote_neighbor_copies`` / ``wait_remote_neighbor_copies``
-        split).  A workload that only ever used blocking exchanges has
-        no start spans; its dispatch spans ARE the windows."""
+        ``halo.exchange`` span that finishes a split exchange (the
+        finish/wait — the source paper's ``start_remote_neighbor_copies``
+        / ``wait_remote_neighbor_copies`` split), marked ``HALO_FINISH``
+        by the port; a timeline with no marked span (the JAX package's)
+        pairs with the next ``halo.exchange`` of any kind.  Every
+        ``halo.exchange`` span is a window too.  A workload that only
+        ever used blocking exchanges has no start spans; its dispatch
+        spans ARE the windows."""
         import bisect
 
         t0 = self.timeline.origin_perf
-        starts, finishes = [], []
+        starts, finishes, marked = [], [], []
         for s in self.host_spans:
             a = (s["begin"] - t0) * 1e6
             b = a + s["dur"] * 1e6
@@ -209,14 +213,16 @@ class MergedTrace:
                 starts.append((a, b))
             elif s["name"] == "halo.exchange":
                 finishes.append((a, b))
+                if (s.get("args") or {}).get("halo") == HALO_FINISH["halo"]:
+                    marked.append((a, b))
         if not starts:
             return _union(finishes)
-        finishes.sort()
-        fin_begins = [a for a, _b in finishes]
         windows = list(finishes)
+        closers = sorted(marked or finishes)
+        fin_begins = [a for a, _b in closers]
         for a, b in starts:
             i = bisect.bisect_left(fin_begins, a)
-            windows.append((a, finishes[i][1]) if i < len(finishes)
+            windows.append((a, closers[i][1]) if i < len(closers)
                            else (a, b))
         return _union(windows)
 

@@ -44,8 +44,18 @@ def _labels_key(labels: dict) -> tuple:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
+#: canonical label key -> its export string (``report()`` formats every
+#: series each snapshot; a live stream snapshots every ~50 ms)
+_LABEL_STRS: dict = {}
+
+
 def _labels_str(key: tuple) -> str:
-    return ",".join(f"{k}={v}" for k, v in key)
+    s = _LABEL_STRS.get(key)
+    if s is None:
+        if len(_LABEL_STRS) > 65536:
+            _LABEL_STRS.clear()
+        s = _LABEL_STRS[key] = ",".join(f"{k}={v}" for k, v in key)
+    return s
 
 
 def _scalar(value):
@@ -98,6 +108,8 @@ class MetricsRegistry:
         #: estimates resolve below the factor-2 default
         #: (:meth:`set_histogram_resolution`).
         self._hist_res: dict = {}
+        #: phase name -> its ``phase.duration_s`` series key
+        self._duration_keys: dict = {}
 
     # ------------------------------------------------------------- writes
 
@@ -182,8 +194,10 @@ class MetricsRegistry:
         samples land in ``le=0``)."""
         if not self.enabled:
             return
-        key = (name, _labels_key(labels))
-        value = float(_scalar(value))
+        self._observe_key((name, _labels_key(labels)), float(_scalar(value)))
+
+    def _observe_key(self, key: tuple, value: float) -> None:
+        """:meth:`observe` of a float under its canonical series key."""
         if value <= 0.0:
             exp = None
         else:
@@ -192,7 +206,7 @@ class MetricsRegistry:
             m, exp = math.frexp(value)
             if m == 0.5:
                 exp -= 1
-            res = self._hist_res.get(name)
+            res = self._hist_res.get(key[0])
             if res is not None and res > 1:
                 # smallest k with 2^(k/res) >= value, edge-exclusive
                 # below: samples sitting exactly on an edge stay in
@@ -213,11 +227,12 @@ class MetricsRegistry:
             h[3] = max(h[3], value)
             h[4][exp] = h[4].get(exp, 0) + 1
 
-    def phase_add(self, name: str, dt: float) -> None:
+    def phase_add(self, name: str, dt: float, args: dict | None = None) -> None:
         """Directly add one completed span to a phase — the hot-dispatch
         form for spans that are never self-nested (the halo exchange
         seam times with two ``perf_counter`` calls and this, skipping
-        the contextmanager + nesting bookkeeping of :meth:`phase`)."""
+        the contextmanager + nesting bookkeeping of :meth:`phase`).
+        ``args`` go onto the span's timeline record."""
         if not self.enabled:
             return
         with self._lock:
@@ -227,7 +242,7 @@ class MetricsRegistry:
             else:
                 rec[0] += dt
                 rec[1] += 1
-        self._span_hooks(name, time.perf_counter() - dt, dt)
+        self._span_hooks(name, time.perf_counter() - dt, dt, args)
 
     def observe_duration(self, name: str, dt: float) -> None:
         """Phase-hook: record one completed phase span into
@@ -235,16 +250,28 @@ class MetricsRegistry:
         existing phase timer feeds the latency-quantile plane
         (``obs.slo``) without new call sites.  Fired from :meth:`phase`
         / :meth:`phase_add` while :attr:`duration_histograms` is on;
-        callable directly for spans timed outside the registry."""
-        self.observe("phase.duration_s", dt, phase=name)
+        callable directly for spans timed outside the registry.  The
+        series key of each phase name is built once (the halo seam calls
+        this twice a step)."""
+        if not self.enabled:
+            return
+        self._observe_key(self._duration_key(name), float(dt))
 
-    def _span_hooks(self, name: str, begin: float, dt: float) -> None:
+    def _duration_key(self, name: str) -> tuple:
+        key = self._duration_keys.get(name)
+        if key is None:
+            key = self._duration_keys[name] = (
+                "phase.duration_s", _labels_key({"phase": name}))
+        return key
+
+    def _span_hooks(self, name: str, begin: float, dt: float,
+                    args: dict | None = None) -> None:
         """Everything a completed phase span feeds beyond the aggregate
         phase table: the event timeline, the per-phase duration
         histogram, and the flight recorder's ring."""
         tl = self.timeline
         if tl is not None and tl.enabled:
-            tl.add(name, begin, dt)
+            tl.add(name, begin, dt, args)
         if self.duration_histograms:
             self.observe_duration(name, dt)
         fr = self.recorder

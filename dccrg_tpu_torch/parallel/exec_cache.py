@@ -68,6 +68,7 @@ __all__ = [
     "trace_counts",
     "reset_trace_counts",
     "kernel_labels",
+    "library_labels",
     "enable_persistent_cache",
     "persistent_cache_dir",
     "persistent_cache_counts",
@@ -236,6 +237,23 @@ def reset_trace_counts() -> None:
 def kernel_labels() -> dict:
     """Snapshot of the ``kernel symbol -> label`` table."""
     return dict(KERNEL_SYMBOLS)
+
+
+def library_labels(stem: str) -> set:
+    """The device-timeline labels of the kernels in ``csrc/<stem>.cu``:
+    what an ``epoch.recompiles{kernel=<stem>}`` compile can run, so the
+    compiled set and the attributed set (``device.kernel_time_us{kernel}``)
+    compare label for label."""
+    import pathlib
+    import re
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "csrc" / f"{stem}.cu"
+    try:
+        text = src.read_text()
+    except OSError:
+        return set()
+    return {label for sym, label in KERNEL_SYMBOLS.items()
+            if re.search(rf"\b{sym}\b", text)}
 
 
 #: the persistent kernel cache: hits (a library loaded from the build

@@ -102,6 +102,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..obs.events import HALO_FINISH
 from ..obs.registry import _labels_key
 from ..obs.registry import metrics as _metrics
 from . import halo_dma
@@ -954,7 +955,7 @@ class HaloExchange:
         if _metrics.enabled:
             t0 = time.perf_counter()
             out = self._finish_dispatch(state, handle)
-            _metrics.phase_add("halo.exchange", time.perf_counter() - t0)
+            _metrics.phase_add("halo.exchange", time.perf_counter() - t0, HALO_FINISH)
         else:
             out = self._finish_dispatch(state, handle)
         if self._verify_active():

@@ -11,6 +11,7 @@ Run from the repository root on a machine with a CUDA card (an H100):
     python3 kernel_probe.py ring-sweep [--baseline DIR]   # B9 forms
     python3 kernel_probe.py boxed-edge      # flat forms against boxed passes
     python3 kernel_probe.py telemetry-cost  # obs on / off on the refined run
+    python3 kernel_probe.py gate-overhead   # the gate's overhead measures
     python3 kernel_probe.py cohort-launch   # member axis vs a launch a member
     python3 kernel_probe.py ipc-wait        # ipc: host against stream waits
 
@@ -77,6 +78,20 @@ rounds of 20 runs each), printing each batch's median wall time (host
 clock around the run and a synchronise) and mean host enqueue time (50
 runs queued, no synchronise between them), then the host time of one
 ``fused.*`` run record and of the schedule's ``bytes_moved`` it reads.
+
+``gate-overhead`` builds the port's telemetry gate's workload
+(``dccrg_tpu_torch/tools/check_telemetry.py``: the 8^3 refined ball on 4
+slots of the card), runs the four probes the gate runs before its
+overhead budget, and measures the budget's ratio of the 20-step loop
+(``check_telemetry.overhead_loop``) two ways, each several times: the
+gate's own ``check_telemetry.overhead_ratio`` (the median of ``REPS``
+rounds of off, on, on, off loops) and the JAX gate's estimator (the
+median of 11 loops with telemetry on over the median of 11 with it off,
+in alternating order).  Each runs with the modes as set (on/off) and
+with telemetry on in both (A/A, whose truth is 1), alone and then with a
+live tailer (a ``TelemetryStream`` every 50 ms read by a
+``FleetAggregator``, as the gate's live probe runs it).  The spread of
+the A/A readings is each estimator's noise.
 
 ``ipc-wait`` runs ``chip_smoke.py`` phase 34's two launches of 2
 controllers x 4 slots over the ``ipc`` transport (phase 32's run: the
@@ -767,6 +782,70 @@ def ipc_wait_child(mode: str, argv) -> int:
     return cs.child_main(argv)
 
 
+def gate_overhead(card: str) -> int:
+    import statistics
+    import tempfile
+    import threading
+
+    from dccrg_tpu_torch import obs
+    from dccrg_tpu_torch.obs import live
+    from dccrg_tpu_torch.tools import check_telemetry as ct
+
+    obs.metrics.reset()
+    obs.enable()
+    obs.enable_timeline()
+    g, adv, state, dt = ct.build_workload("cuda")
+    ct.drive(g, adv, state, dt, 20)
+    for probe in (ct._ensemble_probe, ct._wide_halo_probe, ct._slo_probe, ct._cost_probe):
+        bad = probe(g.device)
+        if bad:
+            print(f"{probe.__name__}: {bad}", flush=True)
+            return 1
+    loop = ct.overhead_loop(g, adv, state, dt, 20)
+
+    def jax_estimator(lp):
+        times = {True: [], False: []}
+        try:
+            for i in range(11):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    times[on].append(lp(on))
+        finally:
+            obs.enable()
+        return statistics.median(times[True]) / statistics.median(times[False])
+
+    def report(label):
+        for name, fn, n in (("the JAX gate's estimator (11 loops a mode)", jax_estimator, 8),
+                            (f"check_telemetry.overhead_ratio ({ct.REPS} rounds)",
+                             lambda lp: ct.overhead_ratio(lp, ct.REPS), 4)):
+            for mode, lp in (("on/off", loop), ("A/A", lambda on: loop(True))):
+                got = [fn(lp) for _ in range(n)]
+                print(f"{label}, {name}, {mode}: {got} on {card}", flush=True)
+
+    ct.drive(g, adv, state, dt, 2)
+    report("alone")
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/probe.stream.jsonl"
+        stream = obs.TelemetryStream(path, period=0.05, truncate=True)
+        stream.start()
+        agg = live.FleetAggregator([path], window_s=60.0)
+        stop = threading.Event()
+
+        def tail():
+            while not stop.is_set():
+                agg.poll()
+                stop.wait(0.05)
+
+        t = threading.Thread(target=tail, daemon=True)
+        t.start()
+        try:
+            report("with a live tailer")
+        finally:
+            stop.set()
+            t.join(timeout=5.0)
+            stream.stop(final=False)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -781,7 +860,7 @@ def main() -> int:
         baseline = args.pop()
         args.pop()
     modes = ("vlasov-sweep", "bicg-profile", "ring-sweep", "boxed-edge", "telemetry-cost",
-             "cohort-launch", "ipc-wait")
+             "cohort-launch", "ipc-wait", "gate-overhead")
     if len(args) != 1 or args[0] not in modes \
             or (baseline is not None and args[0] != "ring-sweep"):
         print(__doc__, file=sys.stderr)
@@ -801,6 +880,8 @@ def main() -> int:
         return cohort_launch(card)
     if args[0] == "ipc-wait":
         return ipc_wait(card)
+    if args[0] == "gate-overhead":
+        return gate_overhead(card)
     return (vlasov_sweep if args[0] == "vlasov-sweep" else bicg_profile)(card)
 
 

@@ -70,6 +70,23 @@ def test_exact_match(grids):
         assert exact == set(tg.inner_cells(d).tolist())
 
 
+@pytest.mark.parametrize("name", ["HAS_LOCAL_NEIGHBOR_BOTH", "HAS_REMOTE_NEIGHBOR_BOTH"])
+def test_both_masks(grids, name):
+    """The two ``*_BOTH`` masks: the JAX values, exported, and the same
+    ``get_cells_by_criteria`` answers as the JAX grid's, either match."""
+    import dccrg_tpu.grid as jgrid
+    import dccrg_tpu_torch.grid as tgrid
+
+    jg, tg = grids
+    mask = getattr(tgrid, name)
+    assert mask == getattr(jgrid, name) and name in tgrid.__all__
+    for d in range(tg.n_devices):
+        for exact in (False, True):
+            np.testing.assert_array_equal(
+                tg.get_cells_by_criteria(d, mask, exact_match=exact),
+                jg.get_cells_by_criteria(d, getattr(jgrid, name), exact_match=exact))
+
+
 def test_getters(grids):
     jg, tg = grids
     for name in ("get_maximum_refinement_level", "get_neighborhood_length",

@@ -19,11 +19,12 @@ CPU, and against the JAX package's soak bodies (``tools/soak.py``'s
   and solutions within 1e-4 of scale for the float32 BiCG solve, and 4 ULP
   a step for Vlasov float32 (``tests/test_torch_vlasov.py``'s step
   tolerance, applied to each of the body's 6 steps from the JAX state);
-* the standing fault ROADMAP C4 (``poisson`` seed 11, a singular
-  unconverged float32 solve): the body's check of B8's twin against the
-  plain float32 solve, and the twin against the JAX kernel, are held as
-  strict expected failures, so the fault stays in view and a repair shows
-  as an unexpected pass;
+* ``poisson`` seed 11, a singular unconverged float32 solve: the body's
+  check of B8's twin against the plain float32 solve passes, since the
+  plain one-slot flat solve is the twin (``use_kernels`` changes no bit,
+  held on seeds 11 and 29); the twin against the JAX kernel stays a strict
+  expected failure, as the dots of the two packages associate otherwise and
+  an unconverged singular solve follows its rounding;
 * ``--device cuda`` where there is no CUDA fails and says so.
 """
 import importlib.util
@@ -338,22 +339,45 @@ def _poisson_twin_against_jax(seed):
     assert np.abs(sp - sj).max() < 1e-4 * scale
 
 
-# ------------------------------------------ the standing fault ROADMAP C4
+# ---------------------------------- poisson seed 11 (ROADMAP C4, repaired)
 
 #: ``poisson``'s seed 11: 4^3, one slot, periodic x and z, one refinement
 #: round, every cell solved, so the system is singular and 40 float32
 #: iterations end unconverged at constants that follow the rounding order
 C4_SEED = 11
 C4 = pytest.mark.xfail(strict=True, raises=AssertionError,
-                       reason="ROADMAP C4: poisson seed 11, unconverged singular float32 "
-                              "solves end at different constants")
+                       reason="ROADMAP C4 residue: the twin's dot order is not the JAX "
+                              "kernel's, and seed 11's unconverged singular float32 "
+                              "solves end at constants that follow it")
 
 
-@C4
 def test_poisson_c4_body_check():
     """The body's own checks at seed 11: B8's twin against the plain
     float32 solve, solutions within 1e-4 of scale."""
     differential.one_poisson(C4_SEED, "cpu")
+
+
+@pytest.mark.parametrize("seed", [C4_SEED, 29])
+def test_poisson_plain_flat_solve_is_the_twin(seed):
+    """At one slot, float32, flat tables the plain solve
+    (``use_kernels=False``) is B8's twin: the same bits as the kernel path,
+    which on the CPU runs the twin too, and the twin is what it calls."""
+    g, cells, rhs, kw, n_dev, _mode, _rng = differential.poisson_case(seed, "cpu")
+    assert n_dev == 1
+    pk = dccrg_tpu_torch.Poisson(g, dtype=np.float32, **kw)
+    px = dccrg_tpu_torch.Poisson(g, dtype=np.float32, use_kernels=False, **kw)
+    assert pk._solve_fast is not None and px._solve_whole is not None and not px.use_kernels
+    s = g.set_cell_data(g.new_state(pk.spec), "rhs", cells,
+                        (rhs - rhs.mean()).astype(np.float32))
+    out = []
+    for m in (pk, px):
+        reset_counts()
+        o, res, it = m.solve(s, max_iterations=40, stop_residual=1e-4)
+        assert PLAIN_CALLS["bicg_solve"] == 1
+        out.append((np.asarray(g.get_cell_data(o, "solution", cells)), res, it))
+    (sk, rk, ik), (sx, rx, ix) = out
+    assert ik == ix and rk == rx
+    np.testing.assert_array_equal(sk, sx)
 
 
 @C4
