@@ -191,6 +191,11 @@ class Grid:
         invalid ids, a set that does not tile the domain exactly, a cell
         listed with its ancestor, and a set that breaks the 2:1 balance
         all raise ``ValueError``."""
+        with _metrics.phase("grid.initialize"):
+            return self._initialize(n_devices, device, leaf_set, controllers)
+
+    def _initialize(self, n_devices, device, leaf_set, controllers) -> "Grid":
+        """:meth:`initialize`'s body."""
         self._assert_uninitialized()
         from .parallel.mesh import current
 
@@ -256,12 +261,13 @@ class Grid:
                 settings + self.geometry.params_to_file_bytes()
                 + (cells.tobytes() if leaf_set is not None else b""),
             )
-        if self._lb_method in ("HSFC", "SFC", "HILBERT"):
-            owner = hilbert_partition(self.mapping, cells, self.n_devices)
-        elif self._lb_method == "MORTON":
-            owner = morton_partition(self.mapping, cells, self.n_devices)
-        else:
-            owner = block_partition(cells, self.n_devices)
+        with _metrics.phase("grid.partition"):
+            if self._lb_method in ("HSFC", "SFC", "HILBERT"):
+                owner = hilbert_partition(self.mapping, cells, self.n_devices)
+            elif self._lb_method == "MORTON":
+                owner = morton_partition(self.mapping, cells, self.n_devices)
+            else:
+                owner = block_partition(cells, self.n_devices)
         self.leaves = LeafSet(cells=cells, owner=owner.astype(np.int32))
         self.initialized = True
         if leaf_set is None:
@@ -1087,6 +1093,11 @@ class Grid:
         every controller commits the union of all controllers' queues
         (``sync_adaptation``); ``presynced`` skips the union for a caller
         that already ran it."""
+        with _metrics.phase("grid.stop_refining"):
+            return self._stop_refining(presynced)
+
+    def _stop_refining(self, presynced: bool) -> np.ndarray:
+        """:meth:`stop_refining`'s body."""
         self._assert_no_staged_lb()
         self._assert_initialized()
         from .amr.refinement import commit_adaptation

@@ -63,6 +63,18 @@ rows in one message a peer.
 
 On CPU tensors each kernel wrapper computes with its plain twin.  A kernel
 that fails to build or launch raises: there is no fallback to another path.
+
+Telemetry (``obs.metrics``; none of it synchronises or reads the device):
+the spans ``advection.init``, ``advection.initialize_state``,
+``advection.set_cell_data``, ``advection.max_time_step``, ``advection.step``
+(a public ``step`` call) and ``advection.run`` (its ``path`` in the span's
+args: ``fused``, ``dense``, ``flat``, ``boxed``, ``general`` or ``split``),
+inside which ``advection.record`` (``_record_run``) and, on kernels B5 / B6,
+``advection.flat.inputs``, ``advection.flat.launch`` and
+``advection.flat.write_back``; the counters ``advection.host_reads{site}``
+(blocking device-to-host reads) and ``advection.h2d_copies{site}`` /
+``advection.h2d_bytes{site}`` (host arrays put on the device) of the stepping
+and ``dt`` paths, each counted where the call issues it, on any device.
 """
 from __future__ import annotations
 
@@ -71,6 +83,7 @@ import torch
 
 from ..convert import numpy_dtype, torch_dtype
 from ..obs import fused
+from ..obs.registry import metrics as _metrics
 from ..ops.dense_advection import (
     dense_step_arith,
     flux_update,
@@ -122,6 +135,22 @@ ML_BOXED_EDGE = {"ml_pallas": 180.0, "ml": 7.0}
 
 #: marks the boxed layout as not yet built (``Advection.boxed``)
 _UNBUILT = object()
+
+#: the ``advection.run`` span's args, by run path
+_RUN_ARGS = {p: {"path": p} for p in
+             ("fused", "dense", "flat", "boxed", "general", "split")}
+
+
+def _count_reads(site: str, reads: int, copies: int = 0, nbytes: int = 0) -> None:
+    """Count ``reads`` blocking device-to-host reads and ``copies``
+    host-to-device copies of ``nbytes`` in all at ``site`` (the
+    ``advection.host_reads`` / ``h2d_copies`` / ``h2d_bytes`` series)."""
+    if not _metrics.enabled:
+        return
+    labels = {"site": site}
+    _metrics.inc_many([(name, v, labels) for name, v in (
+        ("advection.host_reads", reads), ("advection.h2d_copies", copies),
+        ("advection.h2d_bytes", nbytes)) if v])
 
 
 def build_face_tables(grid, hood_id, tables, dtype, hood_arrays=None):
@@ -316,8 +345,12 @@ class _FlatRun:
                 "flux": torch.zeros_like(state["flux"])}
 
     def run(self, state, steps, dt):
-        out = self.kernel(*self.inputs(state), dt, steps, **self.kwargs)
-        return self.write_back(state, out)
+        with _metrics.phase("advection.flat.inputs"):
+            args = self.inputs(state)
+        with _metrics.phase("advection.flat.launch"):
+            out = self.kernel(*args, dt, steps, **self.kwargs)
+        with _metrics.phase("advection.flat.write_back"):
+            return self.write_back(state, out)
 
 
 class _XlaFlatRun:
@@ -362,10 +395,11 @@ class Advection:
         #: general path, which this pins (no dense path, no flat run)
         self.overlap = bool(overlap)
         self.dense = grid.epoch.dense if allow_dense and not self.overlap else None
-        if self.dense is not None:
-            self._init_dense()
-        else:
-            self._init_general()
+        with _metrics.phase("advection.init"):
+            if self.dense is not None:
+                self._init_dense()
+            else:
+                self._init_general()
 
     # ------------------------------------------------------- general path
 
@@ -521,6 +555,7 @@ class Advection:
         ok = (torch.isfinite(steps) & (steps > 0)
               & self.tables.local_mask[..., None])
         best = float(torch.where(ok, steps, torch.inf).min())
+        _count_reads("max_time_step", 1)
         if self.grid.controllers.multi:
             from ..utils.collectives import all_reduce
 
@@ -653,38 +688,39 @@ class Advection:
     def initialize_state(self):
         """Rotating-hump initial condition (initialize.hpp:36-80): solid-body
         rotation about the domain center, cosine density hump."""
-        grid = self.grid
-        cells = grid.get_cells()
-        centers = grid.geometry.get_center(cells)
-        vx = -centers[:, 1] + 0.5
-        vy = centers[:, 0] - 0.5
-        vz = np.zeros(len(cells))
-        radius = 0.15
-        r = np.minimum(
-            np.sqrt((centers[:, 0] - 0.25) ** 2 + (centers[:, 1] - 0.5) ** 2), radius
-        ) / radius
-        rho = 0.25 * (1 + np.cos(np.pi * r))
-        values = {"density": rho, "vx": vx, "vy": vy, "vz": vz}
+        with _metrics.phase("advection.initialize_state"):
+            grid = self.grid
+            cells = grid.get_cells()
+            centers = grid.geometry.get_center(cells)
+            vx = -centers[:, 1] + 0.5
+            vy = centers[:, 0] - 0.5
+            vz = np.zeros(len(cells))
+            radius = 0.15
+            r = np.minimum(
+                np.sqrt((centers[:, 0] - 0.25) ** 2 + (centers[:, 1] - 0.5) ** 2), radius
+            ) / radius
+            rho = 0.25 * (1 + np.cos(np.pi * r))
+            values = {"density": rho, "vx": vx, "vy": vy, "vz": vz}
 
-        if self.dense is None:
-            state = grid.new_state(self.spec)
-            for name in ("vx", "vy", "vz", "density"):
-                state = grid.set_cell_data(state, name, cells, values[name])
-            # ghosts need velocities once (the reference transfers all data
-            # at init); densities refresh every step
-            return self._exchange(state)
+            if self.dense is None:
+                state = grid.new_state(self.spec)
+                for name in ("vx", "vy", "vz", "density"):
+                    state = grid.set_cell_data(state, name, cells, values[name])
+                # ghosts need velocities once (the reference transfers all data
+                # at init); densities refresh every step
+                return self._exchange(state)
 
-        i = self.dense
-        shape = (len(self._slots), i.nz_local, i.ny, i.nx)
-        mine, (d, zl, y, x) = self._local_coords(cells)
-        state = {}
-        for name in self.spec:
-            host = np.zeros(shape, dtype=self.dtype)
-            vals = values.get(name)
-            if vals is not None:
-                host[d, zl, y, x] = vals[mine]
-            state[name] = torch.from_numpy(host).to(self.device)
-        return state
+            i = self.dense
+            shape = (len(self._slots), i.nz_local, i.ny, i.nx)
+            mine, (d, zl, y, x) = self._local_coords(cells)
+            state = {}
+            for name in self.spec:
+                host = np.zeros(shape, dtype=self.dtype)
+                vals = values.get(name)
+                if vals is not None:
+                    host[d, zl, y, x] = vals[mine]
+                state[name] = torch.from_numpy(host).to(self.device)
+            return state
 
     def _local_coords(self, ids):
         """Which of ``ids`` lie in this controller's slots, and their
@@ -708,24 +744,26 @@ class Advection:
         """Host-side per-cell write; returns a new state.  Under several
         controllers every controller is given every value and keeps its
         slots'."""
-        if self.dense is None:
-            return self.grid.set_cell_data(state, field, ids, values)
-        mine, (d, zl, y, x) = self._local_coords(ids)
-        host = state[field].cpu().numpy().copy()
-        vals = np.broadcast_to(np.asarray(values, dtype=host.dtype), mine.shape)
-        host[d, zl, y, x] = vals[mine]
-        return {**state, field: torch.from_numpy(host).to(self.device)}
+        with _metrics.phase("advection.set_cell_data"):
+            if self.dense is None:
+                return self.grid.set_cell_data(state, field, ids, values)
+            mine, (d, zl, y, x) = self._local_coords(ids)
+            host = state[field].cpu().numpy().copy()
+            vals = np.broadcast_to(np.asarray(values, dtype=host.dtype), mine.shape)
+            host[d, zl, y, x] = vals[mine]
+            return {**state, field: torch.from_numpy(host).to(self.device)}
 
     def step(self, state, dt):
-        if self.dense is None:
-            if self.overlap:
-                return self._split_step(state, self._scalar(dt))
-            return self._general_step(state, self._scalar(dt))
-        new_rho = self._step_density(
-            state["density"], state["vx"], state["vy"], state["vz"],
-            self._scalar(dt),
-        )
-        return {**state, "density": new_rho}
+        with _metrics.phase("advection.step"):
+            if self.dense is None:
+                if self.overlap:
+                    return self._split_step(state, self._scalar(dt))
+                return self._general_step(state, self._scalar(dt))
+            new_rho = self._step_density(
+                state["density"], state["vx"], state["vy"], state["vz"],
+                self._scalar(dt),
+            )
+            return {**state, "density": new_rho}
 
     # ---------------------------------------------------- cohort batching
 
@@ -901,13 +939,24 @@ class Advection:
         ``dense``, ``boxed``, ``flat``, ``split`` and ``general``."""
         if not self.grid.telemetry.enabled:
             return
-        try:
-            bps = self.grid.halo(None).bytes_moved(
-                {"density": state["density"]}
-            )
-        except Exception:  # noqa: BLE001 — telemetry must never raise
-            bps = 0
-        fused.record_run("advection", path, steps, bps)
+        with _metrics.phase("advection.record"):
+            try:
+                bps = self.grid.halo(None).bytes_moved(
+                    {"density": state["density"]}
+                )
+            except Exception:  # noqa: BLE001 — telemetry must never raise
+                bps = 0
+            fused.record_run("advection", path, steps, bps)
+
+    def _run_path(self) -> str:
+        """The path ``run`` takes, by ``_record_run``'s name."""
+        if self.dense is not None:
+            return "fused" if self.fused else "dense"
+        if self._prefer_boxed:
+            return "boxed"
+        if self._flat_run is not None:
+            return "flat"
+        return "split" if self.overlap else "general"
 
     def run(self, state, steps: int, dt):
         """Advance ``steps`` timesteps.  Dense: one whole-run kernel launch
@@ -918,21 +967,24 @@ class Advection:
         kernel launch for ``"pallas"`` / ``"ml_pallas"``), else the gather
         step (the split step with ``overlap``) per step."""
         steps, dt = int(steps), self._scalar(dt)
+        path = self._run_path()
+        with _metrics.phase("advection.run", _RUN_ARGS[path]):
+            self._record_run(path, steps, state)
+            return self._run(path, state, steps, dt)
+
+    def _run(self, path: str, state, steps: int, dt: float):
+        """:meth:`run`'s body on ``path``."""
+        if path == "boxed":
+            return self._boxed_run(state, steps, dt)
+        if path == "flat":
+            return self._flat_run.run(state, steps, dt)
         if self.dense is None:
-            if self._prefer_boxed:
-                self._record_run("boxed", steps, state)
-                return self._boxed_run(state, steps, dt)
-            if self._flat_run is not None:
-                self._record_run("flat", steps, state)
-                return self._flat_run.run(state, steps, dt)
-            self._record_run("split" if self.overlap else "general", steps, state)
             step = self._split_step if self.overlap else self._general_step
             for _ in range(steps):
                 state = step(state, dt)
             return state
         rho, vx, vy, vz = (state[k] for k in ("density", "vx", "vy", "vz"))
-        self._record_run("fused" if self.fused else "dense", steps, state)
-        if self.fused:
+        if path == "fused":
             new = fused_run(
                 rho[0], vx[0], vy[0], vz[0], self._mx, self._my,
                 self._mz_up[0], self._mz_dn[0], dt, steps,
@@ -951,14 +1003,22 @@ class Advection:
     def max_time_step(self, state) -> float:
         """CFL limit: min over cells of cell length / |v| per dimension
         (solve.hpp:284-330)."""
-        if self.dense is None:
-            return self._general_max_dt(state)
+        with _metrics.phase("advection.max_time_step"):
+            if self.dense is None:
+                return self._general_max_dt(state)
+            return self._dense_max_dt(state)
+
+    def _dense_max_dt(self, state) -> float:
+        """:meth:`max_time_step` on the dense layout: a host-to-device copy
+        of the cell length and a blocking read a dimension."""
         best = float("inf")
         for axis, name in enumerate(("vx", "vy", "vz")):
             v = state[name]
             s = torch.tensor(self._dx[axis], dtype=v.dtype, device=v.device) / v.abs()
             s = torch.where(torch.isfinite(s) & (s > 0), s, torch.inf)
             best = min(best, float(s.min()))
+        v = state["vx"]
+        _count_reads("max_time_step", 3, copies=3, nbytes=3 * v.element_size())
         if self.grid.controllers.multi:
             from ..utils.collectives import all_reduce
 

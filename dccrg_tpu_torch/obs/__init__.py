@@ -12,9 +12,12 @@ so its consoles (``tools/check_telemetry.py``, ``tools/slo_report.py``,
   epoch construction (``parallel/epoch.py``, ``parallel/epoch_delta.py``),
   load balancing and AMR commits (``grid.py``, ``amr/refinement.py``),
   checkpoint I/O (``io/checkpoint.py``), fault injection
-  (``resilience/inject.py``), the CUDA builds (``cuda_build.py``) and the
-  models' whole-run paths (``obs.fused``) — all recording from host code
-  that never synchronises with the device;
+  (``resilience/inject.py``), the CUDA builds (``cuda_build.py``), the
+  models' whole-run paths (``obs.fused``), the grid's set-up
+  (``grid.initialize``, ``grid.partition``, ``grid.stop_refining``) and
+  the advection model's spans and host-read / host-to-device counters
+  (``advection.*``) — all recording from host code that never
+  synchronises with the device;
 * a JSON exporter (:func:`export_json` -> ``telemetry.json``), a streaming
   exporter (:func:`stream_to`, incremental JSONL snapshots) and a
   structured event timeline (``obs.timeline``, exportable as Chrome
@@ -30,7 +33,9 @@ so its consoles (``tools/check_telemetry.py``, ``tools/slo_report.py``,
   ``device.busy_fraction{device=d}`` and per-kernel
   ``device.kernel_time_us{kernel}`` under the wrapper labels
   (``fused_run``, ``halo.ring_copy``, ...).  ``DCCRG_XPLANE=0`` opts out;
-  a capture without device events is the documented no-op;
+  a capture without device events is the documented no-op.  Every
+  ``metrics.phase`` span is a ``record_function`` annotation of whatever
+  ``torch.profiler`` capture records at the time;
 * the SLO plane (``obs.slo`` quantiles and merges, ``obs.flightrec``
   black box), its live side (``obs.live`` stream tailers and windowed
   views, ``obs.alerts`` rules) and its predictive side (``obs.cost``) —
@@ -43,7 +48,7 @@ independently (``DCCRG_TIMELINE=0``).
 """
 from .registry import MetricsRegistry, metrics, disable, enable
 from .export import export_json
-from .trace import profile_trace, trace_span
+from .trace import profile_trace
 from .stream import TelemetryStream, stream_to, maybe_flush
 from .events import (
     EventTimeline,
@@ -82,7 +87,6 @@ __all__ = [
     "disable",
     "export_json",
     "profile_trace",
-    "trace_span",
     "TelemetryStream",
     "stream_to",
     "maybe_flush",

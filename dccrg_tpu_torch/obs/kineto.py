@@ -19,7 +19,7 @@ What comes out (:func:`ingest`):
   versions) — the link to the wrapper labels ``merge`` attributes device
   time to;
 * **host markers** — every ``user_annotation`` event: the registry's
-  phase spans under ``profile_trace(annotate=True)``, workload markers,
+  phase spans (opened whenever a profiler records), workload markers,
   and the clock-sync beacons below;
 * **clock syncs** — :func:`emit_clock_sync` opens zero-work
   ``record_function`` spans whose NAME embeds ``time.perf_counter_ns()``

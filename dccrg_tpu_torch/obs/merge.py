@@ -530,10 +530,11 @@ def build_from_capture(ingest_or_dir) -> MergedTrace:
     """Post-hoc merge of a capture from ANOTHER process (or an earlier
     run): the live host timeline is gone, so the host track is
     reconstructed from the capture's own ``record_function`` markers —
-    the phase spans ``profile_trace(annotate=True)`` emitted.  Host and
-    device evidence then share the profiler clock, so alignment is the
-    identity; the trade is that only annotated phases (not every
-    timeline span) appear on the host track."""
+    the registry's ``phase`` spans, which every capture records.  Host
+    and device evidence then share the profiler clock, so alignment is
+    the identity; the trade is that only annotated phases (not every
+    timeline span: ``phase_add`` records a span after it ends) appear on
+    the host track."""
     ing = (ingest_or_dir if isinstance(ingest_or_dir, _xp.XIngest)
            else _xp.ingest(ingest_or_dir))
     tl = EventTimeline(enabled=True)

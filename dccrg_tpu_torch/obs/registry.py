@@ -20,8 +20,8 @@ Values are kept as plain Python scalars so a report JSON-serializes
 without custom encoders.
 
 A copy of the JAX package's ``obs/registry.py``; the one framework call,
-the annotation a phase opens under ``profile_trace``, is
-``torch.profiler.record_function`` here.  Series names, labels and the
+the annotation a phase opens while a ``torch.profiler`` capture records,
+is ``torch.profiler.record_function`` here.  Series names, labels and the
 report's layout are the JAX package's, so its consoles read the port's
 exports unchanged.
 """
@@ -29,12 +29,19 @@ from __future__ import annotations
 
 import math
 import os
+import sys
 import threading
 import time
 import weakref
 from contextlib import contextmanager
 
 __all__ = ["MetricsRegistry", "metrics", "enable", "disable"]
+
+
+#: the module whose ``_is_profiler_enabled`` is True while a
+#: ``torch.profiler`` capture records, and whose ``record_function`` opens
+#: a phase's annotation in it
+_PROFILER = "torch.autograd.profiler"
 
 
 def _labels_key(labels: dict) -> tuple:
@@ -76,10 +83,6 @@ class MetricsRegistry:
 
     def __init__(self, enabled: bool = True):
         self.enabled = bool(enabled)
-        #: when True, ``phase`` additionally opens a named
-        #: ``torch.profiler.record_function`` span (opt-in via
-        #: ``obs.profile_trace``)
-        self.annotate = False
         self._lock = threading.Lock()
         self._counters: dict = {}   # (name, labelkey) -> number
         self._gauges: dict = {}     # (name, labelkey) -> number
@@ -279,11 +282,18 @@ class MetricsRegistry:
             fr.add_span(name, begin, dt)
 
     @contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, args: dict | None = None):
         """Time a named phase.  Re-entrant: only the outermost span of a
         name (per thread) adds wall time and a completion, so recursive
         instrumented paths (e.g. a rebuild inside a migration) never
-        double-count."""
+        double-count.  ``args`` go onto the span's timeline record.
+
+        While a ``torch.profiler`` capture records (any capture:
+        ``obs.profile_trace``, a benchmark's, a user's own), the span also
+        opens a ``record_function`` of its name, so the capture carries
+        the phase on the device trace's clock; with none recording, that
+        costs a dictionary lookup and an attribute read (the registry
+        imports no torch: without torch loaded no profiler records)."""
         if not self.enabled:
             yield
             return
@@ -293,11 +303,10 @@ class MetricsRegistry:
         outer = depths.get(name, 0)
         depths[name] = outer + 1
         ann = None
-        if self.annotate:
+        prof = sys.modules.get(_PROFILER)
+        if prof is not None and prof._is_profiler_enabled:
             try:
-                from torch.profiler import record_function
-
-                ann = record_function(name)
+                ann = prof.record_function(name)
                 ann.__enter__()
             except Exception:  # noqa: BLE001 — tracing must never break work
                 ann = None
@@ -317,7 +326,7 @@ class MetricsRegistry:
                     else:
                         rec[0] += dt
                         rec[1] += 1
-                self._span_hooks(name, t0, dt)
+                self._span_hooks(name, t0, dt, args)
             else:
                 depths[name] = outer
 

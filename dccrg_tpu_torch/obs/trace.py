@@ -1,11 +1,13 @@
-"""Opt-in ``torch.profiler`` tracing around instrumented phases.
+"""``torch.profiler`` capture of a region, with the clock-sync beacons that
+place it on the host timeline.
 
 ``profile_trace(log_dir)`` captures a profiler trace (view in perfetto /
-``chrome://tracing``) and, for its duration, makes every
-``metrics.phase(...)`` span open a named ``record_function`` — so the
-halo/epoch/LB/AMR/checkpoint seams show up as labeled host spans
-alongside the device timeline.  The JAX package's ``obs/trace.py`` with
-``torch.profiler`` in place of ``jax.profiler``.
+``chrome://tracing``).  The registry's phase spans open a named
+``record_function`` whenever a profiler records (``MetricsRegistry.phase``),
+so the halo/epoch/LB/AMR/checkpoint/model seams show up as labeled host
+spans alongside the device timeline, in this capture as in any other.  The
+JAX package's ``obs/trace.py`` with ``torch.profiler`` in place of
+``jax.profiler``.
 """
 from __future__ import annotations
 
@@ -14,13 +16,11 @@ import socket
 import time
 from contextlib import contextmanager
 
-from .registry import metrics
-
-__all__ = ["profile_trace", "trace_span"]
+__all__ = ["profile_trace"]
 
 
 @contextmanager
-def profile_trace(log_dir: str, annotate: bool = True, registry=None):
+def profile_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the enclosed region and write
     Kineto's Chrome trace into ``log_dir`` on exit
     (``<host>_<pid>.<ns>.pt.trace.json``, the file ``obs.kineto.ingest``
@@ -31,8 +31,6 @@ def profile_trace(log_dir: str, annotate: bool = True, registry=None):
     events to record, and the ingest of such a capture is the documented
     no-op.
 
-    ``annotate`` also switches the registry's phase spans to open
-    ``record_function`` markers while the trace runs (restored after).
     Clock-sync beacons (``obs.kineto.emit_clock_sync``) are dropped at
     both ends of the capture: they let ``obs.merge`` place the captured
     device spans on the host ``EventTimeline`` clock.  Skipped under
@@ -44,14 +42,10 @@ def profile_trace(log_dir: str, annotate: bool = True, registry=None):
 
     from .kineto import emit_clock_sync
 
-    reg = registry if registry is not None else metrics
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(str(log_dir), exist_ok=True)
-    prev = reg.annotate
-    if annotate:
-        reg.annotate = True
     prof = profile(activities=activities)
     prof.start()
     try:
@@ -61,18 +55,6 @@ def profile_trace(log_dir: str, annotate: bool = True, registry=None):
         try:
             emit_clock_sync()
         finally:
-            try:
-                prof.stop()
-            finally:
-                reg.annotate = prev
+            prof.stop()
         name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
         prof.export_chrome_trace(os.path.join(str(log_dir), name))
-
-
-@contextmanager
-def trace_span(name: str):
-    """A single named ``record_function`` span (host timeline marker)."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield

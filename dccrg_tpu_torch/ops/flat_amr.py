@@ -63,6 +63,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..obs.registry import metrics as _metrics
 from . import LAUNCHES, PLAIN_CALLS
 from .dense_advection import _check, _f32, _launched, _on_cpu
 from .resident import RUN_THREADS, card_limits, cuts
@@ -505,6 +506,17 @@ def _rnd(v, like: torch.Tensor) -> float:
     return float(torch.tensor(v, dtype=torch.float64).to(like.dtype))
 
 
+def _count_h2d(site: str, *arrays) -> None:
+    """Count host ``arrays`` put on the device by one weights call, as the
+    advection model's ``advection.h2d_copies`` / ``advection.h2d_bytes``
+    at ``site`` (on any device: what the call issues)."""
+    if _metrics.enabled:
+        labels = {"site": site}
+        _metrics.inc_many([
+            ("advection.h2d_copies", len(arrays), labels),
+            ("advection.h2d_bytes", sum(int(a.nbytes) for a in arrays), labels)])
+
+
 def _face_weights(vl, vh, fl, fh, pos, area_d, extra_invalid=None):
     """Signed upwind weight pair for the faces pairing (low, high) voxel
     planes, two-level form: the reference's 2:1 length-weighted face
@@ -541,6 +553,7 @@ def compute_flat_weights(tables, VX, VY, VZ):
     shape = (nz1, ny1, nx1)
     dev = VX.device
     leaf = torch.as_tensor(tables["leaf_fine"], device=dev)
+    _count_h2d("flat.weights", tables["leaf_fine"])
     area = tables["area_f"]
     periodic = tables["periodic"]
     out = []
@@ -591,6 +604,7 @@ def compute_flat_ml_weights(tables, VX, VY, VZ, dtype=torch.float32):
     dev = VX.device
     lev = torch.as_tensor(tables["lev"][0], device=dev)
     lidx = torch.as_tensor(tables["lidx"][0], device=dev)
+    _count_h2d("flat.ml_weights", tables["lev"][0], tables["lidx"][0])
     area = tables["area_f"]
     periodic = tables["periodic"]
     out = []

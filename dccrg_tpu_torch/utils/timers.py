@@ -63,10 +63,10 @@ timers = PhaseTimers(registry=_global_metrics)
 
 @contextmanager
 def torch_trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace around a region, with a
-    ``record_function`` span for every registry phase (``obs.
-    profile_trace``)."""
+    """Capture a ``torch.profiler`` trace around a region (``obs.
+    profile_trace``); every registry phase inside it is a
+    ``record_function`` span of the capture."""
     from ..obs.trace import profile_trace
 
-    with profile_trace(log_dir, annotate=True):
+    with profile_trace(log_dir):
         yield

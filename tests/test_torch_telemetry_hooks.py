@@ -40,6 +40,11 @@ EXCLUDED = {
                         "first use (cuda_build), once a process",
     "compile": "the phase of epoch.recompiles (same reason)",
     "hbm.": "device allocator gauges: the CPU has none in either package",
+    "grid.": "the port's set-up spans (grid.initialize, grid.partition, "
+             "grid.stop_refining), which the JAX package does not record",
+    "advection.": "the port's model spans and its host-read and "
+                  "host-to-device counters, which the JAX package does not "
+                  "record (its step runs inside a jitted program)",
 }
 
 #: series of the Advection run that differ by design: the JAX package's

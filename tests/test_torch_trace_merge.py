@@ -201,23 +201,24 @@ def test_opt_out_and_missing_capture(tmp_path, monkeypatch):
 
 def test_real_cpu_capture(tmp_path):
     """A ``profile_trace`` capture on the CPU: the registry's phases appear
-    as host markers, both ends' clock syncs are found, and there is no
-    device line (the CPU's aten ops are not promoted to one) — the
-    documented no-op, with no gauge recorded."""
+    as host markers (those opened after it do not), both ends' clock syncs
+    are found, and there is no device line (the CPU's aten ops are not
+    promoted to one) — the documented no-op, with no gauge recorded."""
     log_dir = tmp_path / "prof"
     tobs.timeline.clear()     # the port's timeline: bounded, shared by the worker
     with tobs.profile_trace(str(log_dir)) as prof:
-        assert tobs.metrics.annotate
         with tobs.metrics.phase("probe.phase"):
             x = torch.arange(4096, dtype=torch.float32)
             y = (x * 2.0).sum()
-    assert not tobs.metrics.annotate and float(y) > 0
+    with tobs.metrics.phase("probe.after"):
+        pass
+    assert float(y) > 0
     assert prof is not None
     files = kineto.find_trace_files(str(log_dir))
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     ing = kineto.ingest(str(log_dir))
     names = [m.name for m in ing.markers]
-    assert "probe.phase" in names
+    assert "probe.phase" in names and "probe.after" not in names
     syncs = kineto.clock_syncs(ing)
     assert len(syncs) >= 2
     assert not ing.has_device_evidence and ing.exec_lines == []
